@@ -1,0 +1,610 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch + CUDA port (`src/repro_torch`).
+
+    python3 chip_smoke.py            # all phases, one CUDA card
+
+Run from the repository root on a machine with an NVIDIA H100. It builds
+the four hand-written kernels from `src/repro_torch/kernels/csrc` (nvcc,
+all sources at once), then:
+
+  1. kernels — each kernel against its plain PyTorch twin on the card, at
+     the fastvlm-1.7b serving shapes (d_model 1536, F 8960, H 12, Hkv 2,
+     Dh 128; decode M = 4, prefill M = 320, attention S = L = 320, paged
+     decode B = 4, W = 128, max_len 512) in f32 (TF32 off) and bf16, plus
+     ragged, dead-page and sparse-read cases. Tolerances: max-abs error
+     <= 1e-4 in f32 (f32 sums in another order) and <= 2e-2 in bf16
+     (inputs are scaled so outputs stay below magnitude 2, where one bf16
+     rounding step is <= 7.8e-3). Times are the median of 25 CUDA-event
+     timed calls after warm-up;
+  2. parity — fastvlm-1.7b at full width and depth in f32: the serving
+     Engine's tokens against `generate` on 2 VQA + 2 text requests; a
+     differing token passes only where `generate`'s top-2 logit margin at
+     that step is below 1e-3 (a tie);
+  3. serving — fastvlm-1.7b in bf16 through the Engine over the tiered
+     store (hot window 128, max_len 512): 8 requests (4 VQA with 64 visual
+     + 192 text tokens, 4 text with 256) at concurrency 4, 64 new tokens
+     each. This is the main path: the kernels' launch counters are zeroed
+     just before it and read just after, and every kernel must have run.
+
+It prints the card (name, power limit), the kernel build time, the
+phases' results, then one JSON line {"kernels": [...]} and, last, the
+device JSON line. It fails (non-zero exit, no result lines) without a
+card, outside the repository, or when any check fails. `--phases`
+selects a subset (e.g. `--phases kernels` for a quick compile check).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out" / "chip_smoke"
+
+# fastvlm-1.7b serving shapes
+D_MODEL, D_FF, HEADS, KV_HEADS, HEAD_DIM = 1536, 8960, 12, 2, 128
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+REPLACES = {
+    "fused_norm": "src/repro/kernels/fused_norm.py:35",
+    "attn_stream": "src/repro/kernels/attn_stream.py:90",
+    "ffn_act": "src/repro/kernels/ffn_act.py:71",
+    "paged_decode_tiered": "src/repro/kernels/paged_decode.py:147",
+}
+SOURCES = {
+    "fused_norm": "src/repro_torch/kernels/csrc/fused_norm.cu",
+    "attn_stream": "src/repro_torch/kernels/csrc/attn_stream.cu",
+    "ffn_act": "src/repro_torch/kernels/csrc/ffn_act.cu",
+    "paged_decode_tiered": "src/repro_torch/kernels/csrc/paged_decode.cu",
+}
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def peaks(name: str) -> dict:
+    """Published dense peaks of the card (NVIDIA data sheets)."""
+    if "PCIe" in name:
+        return {"bw": 2.0e12, "bfloat16": 756e12, "float32": 51e12}
+    if "NVL" in name:
+        return {"bw": 3.9e12, "bfloat16": 835e12, "float32": 60e12}
+    return {"bw": 3.35e12, "bfloat16": 989e12, "float32": 67e12}  # SXM
+
+
+def bound(pk: dict, nbytes: float, flops: float, dtype: str):
+    t_b, t_f = nbytes / pk["bw"], flops / pk[dtype]
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
+    """Median CUDA-event time of one call, after ``warm`` calls."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e))
+    return statistics.median(ts)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: the summed time of the device events
+    (kernels, copies) that ``reps`` calls launch, per call, from
+    torch.profiler — the wrapper's host time excluded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / reps
+
+
+def require(cond, msg) -> None:
+    """A check of this script; unlike ``assert`` it survives ``-O``."""
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# phase 1: kernels against their plain twins
+# ---------------------------------------------------------------------------
+def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
+                 dev_timer=device_ms) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import kv_tiers as KT
+    from repro_torch.kernels import attn_stream as AS
+    from repro_torch.kernels import ffn_act as FF
+    from repro_torch.kernels import fused_norm as FN
+    from repro_torch.kernels import paged_decode as PD
+
+    dev = torch.device(dev)
+    time_ms, dev_ms = timer, dev_timer
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    results: dict[str, dict] = {}
+    cases: dict[str, list] = {k: [] for k in REPLACES}
+
+    def record(name, label, dtype, err, main=None):
+        tol = TOL[dtype]
+        ok = err <= tol
+        cases[name].append({"case": label, "dtype": dtype,
+                            "max_abs_err": err, "tol": tol, "ok": ok})
+        print(f"[kernels] {name:20s} {label:34s} {dtype:8s} "
+              f"max|err|={err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"{name} {label} {dtype}: {err} > {tol}")
+        if main is not None:
+            results[name] = dict(main, max_abs_err=err, dtype=dtype)
+
+    for dt in ("float32", "bfloat16"):
+        tdt = getattr(torch, dt)
+        es = torch.tensor([], dtype=tdt).element_size()
+        # ---- fused_norm: decode M=4 and prefill M=320, rms --------------
+        for M in (4, 320):
+            x = randn(M, D_MODEL, dtype=tdt)
+            sc = (0.25 + 0.1 * torch.rand(D_MODEL, generator=gen,
+                                          device=dev)).to(tdt)
+            out = FN.fused_norm(x, sc, None, "rms")
+            err = max_err(out, FN.fused_norm_plain(x, sc, None, "rms"))
+            main = None
+            if M == 4 and dt == "bfloat16":
+                ms = time_ms(lambda: FN.fused_norm(x, sc, None, "rms"))
+                plain = time_ms(lambda: FN.fused_norm_plain(x, sc, None,
+                                                            "rms"))
+                lib = (time_ms(lambda: F.rms_norm(x, (D_MODEL,), sc, 1e-6))
+                       if hasattr(F, "rms_norm") else None)
+                b_ms, b_by = bound(pk, (2 * M * D_MODEL + D_MODEL) * es, 0,
+                                   dt)
+                main = {"shape": f"x ({M}, {D_MODEL}) rms", "ms": ms,
+                        "device_ms": dev_ms(lambda: FN.fused_norm(
+                            x, sc, None, "rms")),
+                        "plain_ms": plain, "library_ms": lib,
+                        "bound_ms": b_ms, "bound_by": b_by}
+            record("fused_norm", f"rms M={M}", dt, err, main)
+        # ---- ffn_act: decode M=4 and prefill M=320, silu_gated ----------
+        w_up = randn(D_MODEL, D_FF, dtype=tdt, std=0.5 * D_MODEL ** -0.5)
+        w_gate = randn(D_MODEL, D_FF, dtype=tdt, std=0.5 * D_MODEL ** -0.5)
+        w_down = randn(D_FF, D_MODEL, dtype=tdt, std=D_FF ** -0.5)
+        for M in (4, 320):
+            x = randn(M, D_MODEL, dtype=tdt)
+            out = FF.ffn_act(x, w_up, w_gate, w_down, "silu_gated")
+            err = max_err(out, FF.ffn_act_plain(x, w_up, w_gate, w_down,
+                                                "silu_gated"))
+            main = None
+            if M == 4 and dt == "bfloat16":
+                ms = time_ms(lambda: FF.ffn_act(x, w_up, w_gate, w_down,
+                                                "silu_gated"))
+                plain = time_ms(lambda: FF.ffn_act_plain(
+                    x, w_up, w_gate, w_down, "silu_gated"))
+                nbytes = (2 * M * D_MODEL + 3 * D_MODEL * D_FF) * es
+                b_ms, b_by = bound(pk, nbytes, 6 * M * D_MODEL * D_FF, dt)
+                main = {"shape": f"x ({M}, {D_MODEL}), F {D_FF}, silu_gated",
+                        "ms": ms, "plain_ms": plain, "library_ms": None,
+                        "device_ms": dev_ms(lambda: FF.ffn_act(
+                            x, w_up, w_gate, w_down, "silu_gated")),
+                        "bound_ms": b_ms, "bound_by": b_by}
+            if M == 320 and dt == "bfloat16":
+                results["ffn_act_prefill_ms"] = time_ms(
+                    lambda: FF.ffn_act(x, w_up, w_gate, w_down,
+                                       "silu_gated"), reps=20)
+                results["ffn_act_prefill_device_ms"] = dev_ms(
+                    lambda: FF.ffn_act(x, w_up, w_gate, w_down,
+                                       "silu_gated"))
+            record("ffn_act", f"silu_gated M={M}", dt, err, main)
+        del w_up, w_gate, w_down
+        # ---- attn_stream: prefill S = L = 320 causal --------------------
+        S = L = 320
+        q = randn(1, HEADS, S, HEAD_DIM, dtype=tdt)
+        k = randn(1, KV_HEADS, L, HEAD_DIM, dtype=tdt)
+        v = randn(1, KV_HEADS, L, HEAD_DIM, dtype=tdt, std=0.4)
+        out = AS.attn_stream(q, k, v, causal=True)
+        err = max_err(out, AS.attn_stream_plain(q, k, v, True))
+        main = None
+        if dt == "bfloat16":
+            ms = time_ms(lambda: AS.attn_stream(q, k, v, causal=True))
+            plain = time_ms(lambda: AS.attn_stream_plain(q, k, v, True))
+            if tuple(int(p) for p in torch.__version__.split(".")[:2]) \
+                    >= (2, 5):
+                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True))
+            else:
+                ke = k.repeat_interleave(HEADS // KV_HEADS, 1)
+                ve = v.repeat_interleave(HEADS // KV_HEADS, 1)
+                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    q, ke, ve, is_causal=True))
+            pairs = S * (S + 1) // 2
+            nbytes = (2 * HEADS * S + 2 * KV_HEADS * L) * HEAD_DIM * es
+            b_ms, b_by = bound(pk, nbytes, 4 * HEADS * HEAD_DIM * pairs, dt)
+            main = {"shape": f"q (1, {HEADS}, {S}, {HEAD_DIM}), kv heads "
+                             f"{KV_HEADS}, causal", "ms": ms,
+                    "device_ms": dev_ms(lambda: AS.attn_stream(
+                        q, k, v, causal=True)),
+                    "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                    "bound_by": b_by}
+        record("attn_stream", "causal S=L=320", dt, err, main)
+        # ---- paged_decode_tiered: B=4, W=128, max_len 512, 384 cold -----
+        B, W, ML, G = 4, 128, 512, HEADS // KV_HEADS
+        qd = randn(B, KV_HEADS, G, HEAD_DIM, dtype=tdt)
+        hk = randn(B, W, KV_HEADS, HEAD_DIM, dtype=tdt)
+        hv = randn(B, W, KV_HEADS, HEAD_DIM, dtype=tdt, std=0.3)
+
+        def cold():
+            qv = torch.randint(-127, 128, (B, ML, KV_HEADS, HEAD_DIM),
+                               generator=gen, device=dev, dtype=torch.int8)
+            s = (0.002 + 0.006 * torch.rand(B, ML, KV_HEADS, 1,
+                                            generator=gen, device=dev))
+            return qv, s
+        ckq, cks = cold()
+        cvq, cvs = cold()
+        lengths = torch.full((B,), ML - 1, dtype=torch.int32, device=dev)
+        table = KT.cold_page_table(lengths, W, ML, 128)
+        args = (qd, hk, hv, ckq, cks, cvq, cvs, lengths, table)
+        out = PD.paged_decode_tiered(*args)
+        err = max_err(out, PD.paged_decode_tiered_plain(*args))
+        main = None
+        if dt == "bfloat16":
+            ms = time_ms(lambda: PD.paged_decode_tiered(*args))
+            plain = time_ms(lambda: PD.paged_decode_tiered_plain(*args))
+            n_cold = int(sum(max(int(p) - W + 1, 0) for p in lengths))
+            nbytes = (2 * qd.numel() * es + 2 * hk.numel() * es
+                      + 2 * n_cold * KV_HEADS * (HEAD_DIM + 4)
+                      + lengths.numel() * 4 + table.numel() * 4)
+            flops = 4 * G * HEAD_DIM * KV_HEADS * (B * W + n_cold)
+            b_ms, b_by = bound(pk, nbytes, flops, dt)
+            main = {"shape": f"B {B}, Hkv {KV_HEADS}, G {G}, W {W}, "
+                             f"max_len {ML}, {n_cold // B} cold tokens/slot",
+                    "ms": ms, "plain_ms": plain, "library_ms": None,
+                    "device_ms": dev_ms(lambda: PD.paged_decode_tiered(
+                        *args)),
+                    "bound_ms": b_ms, "bound_by": b_by}
+        record("paged_decode_tiered", "B=4 W=128 384 cold/slot", dt, err,
+               main)
+        # ragged per-slot lengths, one dead page, and the sparse read
+        lengths_r = torch.tensor([ML - 1, 300, 129, 20], dtype=torch.int32,
+                                 device=dev)
+        table_r = KT.cold_page_table(lengths_r, W, ML, 128).clone()
+        table_r[0, 1] = -1
+        for tau in (0.0, 1e-3):
+            args_r = (qd, hk, hv, ckq, cks, cvq, cvs, lengths_r, table_r)
+            err = max_err(PD.paged_decode_tiered(*args_r, tau=tau),
+                          PD.paged_decode_tiered_plain(*args_r, tau=tau))
+            record("paged_decode_tiered",
+                   f"ragged + dead page, tau={tau:g}", dt, err)
+
+    # ragged / odd shapes, f32
+    tdt = torch.float32
+    x = randn(7, 200, dtype=tdt)
+    sc, bi = randn(200, dtype=tdt, std=0.3), randn(200, dtype=tdt, std=0.3)
+    record("fused_norm", "layer M=7 D=200", "float32",
+           max_err(FN.fused_norm(x, sc, bi, "layer"),
+                   FN.fused_norm_plain(x, sc, bi, "layer")))
+    for kind in ("gelu", "relu2", "gelu_gated"):
+        x = randn(5, 320, dtype=tdt)
+        wu = randn(320, 1000, dtype=tdt, std=320 ** -0.5)
+        wg = randn(320, 1000, dtype=tdt, std=320 ** -0.5) \
+            if kind == "gelu_gated" else None
+        wd = randn(1000, 320, dtype=tdt, std=1000 ** -0.5)
+        record("ffn_act", f"{kind} M=5 D=320 F=1000", "float32",
+               max_err(FF.ffn_act(x, wu, wg, wd, kind),
+                       FF.ffn_act_plain(x, wu, wg, wd, kind)))
+    for (S, L, causal, Dh) in ((100, 333, True, 128), (77, 77, False, 64),
+                               (5, 40, True, 16)):
+        q = randn(2, 6, S, Dh, dtype=tdt)
+        k = randn(2, 3, L, Dh, dtype=tdt)
+        v = randn(2, 3, L, Dh, dtype=tdt)
+        record("attn_stream", f"S={S} L={L} causal={causal} D={Dh}",
+               "float32", max_err(AS.attn_stream(q, k, v, causal=causal),
+                                  AS.attn_stream_plain(q, k, v, causal)))
+    results["cases"] = cases
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phases 2 and 3: the model through the serving engine
+# ---------------------------------------------------------------------------
+def _model(dtype: str, hot_window: int, dev: str = "cuda"):
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config("fastvlm-1.7b").replace(
+        param_dtype=dtype, compute_dtype=dtype, kv_policy="tiered",
+        kv_hot_window=hot_window)
+    model = Model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, model, model.init(gen, device=dev)
+
+
+def _requests(cfg, n_vqa: int, n_text: int, text_with_image: int,
+              text_len: int, gen_len: int, seed: int):
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    f = cfg.frontend
+    reqs = []
+    for i in range(n_vqa + n_text):
+        vqa = i % 2 == 0 and i // 2 < n_vqa
+        patches = (rng.standard_normal((f.num_tokens, f.frontend_dim))
+                   .astype(np.float32) if vqa else None)
+        toks = rng.integers(0, cfg.vocab_size,
+                            text_with_image if vqa else text_len)
+        reqs.append(Request(rid=i, tokens=toks.astype(np.int32),
+                            max_new_tokens=gen_len, patches=patches))
+    return reqs
+
+
+def parity_phase(dev: str = "cuda") -> dict:
+    import torch
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.serving import Engine, LocalBackend
+
+    cfg, model, params = _model("float32", hot_window=64, dev=dev)
+    reqs = _requests(cfg, n_vqa=2, n_text=2, text_with_image=64,
+                     text_len=128, gen_len=16, seed=1)
+    engine = Engine(LocalBackend(model, params, 4, 160, device=dev))
+    done = {r.rid: r.generated for r in engine.run(reqs)}
+    ties = 0
+    for r in reqs:
+        batch = {"tokens": r.tokens[None]}
+        if r.patches is not None:
+            batch["patches"] = r.patches[None]
+        toks, _, logits = generate(model, params, batch, r.prompt_len,
+                                   r.max_new_tokens, device=dev,
+                                   return_logits=True)
+        ref = toks[0].tolist()
+        got = done[r.rid]
+        require(len(got) == len(ref) == r.max_new_tokens,
+                f"request {r.rid}: token counts {len(got)}, {len(ref)}")
+        for t, (a, b) in enumerate(zip(got, ref)):
+            if a == b:
+                continue
+            top2 = logits[0, t].float().topk(2).values
+            margin = float(top2[0] - top2[1])
+            require(margin < 1e-3,
+                    f"request {r.rid} step {t}: engine token {a} != "
+                    f"generate {b} with top-2 margin {margin:.3e} "
+                    f"(not a tie)")
+            ties += 1
+            break           # the streams legitimately diverge after a tie
+        print(f"[parity] request {r.rid} ({'VQA' if r.patches is not None else 'text'}, "
+              f"prompt {r.prompt_len}): engine == generate "
+              f"{'(tie-broken)' if got != ref else ''}: {got[:8]}...")
+    del engine, params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"requests": len(reqs), "tie_breaks": ties}
+
+
+def serving_phase(dev: str = "cuda") -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serving import Engine, LocalBackend, aggregate_metrics
+
+    cfg, model, params = _model("bfloat16", hot_window=128, dev=dev)
+    W, max_len, gen_len = 128, 512, 64
+    reqs = _requests(cfg, n_vqa=4, n_text=4, text_with_image=192,
+                     text_len=256, gen_len=gen_len, seed=2)
+    backend = LocalBackend(model, params, 4, max_len, device=dev)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    engine = Engine(backend)
+    step_s = []
+    decode = backend.decode_step
+
+    def timed_decode(*a):
+        sync()
+        t0 = time.perf_counter()
+        out = decode(*a)          # returns host tokens: synchronizes
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    backend.decode_step = timed_decode
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = engine.run(reqs)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    require(len(done) == len(reqs), "not every request finished")
+    for r in done:
+        require(r.n_generated == gen_len,
+                f"request {r.rid} made {r.n_generated} tokens")
+        require(all(0 <= t < model.padded_vocab for t in r.generated),
+                f"request {r.rid}: token id out of range")
+    missing = [k for k, n in counts.items() if n <= 0]
+    require(not missing, f"kernels never launched on the main path: "
+                         f"{missing}")
+    ctx = max(r.prompt_len + r.n_generated - 1 for r in done)
+    rep = engine.endurance_report()
+    require(ctx > W and rep["total_cold_writes"] > 0, "no cold page was live")
+    require(rep["write_once_ok"], f"endurance violated: {rep}")
+    m = aggregate_metrics(done, wall)
+    dec_ms = 1e3 * np.asarray(step_s)
+    out = {"requests": m["requests"], "tokens": m["total_tokens"],
+           "wall_s": wall, "tok_per_s": m["tok_per_s"],
+           "ttft_p50_ms": 1e3 * m["ttft_p50_s"],
+           "ttft_p95_ms": 1e3 * m["ttft_p95_s"],
+           "decode_step_p50_ms": float(np.percentile(dec_ms, 50)),
+           "decode_step_p95_ms": float(np.percentile(dec_ms, 95)),
+           "decode_steps": int(dec_ms.size),
+           "max_context": ctx, "cold_writes": rep["total_cold_writes"],
+           "launches": counts,
+           "prefill_chunks": engine.stats["prefill_chunks"]}
+    print(f"[serving] fastvlm-1.7b bf16 tiered W={W} max_len={max_len}: "
+          f"{out['requests']} requests, {out['tokens']} tokens in "
+          f"{wall:.2f} s = {out['tok_per_s']:.1f} tok/s; TTFT p50 "
+          f"{out['ttft_p50_ms']:.1f} ms p95 {out['ttft_p95_ms']:.1f} ms; "
+          f"decode step p50 {out['decode_step_p50_ms']:.2f} ms p95 "
+          f"{out['decode_step_p95_ms']:.2f} ms over {out['decode_steps']} "
+          f"steps; launches {counts}")
+    if dev == "cuda":
+        out["profile"] = profile_decode(model, params, cfg, dev)
+    return out
+
+
+def profile_decode(model, params, cfg, dev: str = "cuda",
+                   n_steps: int = 8) -> dict:
+    """Device time by kernel over ``n_steps`` steady decode steps of 4
+    slots (prompts of 256, hot window 128, max_len 512), from
+    torch.profiler; the idle share is 1 - kernel time / wall time of the
+    window. Runs after the main path's launch counts were read."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Engine, LocalBackend
+
+    reqs = _requests(cfg, n_vqa=2, n_text=2, text_with_image=192,
+                     text_len=256, gen_len=4 * n_steps, seed=3)
+    engine = Engine(LocalBackend(model, params, 4, 512, device=dev))
+    for r in reqs:
+        engine.submit(r)
+    while engine._inflight is not None or engine.scheduler.pending \
+            or int(engine._active.sum()) < len(reqs):
+        engine.step()
+    for _ in range(2):
+        engine.step()                      # steady state: decode only
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # device-side events only (kernels, memcpy, memset): the aten ops
+    # that launched them carry the same device time again
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    dev_ms = sum(r[2] for r in rows)
+    (OUT / "decode_profile.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=40))
+    out = {"steps": n_steps, "wall_ms_per_step": wall_ms / n_steps,
+           "device_ms_per_step": dev_ms / n_steps,
+           "device_launches_per_step": sum(r[1] for r in rows) / n_steps,
+           "idle_share": 1 - dev_ms / wall_ms if wall_ms else None,
+           "top": [{"kernel": k[:90], "launches_per_step": c / n_steps,
+                    "ms_per_step": t / n_steps} for k, c, t in rows[:14]]}
+    print(f"[profile] decode step (4 slots, ctx ~256-290): wall "
+          f"{out['wall_ms_per_step']:.2f} ms, device busy "
+          f"{out['device_ms_per_step']:.2f} ms in "
+          f"{out['device_launches_per_step']:.0f} launches, idle share "
+          f"{out['idle_share']:.3f}")
+    for r in out["top"]:
+        print(f"[profile]   {r['ms_per_step']:8.3f} ms/step "
+              f"{r['launches_per_step']:6.1f} launches/step  {r['kernel']}")
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default="kernels,parity,serving")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    # f32 references are full f32: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    pk = peaks(name)
+    print(f"[card] {card}")
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    built = build.build_all()
+    build_s = time.perf_counter() - t0
+    print(f"[build] {len(built)} kernel libraries built in {build_s:.1f} s")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "kernel_build.log").write_text(
+        "\n".join(f"=== {k}\n{v}" for k, v in build.build_logs.items()))
+    for k, log in build.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line.lower():
+                print(f"[ptxas] {k}: {line.strip()}")
+
+    report = {"card": card, "build_s": build_s}
+    kern = kernel_phase(pk) if "kernels" in phases else {}
+    if "parity" in phases:
+        report["parity"] = parity_phase()
+    if "serving" in phases:
+        report["serving"] = serving_phase()
+    launches = report.get("serving", {}).get("launches", {})
+    rows = []
+    for k in REPLACES:
+        if k not in kern:
+            continue
+        r = kern[k]
+        rows.append({
+            "name": k, "route": "cuda", "source": SOURCES[k],
+            "replaces": REPLACES[k], "tpu_kernel": REPLACES[k],
+            "launches": launches.get(k, 0), "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "kernel_ms": r["ms"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "dtype": r["dtype"]})
+    report["kernels"] = rows
+    report["kernel_cases"] = kern.get("cases", {})
+    report["ffn_act_prefill_ms"] = kern.get("ffn_act_prefill_ms")
+    report["ffn_act_prefill_device_ms"] = kern.get(
+        "ffn_act_prefill_device_ms")
+    (OUT / "report.json").write_text(json.dumps(report, indent=1))
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

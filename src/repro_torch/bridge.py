@@ -1,0 +1,50 @@
+"""Carry parameter and cache trees between the reference and the port.
+
+`params_from_jax` maps a reference parameter tree (nested dicts of numpy
+arrays — the caller does the jax -> numpy step, e.g. with
+``jax.tree.map(np.asarray, params)``) onto port tensors leaf path by leaf
+path, with no renaming: the port keeps the reference's tree layout.
+`cache_to_numpy` maps a port cache (or any tensor tree) back to numpy so
+the two packages' caches can be compared leaf by leaf.
+
+bfloat16 arrays arrive as ``ml_dtypes.bfloat16``, which `torch.from_numpy`
+rejects; they travel as their uint16 bit pattern and are viewed back, so
+the conversion is exact. This module imports numpy and ml_dtypes, never
+jax.
+"""
+
+from __future__ import annotations
+
+import ml_dtypes
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_map
+
+
+def array_to_tensor(a, device="cpu") -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == ml_dtypes.bfloat16:
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                             .astype(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device)
+
+
+def tensor_to_array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(
+            ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_jax(tree, device="cpu") -> dict:
+    """Reference parameter tree (numpy leaves) -> port parameter tree."""
+    return tree_map(lambda a: array_to_tensor(a, device), tree)
+
+
+def cache_to_numpy(cache) -> dict:
+    """Port tensor tree -> the same tree with numpy leaves."""
+    return tree_map(tensor_to_array, cache)

@@ -1,0 +1,136 @@
+"""Build and load the port's CUDA kernel libraries.
+
+Each ``csrc/<name>.cu`` compiles on its own with nvcc into
+``lib<name>-<hash>.so`` (a plain C interface, no PyTorch headers, so a
+build takes seconds), loaded with ctypes. The hash covers the sources
+and flags, so an edited kernel rebuilds by itself. Builds happen at first
+use, into ``build/repro_torch/`` at the repository root (override with
+``REPRO_TORCH_BUILD_DIR``); `build_all` starts one nvcc per source, all
+together. Nothing here runs at import time: the CPU tests import every
+module on a machine without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+LIBRARIES = ("fused_norm", "attn_stream", "ffn_act", "paged_decode")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+build_logs: dict[str, str] = {}
+
+
+def build_dir() -> pathlib.Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return pathlib.Path(env)
+    return CSRC.parents[3] / "build" / "repro_torch"
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set NVCC or put the CUDA toolkit's "
+                       "bin directory on PATH")
+
+
+def library_path(name: str) -> pathlib.Path:
+    h = hashlib.sha256()
+    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=LIBRARIES) -> list[str]:
+    """Compile every library of ``names`` that is not built yet, one
+    nvcc process per source, all started together. Returns the names
+    built; raises with nvcc's output if any build fails."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return []
+    build_dir().mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for n in todo:
+        out = library_path(n)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out)
+    failed = []
+    for n, (proc, tmp, out) in procs.items():
+        log = proc.communicate()[0]
+        build_logs[n] = log
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {n}.cu (exit {proc.returncode}) ---\n"
+                          f"{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return todo
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = ctypes.CDLL(str(library_path(name)))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return lib
+
+
+_bound: dict[tuple[str, str], tuple] = {}
+
+
+def bind(name: str, fn_name: str, argtypes: list) -> tuple:
+    """(library, C function) with its argtypes declared, loaded and bound
+    once per process: every pointer and the stream are c_void_p, so
+    ctypes never narrows an address to a 32-bit int."""
+    key = (name, fn_name)
+    if key not in _bound:
+        lib = load(name)
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _bound[key] = (lib, fn)
+    return _bound[key]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry reported a CUDA error for its launch."""
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def dtype_code(dtype) -> int:
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+    return codes[dtype]

@@ -1,0 +1,186 @@
+"""Paged one-token GQA decode over the CHIME tiered store.
+
+Replaces the TPU kernel `repro/kernels/paged_decode.py::paged_decode_tiered`.
+The CUDA kernel is `csrc/paged_decode.cu`: one block per (slot, kv head)
+with the G query rows of the group; the hot ring first (anchoring the
+running max), then the slot's cold pages through its block table (-1 =
+dead) with int8 K/V and the f32 scales factored out of both dots (see its
+header). Per-slot ``lengths`` are the positions just written, so ragged
+slots share one launch.
+
+SLIM sparse read (``tau`` > 0): a cold page is skipped when, for every
+query row g, ``scale * 127 * max(page k-scales) * ||q_g||_1 < m_g +
+log(tau)`` with m_g the running max so far; ``tau = 0`` is exact.
+
+Layouts (store-native): q (B, Hkv, G, D) with head h = hkv*G + g; hot k/v
+(B, W, Hkv, D); cold int8 (B, max_len, Hkv, D) with f32 scales
+(B, max_len, Hkv, 1); lengths (B,) int32; table (B, num_pages) int32.
+
+`paged_decode_tiered` launches the kernel for CUDA tensors and runs
+`paged_decode_tiered_plain` (the two-segment merge of
+`models.attention.attend_tiered`, with the same page-skip rule) only for
+CPU tensors; ``paged_decode_tiered.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -2.0 ** 20
+INT8_QMAX = 127.0
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_GROUP = 16
+
+
+def _segment(qf, k, v, valid, scale, k_scale=None, v_scale=None):
+    """Flash partials of one segment. qf (B,Hkv,G,D) f32; k,v (B,L,Hkv,D)
+    (int8 with scales (B,L,Hkv,1) for the cold tier); valid (B, L).
+    -> m, d (B,Hkv,G,1) and acc (B,Hkv,G,D), f32."""
+    s = torch.einsum("bhgd,blhd->bhgl", qf, k.float()) * scale
+    if k_scale is not None:
+        s = s * k_scale[..., 0].transpose(1, 2)[:, :, None, :]
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.tensor(NEG_INF, device=s.device))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    d = p.sum(-1, keepdim=True)
+    if v_scale is not None:
+        p = p * v_scale[..., 0].transpose(1, 2)[:, :, None, :]
+    acc = torch.einsum("bhgl,blhd->bhgd", p, v.float())
+    return m, d, acc
+
+
+def _merge(state, part, take=None):
+    """Online-softmax merge of ``part`` into ``state``; rows where
+    ``take`` (B,Hkv,1,1) is False keep ``state``."""
+    m0, d0, a0 = state
+    m1, d1, a1 = part
+    m = torch.maximum(m0, m1)
+    w0, w1 = torch.exp(m0 - m), torch.exp(m1 - m)
+    new = (m, d0 * w0 + d1 * w1, a0 * w0 + a1 * w1)
+    if take is None:
+        return new
+    return tuple(torch.where(take, n, o) for n, o in zip(new, state))
+
+
+def paged_decode_tiered_plain(q, hot_k, hot_v, cold_kq, cold_ks, cold_vq,
+                              cold_vs, lengths, table, *, scale=None,
+                              block_k: int = 128, tau: float = 0.0):
+    """Plain PyTorch twin of the kernel: hot segment, then the cold pages
+    read through ``table`` (physical page rows, logical-position masks),
+    merged online; with ``tau`` > 0 pages are skipped by the kernel's
+    rule in the kernel's order."""
+    B, Hkv, G, D = q.shape
+    W = hot_k.shape[1]
+    max_len = cold_kq.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    dev = q.device
+    qf = q.float()
+    pos = lengths.to(device=dev, dtype=torch.long)
+    slots = torch.arange(W, device=dev)
+    hot_valid = (pos[:, None] - ((pos[:, None] - slots) % W)) >= 0
+    state = _segment(qf, hot_k, hot_v, hot_valid, scale)
+    n_pages = table.shape[1]
+    tab = table.to(device=dev, dtype=torch.long)
+    i = torch.arange(block_k, device=dev)
+    # per page: physical rows, logical positions and attendability
+    rows = tab.clamp_min(0)[:, :, None] * block_k + i          # (B,P,bk)
+    tok = torch.arange(n_pages, device=dev)[None, :, None] * block_k + i
+    valid = ((tab >= 0)[:, :, None] & (tok <= (pos - W)[:, None, None])
+             & (rows < max_len))
+    rows = rows.clamp_max(max_len - 1)
+
+    def gather(t, r):
+        return torch.take_along_dim(
+            t, r.reshape(B, -1)[:, :, None, None], dim=1)
+
+    if tau <= 0.0:
+        r = rows.reshape(B, -1)
+        part = _segment(qf, gather(cold_kq, r), gather(cold_vq, r),
+                        valid.reshape(B, -1), scale, gather(cold_ks, r),
+                        gather(cold_vs, r))
+        m, d, acc = _merge(state, part)
+    else:
+        q_l1 = qf.abs().sum(-1, keepdim=True)                  # (B,Hkv,G,1)
+        log_tau = math.log(tau)
+        for j in range(n_pages):
+            r = rows[:, j]
+            ks = gather(cold_ks, r)                            # (B,bk,Hkv,1)
+            live_page = valid[:, j].any(-1)                    # (B,)
+            max_ks = torch.where(valid[:, j][:, :, None], ks[..., 0],
+                                 torch.zeros((), device=dev)).amax(1)
+            ub = scale * INT8_QMAX * max_ks[:, :, None, None] * q_l1
+            live = (ub >= state[0] + log_tau).any(2, keepdim=True)
+            live = live & live_page[:, None, None, None]
+            part = _segment(qf, gather(cold_kq, r), gather(cold_vq, r),
+                            valid[:, j], scale, ks, gather(cold_vs, r))
+            state = _merge(state, part, live)
+        m, d, acc = state
+    return (acc / d.clamp_min(1e-30)).to(q.dtype)
+
+
+ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]
+
+
+def paged_decode_tiered(q, hot_k, hot_v, cold_kq, cold_ks, cold_vq, cold_vs,
+                        lengths, table, *, scale: float | None = None,
+                        block_k: int = 128, tau: float = 0.0
+                        ) -> torch.Tensor:
+    """-> (B, Hkv, G, D) in q.dtype. See the module docstring."""
+    if not q.is_cuda:
+        return paged_decode_tiered_plain(
+            q, hot_k, hot_v, cold_kq, cold_ks, cold_vq, cold_vs, lengths,
+            table, scale=scale, block_k=block_k, tau=tau)
+    B, Hkv, G, D = q.shape
+    W = hot_k.shape[1]
+    max_len = cold_kq.shape[1]
+    n_pages = -(-max_len // block_k)
+    if D not in HEAD_DIMS or G > MAX_GROUP:
+        raise ValueError(f"paged_decode_tiered kernel supports head dims "
+                         f"{HEAD_DIMS} and groups <= {MAX_GROUP}, got "
+                         f"D={D}, G={G}")
+    expect = {
+        "hot_k": (hot_k, (B, W, Hkv, D), q.dtype),
+        "hot_v": (hot_v, (B, W, Hkv, D), q.dtype),
+        "cold_kq": (cold_kq, (B, max_len, Hkv, D), torch.int8),
+        "cold_vq": (cold_vq, (B, max_len, Hkv, D), torch.int8),
+        "cold_ks": (cold_ks, (B, max_len, Hkv, 1), torch.float32),
+        "cold_vs": (cold_vs, (B, max_len, Hkv, 1), torch.float32),
+        "lengths": (lengths, (B,), torch.int32),
+        "table": (table, (B, n_pages), torch.int32),
+    }
+    for name, (t, shape, dt) in expect.items():
+        if tuple(t.shape) != shape or t.dtype != dt \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"paged_decode_tiered: {name} must be a "
+                             f"contiguous {dt} tensor of shape {shape} on "
+                             f"{q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if not q.is_contiguous():
+        raise ValueError("paged_decode_tiered: q must be contiguous")
+    if any(t.data_ptr() % 16 for t in (hot_k, hot_v, cold_kq, cold_vq)):
+        raise ValueError("paged_decode_tiered: K/V stores must start "
+                         "16-byte aligned (the kernel loads 16-byte rows)")
+    scale = scale if scale is not None else D ** -0.5
+    out = torch.empty_like(q)
+    lib, fn = build.bind("paged_decode", "paged_decode_tiered", ARGTYPES)
+    err = fn(
+        build.ptr(q), build.ptr(hot_k), build.ptr(hot_v), build.ptr(cold_kq),
+        build.ptr(cold_ks), build.ptr(cold_vq), build.ptr(cold_vs),
+        build.ptr(lengths), build.ptr(table), build.ptr(out), B, Hkv, G, D,
+        W, max_len, n_pages, block_k, scale,
+        math.log(tau) if tau > 0 else 0.0, int(tau > 0),
+        build.dtype_code(q.dtype), build.stream_ptr(q.device))
+    build.check(lib, err, "paged_decode_tiered")
+    paged_decode_tiered.launches += 1
+    return out
+
+
+paged_decode_tiered.launches = 0

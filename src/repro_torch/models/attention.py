@@ -1,0 +1,185 @@
+"""GQA attention: projections, the plain softmax attention, and the
+two-segment (hot ring + int8 cold tier) decode merge.
+
+Port of the GQA half of the reference's `models/attention.py`. These
+plain functions are the CPU path and the twins the kernels in
+`repro_torch.kernels` are held against. Masks fill with
+``NEG_INF = -2**20`` (not -inf), as the reference does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import ParamInit, apply_rope, torch_dtype
+
+NEG_INF = -2.0 ** 20
+
+
+def init_attn(b: ParamInit, cfg: ModelConfig) -> dict:
+    p = {
+        "wq": b.normal((cfg.d_model, cfg.num_heads, cfg.head_dim)),
+        "wk": b.normal((cfg.d_model, cfg.num_kv_heads, cfg.head_dim)),
+        "wv": b.normal((cfg.d_model, cfg.num_kv_heads, cfg.head_dim)),
+        "wo": b.normal((cfg.num_heads, cfg.head_dim, cfg.d_model)),
+    }
+    if cfg.use_attn_bias:
+        p["bq"] = b.zeros((cfg.num_heads, cfg.head_dim))
+        p["bk"] = b.zeros((cfg.num_kv_heads, cfg.head_dim))
+        p["bv"] = b.zeros((cfg.num_kv_heads, cfg.head_dim))
+        p["bo"] = b.zeros((cfg.d_model,))
+    return p
+
+
+def qkv_proj(p: dict, cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """X·Wq (+bq), X·Wk (+bk), X·Wv (+bv); RoPE on q and k (keys are
+    cached post-RoPE). x (B,S,D) -> (B,S,H,Dh), (B,S,Hkv,Dh) x2."""
+    cd = torch_dtype(cfg.compute_dtype)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cd))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cd))
+    if "bq" in p:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _bcast_kv_heads(t: torch.Tensor, H: int) -> torch.Tensor:
+    """(B,L,Hkv,D) -> (B,L,H,D) by group broadcast: head h reads kv head
+    h // G."""
+    B, L, Hkv, D = t.shape
+    G = H // Hkv
+    if G == 1:
+        return t
+    return t[:, :, :, None].expand(B, L, Hkv, G, D).reshape(B, L, H, D)
+
+
+def gqa_scores_softmax_pv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mask: torch.Tensor | None,
+                          scale: float | None = None,
+                          scores_dtype=torch.float32) -> torch.Tensor:
+    """Grouped attention. q (B,S,H,D); k,v (B,L,Hkv,D); mask broadcastable
+    to (B,H,S,L) or None. Returns (B,S,H,D) in q.dtype."""
+    H, D = q.shape[2], q.shape[3]
+    scale = scale if scale is not None else D ** -0.5
+    kf = _bcast_kv_heads(k.to(scores_dtype), H)
+    vf = _bcast_kv_heads(v.to(scores_dtype), H)
+    scores = torch.einsum("bshd,blhd->bhsl", q.to(scores_dtype), kf) * scale
+    if mask is not None:
+        scores = torch.where(mask, scores,
+                             torch.tensor(NEG_INF, dtype=scores.dtype,
+                                          device=scores.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhsl,blhd->bshd", probs, vf)
+    return out.to(q.dtype)
+
+
+def attn_out(p: dict, cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:
+    out = torch.einsum("bshk,hkd->bsd", o,
+                       p["wo"].to(torch_dtype(cfg.compute_dtype)))
+    if "bo" in p:
+        out = out + p["bo"].to(out.dtype)
+    return out
+
+
+def causal_mask(S: int, L: int, offset: int = 0,
+                device="cpu") -> torch.Tensor:
+    """(1,1,S,L) causal mask: query i attends key j iff j <= i + offset."""
+    qi = torch.arange(S, device=device)[:, None]
+    kj = torch.arange(L, device=device)[None, :]
+    return (kj <= qi + offset)[None, None]
+
+
+# ---------------------------------------------------------------------------
+# two-part (tiered) decode attention: flash-style partial softmax merge
+# ---------------------------------------------------------------------------
+def _valid4(valid: torch.Tensor) -> torch.Tensor:
+    """(L,) or (B, L) validity -> broadcastable to (B,H,S,L)."""
+    return valid[None, None, None, :] if valid.dim() == 1 \
+        else valid[:, None, None, :]
+
+
+def partial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      valid: torch.Tensor, scale: float,
+                      k_scale: torch.Tensor | None = None,
+                      v_scale: torch.Tensor | None = None,
+                      sdt=torch.float32):
+    """One attendable segment -> flash partials (m, denom, acc), f32.
+
+    q (B,S,H,D); k,v (B,L,Hkv,D), possibly int8 with per-(token, head)
+    scales k_scale/v_scale (B,L,Hkv,1) that factor OUT of the dots:
+    scores = (q·k_q)·k_scale and pv = (p·v_scale)·v_q."""
+    H = q.shape[2]
+    kf = _bcast_kv_heads(k.to(sdt), H)
+    scores = torch.einsum("bshd,blhd->bhsl", q.to(sdt), kf) * scale
+    if k_scale is not None:
+        ks = _bcast_kv_heads(k_scale, H)[..., 0]           # (B,L,H)
+        scores = scores * ks.transpose(1, 2)[:, :, None, :].to(scores.dtype)
+    scores = torch.where(_valid4(valid), scores.float(),
+                         torch.tensor(NEG_INF, device=scores.device))
+    m = scores.amax(dim=-1, keepdim=True)                  # (B,H,S,1)
+    p = torch.exp(scores - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    pv = p.to(sdt)
+    if v_scale is not None:
+        vs = _bcast_kv_heads(v_scale, H)[..., 0]
+        pv = pv * vs.transpose(1, 2)[:, :, None, :].to(pv.dtype)
+    vf = _bcast_kv_heads(v.to(sdt), H)
+    acc = torch.einsum("bhsl,blhd->bhsd", pv, vf).float()
+    return m, denom, acc
+
+
+def merge_partials(parts, out_dtype) -> torch.Tensor:
+    """Merge flash partials across segments -> (B,S,H,D)."""
+    m_star = parts[0][0]
+    for m, _, _ in parts[1:]:
+        m_star = torch.maximum(m_star, m)
+    denom = 0.0
+    acc = 0.0
+    for m, d, a in parts:
+        w = torch.exp(m - m_star)
+        denom = denom + d * w
+        acc = acc + a * w
+    out = acc / torch.clamp(denom, min=1e-30)
+    return out.transpose(1, 2).to(out_dtype)
+
+
+def tiered_valid(pos, W: int, max_len: int, device
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cold_valid, hot_valid) for a scalar or (B,) ``pos``: a cold token
+    is attendable iff its position <= pos - W, a hot slot iff its ring
+    position is in [0, pos]."""
+    from repro_torch.core import kv_tiers as KT
+    p = pos if isinstance(pos, torch.Tensor) else torch.tensor(int(pos))
+    p = p.to(device=device, dtype=torch.long)
+    cold_valid = torch.arange(max_len, device=device) <= (p[..., None] - W)
+    hot_pos = KT.hot_ring_positions(p, W)
+    hot_valid = (hot_pos >= 0) & (hot_pos <= p[..., None])
+    return cold_valid, hot_valid
+
+
+def attend_tiered(cfg, q: torch.Tensor, k_store: dict, v_store: dict,
+                  pos) -> torch.Tensor:
+    """Decode attention over a tiered KV store without concat or dequant
+    materialization: the cold (int8) and hot (ring) segments each give
+    flash partials, merged by softmax stitching. ``pos`` may be a (B,)
+    tensor of per-slot positions."""
+    scale = q.shape[-1] ** -0.5
+    sdt = torch_dtype(cfg.attn_scores_dtype)
+    W = k_store["hot"].shape[1]
+    cold_valid, hot_valid = tiered_valid(pos, W, k_store["cold_q"].shape[1],
+                                         q.device)
+    p_cold = partial_attention(
+        q, k_store["cold_q"], v_store["cold_q"], cold_valid, scale,
+        k_scale=k_store["cold_scale"], v_scale=v_store["cold_scale"],
+        sdt=sdt)
+    p_hot = partial_attention(q, k_store["hot"], v_store["hot"], hot_valid,
+                              scale, sdt=sdt)
+    return merge_partials([p_cold, p_hot], q.dtype)

@@ -1,0 +1,308 @@
+"""Config-driven decoder for attention-mixer plans, PyTorch port.
+
+Port of the reference's `models/model.py` for dense GQA models (the
+paper's FastVLM/MobileVLM backbones and granite-3-2b). Parameters are a
+nested dict with the reference's leaf paths, so `bridge.params_from_jax`
+maps one tree onto the other; layers of a repeated unit stay stacked on
+a leading ``repeats`` axis and run in a Python loop where the reference
+scans. Modes:
+
+  * prefill — whole prompt; builds the flat/tiered KV stores
+  * extend  — a chunk at absolute positions pos..pos+C-1 over the
+              chunk-resumable workspace (``commit`` folds it into the
+              stores); over committed stores with one token it is decode
+  * decode  — one token per row; ``pos`` may be a (B,) tensor, so the
+              serving backend decodes every slot in one call
+
+Mixers other than ``attn``, encoder-only configs and learned position
+embeddings raise NotImplementedError (ROADMAP Queue 1 item 7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import fusion, kv_tiers as KT
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import vision as V
+from repro_torch.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    mixer: str
+    mlp: Optional[str]
+    d_ff: int
+
+
+@dataclasses.dataclass(frozen=True)
+class UnitSpec:
+    block: BlockSpec
+    repeats: int
+
+
+def build_plan(cfg: ModelConfig) -> list[UnitSpec]:
+    """Per-layer BlockSpecs compressed into runs of identical specs."""
+    specs: list[BlockSpec] = []
+    idx = 0
+    for seg in cfg.segments:
+        for _ in range(seg.repeats):
+            for mixer in seg.pattern:
+                if mixer == "mamba2" and cfg.family == "hybrid":
+                    mlp = None
+                elif mixer == "rwkv6":
+                    mlp = "rwkv_cm"
+                elif cfg.mlp_type == "moe":
+                    if cfg.moe and idx < cfg.moe.first_dense_layers:
+                        mlp = "dense_first"
+                    else:
+                        mlp = "moe"
+                else:
+                    mlp = cfg.mlp_type
+                specs.append(BlockSpec(mixer, mlp, cfg.d_ff))
+                idx += 1
+    units: list[UnitSpec] = []
+    for s in specs:
+        if units and units[-1].block == s:
+            units[-1] = UnitSpec(s, units[-1].repeats + 1)
+        else:
+            units.append(UnitSpec(s, 1))
+    return units
+
+
+def _device_of(params: dict) -> torch.device:
+    return tree_leaves(params)[0].device
+
+
+class Model:
+    """Holds the config and plan; parameters and caches are passed in
+    explicitly, as in the reference."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.plan = build_plan(cfg)
+        for u in self.plan:
+            if u.block.mixer != "attn":
+                raise NotImplementedError(
+                    f"mixer {u.block.mixer!r}: ROADMAP Queue 1 item 7 "
+                    f"(remaining mixers)")
+        if cfg.is_encoder or cfg.pos_emb == "learned":
+            raise NotImplementedError(
+                "encoder-only models and learned position embeddings: "
+                "ROADMAP Queue 1 item 7 (remaining architectures)")
+        m = cfg.vocab_pad_multiple
+        self.padded_vocab = ((cfg.vocab_size + m - 1) // m) * m
+        self.compute_dtype = L.torch_dtype(cfg.compute_dtype)
+
+    # ------------------------------------------------------------------
+    # parameters
+    # ------------------------------------------------------------------
+    def _init_block(self, b: L.ParamInit, spec: BlockSpec) -> dict:
+        cfg = self.cfg
+        p = {"ln1": L.init_norm(b, cfg), "mixer": A.init_attn(b, cfg)}
+        if spec.mlp is not None:
+            p["ln2"] = L.init_norm(b, cfg)
+            p["mlp"] = L.init_mlp(b, cfg, mlp_type=spec.mlp)
+        return p
+
+    def init(self, generator: torch.Generator | None = None,
+             device="cpu") -> dict:
+        """Random parameters in the reference's shapes and scales."""
+        cfg = self.cfg
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        b = L.ParamInit(generator, L.torch_dtype(cfg.param_dtype), device)
+        params: dict = {"embed": {"table": b.normal(
+            (self.padded_vocab, cfg.d_model), scale=1.0)}}
+        if cfg.frontend is not None:
+            params["frontend"] = V.init_frontend(b, cfg)
+        units = {}
+        for ui, unit in enumerate(self.plan):
+            if unit.repeats == 1:
+                units[f"u{ui}"] = self._init_block(b, unit.block)
+            else:
+                layers = [self._init_block(b, unit.block)
+                          for _ in range(unit.repeats)]
+                units[f"u{ui}"] = tree_map(lambda *a: torch.stack(a),
+                                           *layers)
+                del layers
+        params["units"] = units
+        params["final_norm"] = L.init_norm(b, cfg)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = b.normal((cfg.d_model, self.padded_vocab),
+                                         scale=cfg.d_model ** -0.5)
+        return params
+
+    # ------------------------------------------------------------------
+    # caches
+    # ------------------------------------------------------------------
+    def _stacked(self, make) -> dict:
+        cache = {}
+        for ui, unit in enumerate(self.plan):
+            shp = make()
+            if unit.repeats > 1:
+                shp = tree_map(lambda a: a[None].expand(
+                    (unit.repeats,) + a.shape).clone(), shp)
+            cache[f"u{ui}"] = shp
+        return cache
+
+    def _block_cache(self, batch: int, max_len: int, device) -> dict:
+        cfg = self.cfg
+        inner = (cfg.num_kv_heads, cfg.head_dim)
+        return {k: KT.store_init(batch, max_len, inner, cfg.kv_policy,
+                                 cfg.kv_hot_window, self.compute_dtype,
+                                 device)
+                for k in ("k", "v")}
+
+    def init_cache(self, batch: int, max_len: int, device="cpu") -> dict:
+        return self._stacked(lambda: self._block_cache(batch, max_len,
+                                                       device))
+
+    def cache_spec(self, batch: int, max_len: int) -> dict:
+        """The decode cache as shape-and-dtype-only (meta) tensors."""
+        return self.init_cache(batch, max_len, device="meta")
+
+    def _block_extend(self, batch: int, max_len: int, device) -> dict:
+        cfg = self.cfg
+        shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return {k: torch.zeros(shape, dtype=self.compute_dtype,
+                               device=device) for k in ("k_ws", "v_ws")}
+
+    def init_extend_cache(self, batch: int, max_len: int,
+                          device="cpu") -> dict:
+        """Fresh (zero) chunk-resumable prefill state for `extend`."""
+        return self._stacked(lambda: self._block_extend(batch, max_len,
+                                                        device))
+
+    def extend_spec(self, batch: int, max_len: int) -> dict:
+        return self.init_extend_cache(batch, max_len, device="meta")
+
+    # ------------------------------------------------------------------
+    # forward
+    # ------------------------------------------------------------------
+    def _embed(self, params: dict, batch: dict, pos, ramp: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        cd = self.compute_dtype
+        dev = _device_of(params)
+        table = params["embed"]["table"]
+
+        def tokens():
+            ids = torch.as_tensor(batch["tokens"], device=dev).long()
+            return table[ids].to(cd)
+
+        if cfg.frontend is not None and "patches" in batch:
+            patches = torch.as_tensor(batch["patches"], device=dev)
+            x = V.apply_connector(params["frontend"], cfg, patches)
+            if "tokens" in batch:
+                x = torch.cat([x, tokens()], dim=1)
+        else:
+            x = tokens()
+        B, Sq = x.shape[:2]
+        ar = torch.arange(Sq, device=dev)
+        if pos is None:
+            positions = ar[None].expand(B, Sq)
+        else:
+            p = KT.pos_rows(pos, B, dev)[:, None]
+            positions = p + ar if ramp else p.expand(B, Sq)
+        return x, positions
+
+    def _run_block(self, spec: BlockSpec, bp: dict, x: torch.Tensor,
+                   positions: torch.Tensor, bcache: dict, pos, mode: str,
+                   plen=None, commit: bool = False
+                   ) -> tuple[torch.Tensor, dict]:
+        cfg = self.cfg
+        h = fusion.apply_norm(bp["ln1"], cfg, x)
+        if mode == "prefill":
+            st = bcache["k"]
+            ml = st["flat"].shape[1] if "flat" in st else st["cold_q"].shape[1]
+            out, new_cache = fusion.apply_attention_seq(
+                bp["mixer"], cfg, h, positions, ml, length=plen)
+        elif "k_ws" in bcache:      # workspace form: chunked prefill
+            out, new_cache = fusion.apply_attention_extend(
+                bp["mixer"], cfg, h, positions, bcache, pos, plen, commit)
+        else:                       # committed stores: decode
+            out, new_cache = fusion.apply_attention_decode(
+                bp["mixer"], cfg, h, bcache, pos)
+        x = x + out
+        if spec.mlp is not None:
+            h2 = fusion.apply_norm(bp["ln2"], cfg, x)
+            x = x + fusion.apply_ffn(bp["mlp"], cfg, h2, mlp_type=spec.mlp)
+        return x, new_cache
+
+    def _run_unit(self, ui: int, unit: UnitSpec, params: dict,
+                  x: torch.Tensor, positions: torch.Tensor, ucache: dict,
+                  pos, mode: str, plen=None, commit: bool = False
+                  ) -> tuple[torch.Tensor, dict]:
+        up = params["units"][f"u{ui}"]
+        if unit.repeats == 1:
+            return self._run_block(unit.block, up, x, positions, ucache,
+                                   pos, mode, plen, commit)
+        ncs = []
+        for r in range(unit.repeats):
+            bp = tree_map(lambda a: a[r], up)
+            bc = tree_map(lambda a: a[r], ucache)
+            x, nc = self._run_block(unit.block, bp, x, positions, bc, pos,
+                                    mode, plen, commit)
+            ncs.append(nc)
+        return x, tree_map(lambda *a: torch.stack(a), *ncs)
+
+    def _forward(self, params: dict, batch: dict, mode: str, cache: dict,
+                 pos, plen=None, commit: bool = False
+                 ) -> tuple[torch.Tensor, dict]:
+        """``mode`` is "prefill" (whole prompt from position 0) or
+        "extend" (rows at pos..); returns the last valid row's logits."""
+        cfg = self.cfg
+        x, positions = self._embed(params, batch, pos,
+                                   ramp=(mode == "extend"))
+        new_cache = {}
+        for ui, unit in enumerate(self.plan):
+            x, new_cache[f"u{ui}"] = self._run_unit(
+                ui, unit, params, x, positions, cache[f"u{ui}"], pos, mode,
+                plen, commit)
+        x = fusion.apply_norm(params["final_norm"], cfg, x)
+        x = x[:, -1:] if plen is None else x[:, int(plen) - 1:int(plen)]
+        if cfg.tie_embeddings:
+            logits = torch.einsum("bsd,vd->bsv", x,
+                                  params["embed"]["table"].to(x.dtype))
+        else:
+            logits = torch.einsum("bsd,dv->bsv", x,
+                                  params["lm_head"].to(x.dtype))
+        return logits, new_cache
+
+    # ------------------------------------------------------------------
+    # public entry points
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, params: dict, batch: dict, max_len: int,
+                length=None) -> tuple[torch.Tensor, dict]:
+        """Last-token logits + filled caches; ``length`` counts the valid
+        rows of a right-padded prompt (None: all of it)."""
+        first = next(v for v in batch.values())
+        cache = self.init_cache(len(first), max_len, _device_of(params))
+        return self._forward(params, batch, "prefill", cache, None,
+                             plen=length)
+
+    @torch.no_grad()
+    def extend(self, params: dict, batch: dict, cache: dict, pos,
+               length=None, commit: bool = False
+               ) -> tuple[torch.Tensor, dict]:
+        """Multi-token cache extension, the serving entry point: a chunk
+        at absolute positions pos.. over the workspace form (chunked
+        prefill; ``commit`` on the final chunk), or one token over the
+        committed stores (decode). Returns (logits of the last valid row
+        (B,1,V), new cache)."""
+        return self._forward(params, batch, "extend", cache, pos,
+                             plen=length, commit=commit)
+
+    def decode_step(self, params: dict, tokens, cache: dict, pos
+                    ) -> tuple[torch.Tensor, dict]:
+        """One decode step: tokens (B,1); ``pos`` (int or (B,) tensor) is
+        the index each row's new token is written at."""
+        return self.extend(params, {"tokens": tokens}, cache, pos,
+                           length=1)
