@@ -4,33 +4,52 @@
     python3 chip_smoke.py            # all phases, one CUDA card
 
 Run from the repository root on a machine with an NVIDIA H100. It builds
-the four hand-written kernels from `src/repro_torch/kernels/csrc` (nvcc,
-all sources at once), then:
+the six kernel libraries from `src/repro_torch/kernels/csrc` (one nvcc per
+source, all started together; seven kernels), then:
 
-  1. kernels — each kernel against its plain PyTorch twin on the card, at
-     the fastvlm-1.7b serving shapes (d_model 1536, F 8960, H 12, Hkv 2,
-     Dh 128; decode M = 4, prefill M = 320, attention S = L = 320, paged
-     decode B = 4, W = 128, max_len 512) in f32 (TF32 off) and bf16, plus
-     ragged, dead-page and sparse-read cases. Tolerances: max-abs error
-     <= 1e-4 in f32 (f32 sums in another order) and <= 2e-2 in bf16
-     (inputs are scaled so outputs stay below magnitude 2, where one bf16
-     rounding step is <= 7.8e-3). Times are the median of 25 CUDA-event
-     timed calls after warm-up;
-  2. parity — fastvlm-1.7b at full width and depth in f32: the serving
-     Engine's tokens against `generate` on 2 VQA + 2 text requests; a
-     differing token passes only where `generate`'s top-2 logit margin at
-     that step is below 1e-3 (a tie);
-  3. serving — fastvlm-1.7b in bf16 through the Engine over the tiered
-     store (hot window 128, max_len 512): 8 requests (4 VQA with 64 visual
-     + 192 text tokens, 4 text with 256) at concurrency 4, 64 new tokens
-     each. This is the main path: the kernels' launch counters are zeroed
-     just before it and read just after, and every kernel must have run.
+  1. kernels — each kernel against its plain PyTorch twin on the card, in
+     f32 (TF32 off) and bf16: the fastvlm-1.7b path's four at its
+     serving shapes (d_model 1536, F 8960, H 12, Hkv 2, Dh 128; decode
+     M = 4, prefill M = 320, attention S = L = 320, paged decode B = 4,
+     W = 128, max_len 512), and the mobilevlm-3b shapes (d_model 2560,
+     F 6912, H = Hkv = 20, G = 1, Dh 128): qkv_proj, ffn_act_int8,
+     ffn_act and fused_norm at decode M = 4 and prefill M = 256,
+     paged_decode_flat and paged_decode_tiered at B = 4 slots,
+     attn_stream at S = L = 256; qkv_proj also at fastvlm-1.7b's
+     GQA-with-bias shape; plus ragged, dead-page, ragged-tail-page,
+     unaligned-row and sparse-read cases. Tolerances:
+     max-abs error <= 1e-4 in f32 (f32 sums in another order) and <= 2e-2
+     in bf16 (inputs are scaled so outputs stay below magnitude 2, where
+     one bf16 rounding step is <= 7.8e-3). Times are the median of 25
+     CUDA-event timed calls after warm-up;
+  2. parity — f32 at full width and depth, the serving Engine's tokens
+     against `generate` on 2 VQA + 2 text requests, for fastvlm-1.7b over
+     the tiered store and for mobilevlm-3b on path A (flat store, fused
+     decode in the Engine, the unfused store_read + softmax decode in
+     `generate`); a differing token passes only where `generate`'s top-2
+     logit margin at that step is below 1e-3 (a tie);
+  3. serving — three bf16 runs through the Engine at full width and
+     depth, each the main path of its configuration: the kernels' launch
+     counters are zeroed just before each run and read just after, and
+     each run must launch its own set of kernels exactly once per layer
+     per model call:
+       * fastvlm-1.7b, tiered store (hot window 128, max_len 512): 8
+         requests (4 VQA with 64 visual + 192 text tokens, 4 text with
+         256) at concurrency 4, 64 new tokens each;
+       * A, the DRAM-only arm: mobilevlm-3b, flat store, fused decode
+         resolved on through the backend knob (paged_decode_flat);
+       * B, the CHIME mapping: mobilevlm-3b, tiered store (hot window
+         128) with int8 FFN weights (ffn_act_int8);
+     A and B serve 8 requests (4 VQA with 144 visual + 112 text tokens,
+     4 text with 256) at concurrency 4, max_len 512, 64 new tokens each.
+     A decode-step profile (torch.profiler) follows each run.
 
 It prints the card (name, power limit), the kernel build time, the
-phases' results, then one JSON line {"kernels": [...]} and, last, the
-device JSON line. It fails (non-zero exit, no result lines) without a
-card, outside the repository, or when any check fails. `--phases`
-selects a subset (e.g. `--phases kernels` for a quick compile check).
+phases' results, then one JSON line {"kernels": [...]} (launches summed
+over the three serving runs) and, last, the device JSON line. It fails
+(non-zero exit, no result lines) without a card, outside the repository,
+or when any check fails. `--phases` selects a subset (e.g. `--phases
+kernels` for a quick compile check).
 """
 
 from __future__ import annotations
@@ -48,19 +67,27 @@ OUT = ROOT / "chiprun_out" / "chip_smoke"
 
 # fastvlm-1.7b serving shapes
 D_MODEL, D_FF, HEADS, KV_HEADS, HEAD_DIM = 1536, 8960, 12, 2, 128
+# mobilevlm-3b serving shapes (MHA: G = 1)
+D3, F3, H3 = 2560, 6912, 20
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 REPLACES = {
     "fused_norm": "src/repro/kernels/fused_norm.py:35",
     "attn_stream": "src/repro/kernels/attn_stream.py:90",
     "ffn_act": "src/repro/kernels/ffn_act.py:71",
+    "ffn_act_int8": "src/repro/kernels/ffn_act.py:148",
+    "qkv_proj": "src/repro/kernels/qkv_proj.py:36",
     "paged_decode_tiered": "src/repro/kernels/paged_decode.py:147",
+    "paged_decode_flat": "src/repro/kernels/paged_decode.py:267",
 }
 SOURCES = {
     "fused_norm": "src/repro_torch/kernels/csrc/fused_norm.cu",
     "attn_stream": "src/repro_torch/kernels/csrc/attn_stream.cu",
     "ffn_act": "src/repro_torch/kernels/csrc/ffn_act.cu",
+    "ffn_act_int8": "src/repro_torch/kernels/csrc/ffn_act_int8.cu",
+    "qkv_proj": "src/repro_torch/kernels/csrc/qkv_proj.cu",
     "paged_decode_tiered": "src/repro_torch/kernels/csrc/paged_decode.cu",
+    "paged_decode_flat": "src/repro_torch/kernels/csrc/paged_decode.cu",
 }
 
 
@@ -144,6 +171,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
     from repro_torch.kernels import ffn_act as FF
     from repro_torch.kernels import fused_norm as FN
     from repro_torch.kernels import paged_decode as PD
+    from repro_torch.kernels import qkv_proj as QK
 
     dev = torch.device(dev)
     time_ms, dev_ms = timer, dev_timer
@@ -300,6 +328,160 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                           PD.paged_decode_tiered_plain(*args_r, tau=tau))
             record("paged_decode_tiered",
                    f"ragged + dead page, tau={tau:g}", dt, err)
+        # ---- paged_decode_tiered at mobilevlm-3b: Hkv 20, G = 1 ----------
+        q3 = randn(B, H3, 1, HEAD_DIM, dtype=tdt)
+        hk3 = randn(B, W, H3, HEAD_DIM, dtype=tdt)
+        hv3 = randn(B, W, H3, HEAD_DIM, dtype=tdt, std=0.3)
+        c3 = [torch.randint(-127, 128, (B, ML, H3, HEAD_DIM), generator=gen,
+                            device=dev, dtype=torch.int8),
+              0.002 + 0.006 * torch.rand(B, ML, H3, 1, generator=gen,
+                                         device=dev)]
+        c3v = [torch.randint(-127, 128, (B, ML, H3, HEAD_DIM), generator=gen,
+                             device=dev, dtype=torch.int8), c3[1].clone()]
+        lengths3 = torch.tensor([318, 300, 257, 290], dtype=torch.int32,
+                                device=dev)
+        args3 = (q3, hk3, hv3, c3[0], c3[1], c3v[0], c3v[1], lengths3,
+                 KT.cold_page_table(lengths3, W, ML, 128))
+        record("paged_decode_tiered", "Hkv=20 G=1 ctx~300", dt,
+               max_err(PD.paged_decode_tiered(*args3),
+                       PD.paged_decode_tiered_plain(*args3)))
+        del hk3, hv3, c3, c3v, args3
+        # ---- paged_decode_flat: mobilevlm-3b B=4, Hkv 20, G 1, ctx ~300 -
+        kf = randn(B, ML, H3, HEAD_DIM, dtype=tdt)
+        vf = randn(B, ML, H3, HEAD_DIM, dtype=tdt, std=0.3)
+        tab3 = KT.cold_page_table(lengths3, 0, ML, 128)
+        fargs = (q3, kf, vf, lengths3, tab3)
+        out = PD.paged_decode_flat(*fargs)
+        err = max_err(out, PD.paged_decode_flat_plain(*fargs))
+        main = None
+        if dt == "bfloat16":
+            ms = time_ms(lambda: PD.paged_decode_flat(*fargs))
+            plain = time_ms(lambda: PD.paged_decode_flat_plain(*fargs))
+            q4 = q3.reshape(B, H3, 1, HEAD_DIM)
+            kt, vt = kf.transpose(1, 2), vf.transpose(1, 2)
+            live = (torch.arange(ML, device=dev)[None]
+                    <= lengths3[:, None].long())[:, None, None]
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q4, kt, vt, attn_mask=live))
+            n_tok = int((lengths3.long() + 1).sum())
+            nbytes = (2 * q3.numel() * es + 2 * n_tok * H3 * HEAD_DIM * es
+                      + lengths3.numel() * 4 + tab3.numel() * 4)
+            b_ms, b_by = bound(pk, nbytes, 4 * HEAD_DIM * H3 * n_tok, dt)
+            main = {"shape": f"B {B}, Hkv {H3}, G 1, max_len {ML}, ctx "
+                             f"{lengths3.tolist()}",
+                    "ms": ms, "plain_ms": plain, "library_ms": lib,
+                    "device_ms": dev_ms(lambda: PD.paged_decode_flat(
+                        *fargs)),
+                    "bound_ms": b_ms, "bound_by": b_by}
+        record("paged_decode_flat", "B=4 Hkv=20 G=1 ctx~300", dt, err, main)
+        # ragged lengths, a dead page and a ragged tail page (max_len 500)
+        for (hkv, g) in ((H3, 1), (KV_HEADS, HEADS // KV_HEADS)):
+            ML5 = 500
+            qr = randn(B, hkv, g, HEAD_DIM, dtype=tdt)
+            kr = randn(B, ML5, hkv, HEAD_DIM, dtype=tdt)
+            vr = randn(B, ML5, hkv, HEAD_DIM, dtype=tdt, std=0.3)
+            lr = torch.tensor([ML5 - 1, 300, 129, 20], dtype=torch.int32,
+                              device=dev)
+            tr = KT.cold_page_table(lr, 0, ML5, 128).clone()
+            tr[0, 1] = -1
+            rargs = (qr, kr, vr, lr, tr)
+            record("paged_decode_flat",
+                   f"Hkv={hkv} G={g} ragged, dead page, max_len {ML5}", dt,
+                   max_err(PD.paged_decode_flat(*rargs),
+                           PD.paged_decode_flat_plain(*rargs)))
+        del kf, vf, fargs
+        # ---- qkv_proj: mobilevlm-3b (MHA, no bias) M=4 and M=256 --------
+        ws3 = [randn(D3, H3 * HEAD_DIM, dtype=tdt, std=0.5 * D3 ** -0.5)
+               for _ in range(3)]
+        for M in (4, 256):
+            x = randn(M, D3, dtype=tdt)
+            err = max(max_err(a, b) for a, b in zip(
+                QK.qkv_proj(x, *ws3), QK.qkv_proj_plain(x, *ws3)))
+            main = None
+            if M == 4 and dt == "bfloat16":
+                ms = time_ms(lambda: QK.qkv_proj(x, *ws3))
+                plain = time_ms(lambda: QK.qkv_proj_plain(x, *ws3))
+                wcat = torch.cat(ws3, 1)
+                bcat = torch.zeros(wcat.shape[1], dtype=tdt, device=dev)
+                lib = time_ms(lambda: torch.addmm(bcat, x, wcat))
+                del wcat
+                N = 3 * H3 * HEAD_DIM
+                b_ms, b_by = bound(pk, (M * D3 + D3 * N + M * N) * es,
+                                   2 * M * D3 * N, dt)
+                main = {"shape": f"x ({M}, {D3}), N 3 x {H3 * HEAD_DIM}, "
+                                 f"no bias", "ms": ms, "plain_ms": plain,
+                        "library_ms": lib, "bound_ms": b_ms,
+                        "bound_by": b_by,
+                        "device_ms": dev_ms(lambda: QK.qkv_proj(x, *ws3))}
+            if M == 256 and dt == "bfloat16":
+                results["qkv_proj_prefill_ms"] = time_ms(
+                    lambda: QK.qkv_proj(x, *ws3), reps=10)
+            record("qkv_proj", f"mobilevlm M={M}", dt, err, main)
+        del ws3
+        # ---- qkv_proj: fastvlm-1.7b GQA with bias, M=4 and M=320 --------
+        wsf = [randn(D_MODEL, n * HEAD_DIM, dtype=tdt,
+                     std=0.5 * D_MODEL ** -0.5)
+               for n in (HEADS, KV_HEADS, KV_HEADS)]
+        bsf = [randn(n * HEAD_DIM, dtype=tdt, std=0.1)
+               for n in (HEADS, KV_HEADS, KV_HEADS)]
+        for M in (4, 320):
+            x = randn(M, D_MODEL, dtype=tdt)
+            record("qkv_proj", f"fastvlm bias M={M}", dt,
+                   max(max_err(a, b) for a, b in zip(
+                       QK.qkv_proj(x, *wsf, *bsf),
+                       QK.qkv_proj_plain(x, *wsf, *bsf))))
+        # ---- ffn_act_int8: mobilevlm-3b silu_gated M=4 and M=256 --------
+        def int8w(k, n):
+            return torch.randint(-127, 128, (k, n), generator=gen,
+                                 device=dev, dtype=torch.int8)
+        s_up = torch.full((F3,), D3 ** -0.5 / 127, device=dev)
+        s_dn = torch.full((D3,), F3 ** -0.5 / 127, device=dev)
+        wq8 = (int8w(D3, F3), s_up, int8w(D3, F3), s_up.clone(),
+               int8w(F3, D3), s_dn)
+        for M in (4, 256):
+            x = randn(M, D3, dtype=tdt)
+            out = FF.ffn_act_int8(x, *wq8, "silu_gated")
+            err = max_err(out, FF.ffn_act_int8_plain(x, *wq8, "silu_gated"))
+            main = None
+            if M == 4 and dt == "bfloat16":
+                ms = time_ms(lambda: FF.ffn_act_int8(x, *wq8, "silu_gated"))
+                plain = time_ms(lambda: FF.ffn_act_int8_plain(
+                    x, *wq8, "silu_gated"))
+                nbytes = (2 * M * D3 * es + 3 * D3 * F3
+                          + 4 * (2 * F3 + D3))
+                b_ms, b_by = bound(pk, nbytes, 6 * M * D3 * F3, dt)
+                main = {"shape": f"x ({M}, {D3}), F {F3}, int8 weights, "
+                                 f"silu_gated", "ms": ms,
+                        "plain_ms": plain, "library_ms": None,
+                        "device_ms": dev_ms(lambda: FF.ffn_act_int8(
+                            x, *wq8, "silu_gated")),
+                        "bound_ms": b_ms, "bound_by": b_by}
+            if M == 256 and dt == "bfloat16":
+                results["ffn_act_int8_prefill_ms"] = time_ms(
+                    lambda: FF.ffn_act_int8(x, *wq8, "silu_gated"), reps=10)
+            record("ffn_act_int8", f"silu_gated M={M}", dt, err, main)
+        del wq8
+        # ---- ffn_act and fused_norm at mobilevlm-3b (path A's shapes) ---
+        w3 = (randn(D3, F3, dtype=tdt, std=0.5 * D3 ** -0.5),
+              randn(D3, F3, dtype=tdt, std=0.5 * D3 ** -0.5),
+              randn(F3, D3, dtype=tdt, std=F3 ** -0.5))
+        sc3 = (0.25 + 0.1 * torch.rand(D3, generator=gen, device=dev)).to(tdt)
+        for M in (4, 256):
+            x = randn(M, D3, dtype=tdt)
+            record("ffn_act", f"mobilevlm silu_gated M={M}", dt,
+                   max_err(FF.ffn_act(x, *w3, "silu_gated"),
+                           FF.ffn_act_plain(x, *w3, "silu_gated")))
+            record("fused_norm", f"mobilevlm rms M={M}", dt,
+                   max_err(FN.fused_norm(x, sc3, None, "rms"),
+                           FN.fused_norm_plain(x, sc3, None, "rms")))
+        del w3
+        # ---- attn_stream at mobilevlm-3b: G = 1, S = L = 256 ------------
+        q = randn(1, H3, 256, HEAD_DIM, dtype=tdt)
+        k = randn(1, H3, 256, HEAD_DIM, dtype=tdt)
+        v = randn(1, H3, 256, HEAD_DIM, dtype=tdt, std=0.4)
+        record("attn_stream", "Hkv=20 G=1 causal S=L=256", dt,
+               max_err(AS.attn_stream(q, k, v, causal=True),
+                       AS.attn_stream_plain(q, k, v, True)))
 
     # ragged / odd shapes, f32
     tdt = torch.float32
@@ -325,6 +507,35 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         record("attn_stream", f"S={S} L={L} causal={causal} D={Dh}",
                "float32", max_err(AS.attn_stream(q, k, v, causal=causal),
                                   AS.attn_stream_plain(q, k, v, causal)))
+    # D = 200: W_down rows are not 16-byte multiples, so the kernel stages
+    # them a byte at a time
+    for (M, D, F_, kind) in ((5, 320, 1000, "gelu"), (5, 320, 1000, "relu2"),
+                             (7, 320, 1024, "silu_gated"),
+                             (3, 200, 1000, "silu_gated")):
+        gated = kind == "silu_gated"
+        wu = torch.randint(-127, 128, (D, F_), generator=gen, device=dev,
+                           dtype=torch.int8)
+        wg = torch.randint(-127, 128, (D, F_), generator=gen, device=dev,
+                           dtype=torch.int8) if gated else None
+        wd = torch.randint(-127, 128, (F_, D), generator=gen, device=dev,
+                           dtype=torch.int8)
+        su = (0.5 + torch.rand(F_, generator=gen, device=dev)) / (127 * D
+                                                                  ** 0.5)
+        sg = su.flip(0).contiguous() if gated else None
+        sd = (0.5 + torch.rand(D, generator=gen, device=dev)) / (127 * F_
+                                                                 ** 0.5)
+        x = randn(M, D, dtype=tdt)
+        record("ffn_act_int8", f"{kind} M={M} D={D} F={F_}", "float32",
+               max_err(FF.ffn_act_int8(x, wu, su, wg, sg, wd, sd, kind),
+                       FF.ffn_act_int8_plain(x, wu, su, wg, sg, wd, sd,
+                                             kind)))
+    for M in (3, 77):
+        x = randn(M, 320, dtype=tdt)
+        ws = [randn(320, n, dtype=tdt, std=320 ** -0.5) for n in (96, 32, 32)]
+        bs = [randn(n, dtype=tdt) for n in (96, 32, 32)]
+        record("qkv_proj", f"ragged M={M} N=96/32/32 bias", "float32",
+               max(max_err(a, b) for a, b in zip(
+                   QK.qkv_proj(x, *ws, *bs), QK.qkv_proj_plain(x, *ws, *bs))))
     results["cases"] = cases
     return results
 
@@ -332,18 +543,39 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
 # ---------------------------------------------------------------------------
 # phases 2 and 3: the model through the serving engine
 # ---------------------------------------------------------------------------
-def _model(dtype: str, hot_window: int, dev: str = "cuda"):
+def _model(arch: str, dtype: str, dev: str = "cuda", **knobs):
+    """(cfg, Model, random params from seed 0) at the config's published
+    widths; ``knobs`` set config fields (kv_policy, kv_hot_window,
+    ffn_weight_store, ...)."""
     import torch
 
     from repro_torch.configs.base import get_config
     from repro_torch.models import Model
 
-    cfg = get_config("fastvlm-1.7b").replace(
-        param_dtype=dtype, compute_dtype=dtype, kv_policy="tiered",
-        kv_hot_window=hot_window)
+    cfg = get_config(arch).replace(param_dtype=dtype, compute_dtype=dtype,
+                                   **knobs)
     model = Model(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     return cfg, model, model.init(gen, device=dev)
+
+
+# the three serving configurations: (label, arch, config knobs, backend
+# knobs, text tokens of a VQA request, kernels the run must launch)
+RUNS = (
+    ("fastvlm-1.7b tiered", "fastvlm-1.7b",
+     dict(kv_policy="tiered", kv_hot_window=128), {}, 192,
+     ("fused_norm", "qkv_proj", "attn_stream", "ffn_act",
+      "paged_decode_tiered")),
+    ("A: mobilevlm-3b flat, fused decode", "mobilevlm-3b",
+     dict(kv_policy="flat"), dict(fused_decode=True), 112,
+     ("fused_norm", "qkv_proj", "attn_stream", "ffn_act",
+      "paged_decode_flat")),
+    ("B: mobilevlm-3b tiered, int8 FFN", "mobilevlm-3b",
+     dict(kv_policy="tiered", kv_hot_window=128, ffn_weight_store="int8"),
+     {}, 112,
+     ("fused_norm", "qkv_proj", "attn_stream", "ffn_act_int8",
+      "paged_decode_tiered")),
+)
 
 
 def _requests(cfg, n_vqa: int, n_text: int, text_with_image: int,
@@ -367,60 +599,98 @@ def _requests(cfg, n_vqa: int, n_text: int, text_with_image: int,
 
 
 def parity_phase(dev: str = "cuda") -> dict:
+    """f32 Engine == generate, tie-aware: fastvlm-1.7b over the tiered
+    store (hot window 64) and mobilevlm-3b on path A (flat store, fused
+    decode through the backend knob; `generate` runs the unfused
+    model)."""
+    out = {}
+    for label, arch, knobs, bknobs in (
+            ("fastvlm-1.7b tiered", "fastvlm-1.7b",
+             dict(kv_policy="tiered", kv_hot_window=64), {}),
+            ("A: mobilevlm-3b flat, fused decode", "mobilevlm-3b",
+             dict(kv_policy="flat"), dict(fused_decode=True))):
+        out[label] = _parity(label, arch, knobs, bknobs, dev)
+    return out
+
+
+def _parity(label, arch, knobs, bknobs, dev) -> dict:
     import torch
 
     from repro_torch.launch.serve import generate
     from repro_torch.serving import Engine, LocalBackend
 
-    cfg, model, params = _model("float32", hot_window=64, dev=dev)
+    cfg, model, params = _model(arch, "float32", dev, **knobs)
     reqs = _requests(cfg, n_vqa=2, n_text=2, text_with_image=64,
                      text_len=128, gen_len=16, seed=1)
-    engine = Engine(LocalBackend(model, params, 4, 160, device=dev))
+    backend = LocalBackend(model, params, 4, 224, device=dev, **bknobs)
+    for k, v in bknobs.items():
+        require(getattr(backend, k) == v, f"{label}: backend {k} != {v}")
+    engine = Engine(backend)
     done = {r.rid: r.generated for r in engine.run(reqs)}
     ties = 0
     for r in reqs:
         batch = {"tokens": r.tokens[None]}
         if r.patches is not None:
             batch["patches"] = r.patches[None]
-        toks, _, logits = generate(model, params, batch, r.prompt_len,
-                                   r.max_new_tokens, device=dev,
-                                   return_logits=True)
+        # the unfused model: on path A its flat decode is store_read +
+        # softmax, so the parity also holds paged_decode_flat against a
+        # path that does not run it
+        toks, _, logits = generate(model, params, batch,
+                                   r.prompt_len, r.max_new_tokens,
+                                   device=dev, return_logits=True)
         ref = toks[0].tolist()
         got = done[r.rid]
         require(len(got) == len(ref) == r.max_new_tokens,
-                f"request {r.rid}: token counts {len(got)}, {len(ref)}")
+                f"{label} request {r.rid}: token counts {len(got)}, "
+                f"{len(ref)}")
         for t, (a, b) in enumerate(zip(got, ref)):
             if a == b:
                 continue
             top2 = logits[0, t].float().topk(2).values
             margin = float(top2[0] - top2[1])
             require(margin < 1e-3,
-                    f"request {r.rid} step {t}: engine token {a} != "
-                    f"generate {b} with top-2 margin {margin:.3e} "
+                    f"{label} request {r.rid} step {t}: engine token {a} "
+                    f"!= generate {b} with top-2 margin {margin:.3e} "
                     f"(not a tie)")
             ties += 1
             break           # the streams legitimately diverge after a tie
-        print(f"[parity] request {r.rid} ({'VQA' if r.patches is not None else 'text'}, "
-              f"prompt {r.prompt_len}): engine == generate "
+        print(f"[parity] {label}: request {r.rid} "
+              f"({'VQA' if r.patches is not None else 'text'}, prompt "
+              f"{r.prompt_len}): engine == generate "
               f"{'(tie-broken)' if got != ref else ''}: {got[:8]}...")
-    del engine, params
+    del engine, backend, params
     if dev == "cuda":
         torch.cuda.empty_cache()
     return {"requests": len(reqs), "tie_breaks": ties}
 
 
 def serving_phase(dev: str = "cuda") -> dict:
+    """The three bf16 serving runs of RUNS, each with its launch check."""
+    import torch
+    out = {}
+    for run in RUNS:
+        out[run[0]] = serve_run(*run, dev=dev)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_run(label, arch, knobs, bknobs, text_with_image, needs,
+              dev: str = "cuda") -> dict:
     import numpy as np
     import torch
 
     from repro_torch import kernels
     from repro_torch.serving import Engine, LocalBackend, aggregate_metrics
 
-    cfg, model, params = _model("bfloat16", hot_window=128, dev=dev)
-    W, max_len, gen_len = 128, 512, 64
-    reqs = _requests(cfg, n_vqa=4, n_text=4, text_with_image=192,
-                     text_len=256, gen_len=gen_len, seed=2)
-    backend = LocalBackend(model, params, 4, max_len, device=dev)
+    cfg, model, params = _model(arch, "bfloat16", dev, **knobs)
+    max_len, gen_len = 512, 64
+    reqs = _requests(cfg, n_vqa=4, n_text=4,
+                     text_with_image=text_with_image, text_len=256,
+                     gen_len=gen_len, seed=2)
+    backend = LocalBackend(model, params, 4, max_len, device=dev, **bknobs)
+    for k, v in bknobs.items():
+        require(getattr(backend, k) == v, f"{label}: backend {k} != {v}")
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
     engine = Engine(backend)
     step_s = []
@@ -429,9 +699,9 @@ def serving_phase(dev: str = "cuda") -> dict:
     def timed_decode(*a):
         sync()
         t0 = time.perf_counter()
-        out = decode(*a)          # returns host tokens: synchronizes
+        res = decode(*a)          # returns host tokens: synchronizes
         step_s.append(time.perf_counter() - t0)
-        return out
+        return res
 
     backend.decode_step = timed_decode
     sync()
@@ -441,58 +711,78 @@ def serving_phase(dev: str = "cuda") -> dict:
     sync()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    require(len(done) == len(reqs), "not every request finished")
+    require(len(done) == len(reqs), f"{label}: not every request finished")
     for r in done:
         require(r.n_generated == gen_len,
-                f"request {r.rid} made {r.n_generated} tokens")
+                f"{label}: request {r.rid} made {r.n_generated} tokens")
         require(all(0 <= t < model.padded_vocab for t in r.generated),
-                f"request {r.rid}: token id out of range")
-    missing = [k for k, n in counts.items() if n <= 0]
-    require(not missing, f"kernels never launched on the main path: "
-                         f"{missing}")
+                f"{label}: request {r.rid}: token id out of range")
+    # every layer of every model call launches each of the run's kernels
+    # once (norms: two a layer and the final one); nothing else launches
+    n_layers = cfg.num_layers
+    ext, dec = engine.stats["extend_calls"], engine.stats["decode_steps"]
+    want = {"fused_norm": (2 * n_layers + 1) * (ext + dec),
+            "qkv_proj": n_layers * (ext + dec),
+            "attn_stream": n_layers * ext,
+            "ffn_act": n_layers * (ext + dec),
+            "ffn_act_int8": n_layers * (ext + dec),
+            "paged_decode_tiered": n_layers * dec,
+            "paged_decode_flat": n_layers * dec}
+    for k, n in counts.items():
+        expect = want[k] if k in needs else 0
+        require(n == expect and (k not in needs or n > 0),
+                f"{label}: {k} launched {n} times on the main path, "
+                f"expected {expect}")
     ctx = max(r.prompt_len + r.n_generated - 1 for r in done)
-    rep = engine.endurance_report()
-    require(ctx > W and rep["total_cold_writes"] > 0, "no cold page was live")
-    require(rep["write_once_ok"], f"endurance violated: {rep}")
+    res = {"requests": len(done), "max_context": ctx, "launches": counts,
+           "extend_calls": ext, "decode_steps_engine": dec}
+    if cfg.kv_policy == "tiered":
+        W = cfg.kv_hot_window
+        rep = engine.endurance_report()
+        require(ctx > W and rep["total_cold_writes"] > 0,
+                f"{label}: no cold page was live")
+        require(rep["write_once_ok"], f"{label}: endurance violated: {rep}")
+        res["cold_writes"] = rep["total_cold_writes"]
     m = aggregate_metrics(done, wall)
     dec_ms = 1e3 * np.asarray(step_s)
-    out = {"requests": m["requests"], "tokens": m["total_tokens"],
-           "wall_s": wall, "tok_per_s": m["tok_per_s"],
-           "ttft_p50_ms": 1e3 * m["ttft_p50_s"],
-           "ttft_p95_ms": 1e3 * m["ttft_p95_s"],
-           "decode_step_p50_ms": float(np.percentile(dec_ms, 50)),
-           "decode_step_p95_ms": float(np.percentile(dec_ms, 95)),
-           "decode_steps": int(dec_ms.size),
-           "max_context": ctx, "cold_writes": rep["total_cold_writes"],
-           "launches": counts,
-           "prefill_chunks": engine.stats["prefill_chunks"]}
-    print(f"[serving] fastvlm-1.7b bf16 tiered W={W} max_len={max_len}: "
-          f"{out['requests']} requests, {out['tokens']} tokens in "
-          f"{wall:.2f} s = {out['tok_per_s']:.1f} tok/s; TTFT p50 "
-          f"{out['ttft_p50_ms']:.1f} ms p95 {out['ttft_p95_ms']:.1f} ms; "
-          f"decode step p50 {out['decode_step_p50_ms']:.2f} ms p95 "
-          f"{out['decode_step_p95_ms']:.2f} ms over {out['decode_steps']} "
-          f"steps; launches {counts}")
+    res.update({"tokens": m["total_tokens"], "wall_s": wall,
+                "tok_per_s": m["tok_per_s"],
+                "ttft_p50_ms": 1e3 * m["ttft_p50_s"],
+                "ttft_p95_ms": 1e3 * m["ttft_p95_s"],
+                "decode_step_p50_ms": float(np.percentile(dec_ms, 50)),
+                "decode_step_p95_ms": float(np.percentile(dec_ms, 95)),
+                "decode_steps": int(dec_ms.size)})
+    print(f"[serving] {label} bf16 max_len={max_len}: {res['requests']} "
+          f"requests, {res['tokens']} tokens in {wall:.2f} s = "
+          f"{res['tok_per_s']:.1f} tok/s; TTFT p50 "
+          f"{res['ttft_p50_ms']:.1f} ms p95 {res['ttft_p95_ms']:.1f} ms; "
+          f"decode step p50 {res['decode_step_p50_ms']:.2f} ms p95 "
+          f"{res['decode_step_p95_ms']:.2f} ms over {res['decode_steps']} "
+          f"steps; context {ctx}; launches {counts}")
     if dev == "cuda":
-        out["profile"] = profile_decode(model, params, cfg, dev)
-    return out
+        res["profile"] = profile_decode(label, model, params, cfg,
+                                        text_with_image, bknobs, dev)
+    del engine, backend, params
+    return res
 
 
-def profile_decode(model, params, cfg, dev: str = "cuda",
-                   n_steps: int = 8) -> dict:
+def profile_decode(label, model, params, cfg, text_with_image, bknobs,
+                   dev: str = "cuda", n_steps: int = 8) -> dict:
     """Device time by kernel over ``n_steps`` steady decode steps of 4
-    slots (prompts of 256, hot window 128, max_len 512), from
-    torch.profiler; the idle share is 1 - kernel time / wall time of the
-    window. Runs after the main path's launch counts were read."""
+    slots (prompts of 256, max_len 512), from torch.profiler; the idle
+    share is 1 - kernel time / wall time of the window. Runs after the
+    main path's launch counts were read."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import Engine, LocalBackend
 
-    reqs = _requests(cfg, n_vqa=2, n_text=2, text_with_image=192,
-                     text_len=256, gen_len=4 * n_steps, seed=3)
-    engine = Engine(LocalBackend(model, params, 4, 512, device=dev))
+    reqs = _requests(cfg, n_vqa=2, n_text=2,
+                     text_with_image=text_with_image, text_len=256,
+                     gen_len=4 * n_steps, seed=3)
+    engine = Engine(LocalBackend(model, params, 4, 512, device=dev,
+                                 **bknobs))
     for r in reqs:
         engine.submit(r)
     while engine._inflight is not None or engine.scheduler.pending \
@@ -516,15 +806,17 @@ def profile_decode(model, params, cfg, dev: str = "cuda",
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
     dev_ms = sum(r[2] for r in rows)
-    (OUT / "decode_profile.txt").write_text(prof.key_averages().table(
-        sort_by="self_device_time_total", row_limit=40))
+    name = label.split(":")[0].replace(" ", "_")
+    (OUT / f"decode_profile_{name}.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=40))
     out = {"steps": n_steps, "wall_ms_per_step": wall_ms / n_steps,
            "device_ms_per_step": dev_ms / n_steps,
            "device_launches_per_step": sum(r[1] for r in rows) / n_steps,
            "idle_share": 1 - dev_ms / wall_ms if wall_ms else None,
            "top": [{"kernel": k[:90], "launches_per_step": c / n_steps,
                     "ms_per_step": t / n_steps} for k, c, t in rows[:14]]}
-    print(f"[profile] decode step (4 slots, ctx ~256-290): wall "
+    print(f"[profile] {label}: decode step (4 slots, ctx ~256-290): wall "
           f"{out['wall_ms_per_step']:.2f} ms, device busy "
           f"{out['device_ms_per_step']:.2f} ms in "
           f"{out['device_launches_per_step']:.0f} launches, idle share "
@@ -577,7 +869,9 @@ def main(argv=None) -> int:
         report["parity"] = parity_phase()
     if "serving" in phases:
         report["serving"] = serving_phase()
-    launches = report.get("serving", {}).get("launches", {})
+    launches = {k: sum(run["launches"].get(k, 0)
+                       for run in report.get("serving", {}).values())
+                for k in REPLACES}
     rows = []
     for k in REPLACES:
         if k not in kern:
@@ -594,9 +888,9 @@ def main(argv=None) -> int:
             "dtype": r["dtype"]})
     report["kernels"] = rows
     report["kernel_cases"] = kern.get("cases", {})
-    report["ffn_act_prefill_ms"] = kern.get("ffn_act_prefill_ms")
-    report["ffn_act_prefill_device_ms"] = kern.get(
-        "ffn_act_prefill_device_ms")
+    for k in ("ffn_act_prefill_ms", "ffn_act_prefill_device_ms",
+              "qkv_proj_prefill_ms", "ffn_act_int8_prefill_ms"):
+        report[k] = kern.get(k)
     (OUT / "report.json").write_text(json.dumps(report, indent=1))
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -2,22 +2,33 @@
 §III-C ③, Table I), PyTorch port.
 
 On a CUDA tensor the port calls its Hopper kernels — `fused_norm` for
-every norm, `ffn_act` for the dense FFN, `attn_stream` for causal prefill
-AND every chunked-prefill extend, `paged_decode_tiered` for decode over
-the tiered store — whatever ``cfg.use_pallas_kernels`` / ``cfg.fused_decode``
-say: those flags name the TPU's Pallas path, and the port's main path on
-the card is the kernels. The fields stay in the config so the two
-packages' configs stay equal field by field. On a CPU tensor the same
-dispatch reaches each kernel wrapper's plain twin.
+every norm, `qkv_proj` for every Q/K/V projection (in
+`models.attention.qkv_proj`), `ffn_act` for the dense FFN and
+`ffn_act_int8` for the int8 "RRAM" weight store, `attn_stream` for
+causal prefill AND every chunked-prefill extend, `paged_decode_tiered`
+for decode over the tiered store and `paged_decode_flat` for fused decode
+over a flat store — whatever ``cfg.use_pallas_kernels`` says: that flag
+names the TPU's Pallas path, and the port's main path on the card is the
+kernels. The field stays in the config so the two packages' configs stay
+equal field by field. On a CPU tensor the same dispatch reaches each
+kernel wrapper's plain twin.
+
+Fused decode and the SLIM sparse read are the reference's knobs, read as
+the reference reads them here: ``cfg.fused_decode`` or the
+``REPRO_SERVE_FUSED_DECODE`` env var, ``cfg.sparse_read_tau`` or
+``REPRO_SERVE_SPARSE_READ`` (the serving backend resolves them once more,
+explicit argument first, and rewrites the config). Tiered decode always
+runs `paged_decode_tiered`, exact (tau = 0) unless fused decode is on —
+the reference's unfused two-segment merge is exact too.
 
 Where the kernels do not apply the plain path runs on either device: an
-FFN with biases (`apply_mlp`, as the reference) and flat-policy decode
-(`store_read` + softmax, the reference default).
-``fused_decode=True`` on a flat store on CUDA raises: `paged_decode_flat`
-is not ported yet (ROADMAP Queue 2).
+FFN with biases (`apply_mlp`, as the reference) and flat-store decode
+without fused decode (`store_read` + softmax, the reference default).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -30,12 +41,25 @@ from repro_torch.models import layers as L
 FFN_KINDS = ("gelu", "silu_gated", "gelu_gated", "relu2")
 
 
-def sparse_read_tau(cfg: ModelConfig) -> float:
-    """The SLIM sparse-read threshold is an option of the fused decode
-    path, as in the reference: 0 (exact) unless ``fused_decode``."""
-    if not getattr(cfg, "fused_decode", False):
+def _use_fused_decode(cfg: ModelConfig) -> bool:
+    """Fused paged decode: the cfg flag, else ``REPRO_SERVE_FUSED_DECODE``
+    (unset, empty or "0" = off)."""
+    if getattr(cfg, "fused_decode", False):
+        return True
+    return os.environ.get("REPRO_SERVE_FUSED_DECODE", "") not in ("", "0")
+
+
+def _sparse_read_tau(cfg: ModelConfig) -> float:
+    """SLIM sparse-read threshold: the cfg value if > 0, else
+    ``REPRO_SERVE_SPARSE_READ``; malformed or negative reads as 0 (off)."""
+    tau = float(getattr(cfg, "sparse_read_tau", 0.0) or 0.0)
+    if tau > 0.0:
+        return tau
+    raw = os.environ.get("REPRO_SERVE_SPARSE_READ", "")
+    try:
+        return max(float(raw), 0.0) if raw else 0.0
+    except ValueError:
         return 0.0
-    return max(float(getattr(cfg, "sparse_read_tau", 0.0) or 0.0), 0.0)
 
 
 def apply_norm(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -50,8 +74,12 @@ def apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if kind not in FFN_KINDS:
         raise NotImplementedError(
             f"mlp {kind!r}: ROADMAP Queue 1 item 7 (remaining mixers)")
-    if "b_up" in p or "w_up" not in p:
+    if "b_up" in p:
         return L.apply_mlp(p, cfg, x, mlp_type=kind)
+    if "w_up_q" in p:
+        return ops.ffn_act_int8(x, p["w_up_q"], p["w_up_scale"],
+                                p.get("w_gate_q"), p.get("w_gate_scale"),
+                                p["w_down_q"], p["w_down_scale"], kind)
     gate = p.get("w_gate")
     return ops.ffn_act(x, p["w_up"].to(x.dtype),
                        None if gate is None else gate.to(x.dtype),
@@ -117,13 +145,13 @@ def apply_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     q, k_new, v_new = A.qkv_proj(p, cfg, x, positions)
     ck = KT.store_append(cache["k"], k_new, pos)
     cv = KT.store_append(cache["v"], v_new, pos)
+    fused = _use_fused_decode(cfg)
     if "hot" in ck:
-        o = ops.paged_decode_tiered(q, ck, cv, pos, tau=sparse_read_tau(cfg))
+        o = ops.paged_decode_tiered(
+            q, ck, cv, pos, tau=_sparse_read_tau(cfg) if fused else 0.0)
+    elif fused:
+        o = ops.paged_decode_flat(q, ck, cv, pos)
     else:
-        if getattr(cfg, "fused_decode", False) and x.is_cuda:
-            raise NotImplementedError(
-                "fused decode over a flat store needs paged_decode_flat: "
-                "ROADMAP Queue 2 item 5 (not ported yet)")
         cd = L.torch_dtype(cfg.compute_dtype)
         kv, valid = KT.store_read(ck, pos, cd)
         vv, _ = KT.store_read(cv, pos, cd)

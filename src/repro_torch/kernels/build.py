@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles on its own with nvcc into
 ``lib<name>-<hash>.so`` (a plain C interface, no PyTorch headers, so a
-build takes seconds), loaded with ctypes. The hash covers the sources
-and flags, so an edited kernel rebuilds by itself. Builds happen at first
+build takes seconds), loaded with ctypes. The hash covers the source,
+every shared header (``csrc/*.cuh``) and the flags, so an edited kernel
+rebuilds by itself. Builds happen at first
 use, into ``build/repro_torch/`` at the repository root (override with
 ``REPRO_TORCH_BUILD_DIR``); `build_all` starts one nvcc per source, all
 together. Nothing here runs at import time: the CPU tests import every
@@ -20,7 +21,8 @@ import shutil
 import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-LIBRARIES = ("fused_norm", "attn_stream", "ffn_act", "paged_decode")
+LIBRARIES = ("fused_norm", "attn_stream", "ffn_act", "ffn_act_int8",
+             "paged_decode", "qkv_proj")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,7 +48,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -117,6 +119,21 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def require_operands(kernel: str, device, expect: dict) -> None:
+    """Raise unless every ``expect`` entry, name -> (tensor, shape,
+    dtype), is a contiguous tensor of that shape and dtype on ``device``;
+    a None tensor (an absent optional operand) passes."""
+    for name, (t, shape, dt) in expect.items():
+        if t is None:
+            continue
+        if tuple(t.shape) != tuple(shape) or t.dtype != dt \
+                or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be a contiguous {dt} "
+                             f"tensor of shape {tuple(shape)} on {device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -12,6 +12,7 @@ from repro_torch.kernels import attn_stream as _attn
 from repro_torch.kernels import ffn_act as _ffn
 from repro_torch.kernels import fused_norm as _norm
 from repro_torch.kernels import paged_decode as _paged
+from repro_torch.kernels import qkv_proj as _qkv
 
 PAGED_DECODE_BLOCK = 128  # cold-page tokens per table entry (= endurance blk)
 
@@ -48,6 +49,51 @@ def paged_decode_tiered(q: torch.Tensor, k_store: dict, v_store: dict,
         k_store["cold_scale"], v_store["cold_q"], v_store["cold_scale"],
         lengths, table, scale=D ** -0.5, block_k=bk, tau=tau)
     return o.reshape(B, H, D)[:, None]
+
+
+def paged_decode_flat(q: torch.Tensor, k_store: dict, v_store: dict, pos, *,
+                      block_k: int = PAGED_DECODE_BLOCK) -> torch.Tensor:
+    """Decode attention over flat stores {"flat": (B, max_len, Hkv, D)},
+    read in place. q (B,1,H,D); ``pos`` an int or a (B,) tensor of
+    per-slot positions. The per-slot identity table is
+    `kv_tiers.cold_page_table` with hot window 0 (valid = position <=
+    pos). Returns (B,1,H,D)."""
+    B, _, H, D = q.shape
+    k, v = k_store["flat"], v_store["flat"]
+    Hkv, max_len = k.shape[2], k.shape[1]
+    bk = min(block_k, max_len)
+    lengths = KT.pos_rows(pos, B, q.device).to(torch.int32)
+    table = KT.cold_page_table(lengths, 0, max_len, bk)
+    o = _paged.paged_decode_flat(
+        q[:, 0].reshape(B, Hkv, H // Hkv, D).contiguous(), k, v, lengths,
+        table, scale=D ** -0.5, block_k=bk)
+    return o.reshape(B, H, D)[:, None]
+
+
+def qkv_proj(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+             wv: torch.Tensor, bq=None, bk=None, bv=None):
+    """x (B,S,D); weights (D, Hx, Dh), biases (Hx, Dh) or None -> q, k, v
+    in model layout (B,S,Hx,Dh). The weights are read in place (2-D
+    views), never concatenated."""
+    D = x.shape[-1]
+    lead = x.shape[:-1]
+    ws = (wq, wk, wv)
+    bs = (None,) * 3 if bq is None else tuple(b.reshape(-1)
+                                             for b in (bq, bk, bv))
+    outs = _qkv.qkv_proj(x.reshape(-1, D), *(w.reshape(D, -1) for w in ws),
+                         *bs)
+    return tuple(o.reshape(*lead, *w.shape[1:]) for o, w in zip(outs, ws))
+
+
+def ffn_act_int8(x: torch.Tensor, w_up_q: torch.Tensor,
+                 w_up_scale: torch.Tensor, w_gate_q, w_gate_scale,
+                 w_down_q: torch.Tensor, w_down_scale: torch.Tensor,
+                 kind: str) -> torch.Tensor:
+    lead = x.shape[:-1]
+    out = _ffn.ffn_act_int8(x.reshape(-1, x.shape[-1]), w_up_q, w_up_scale,
+                            w_gate_q, w_gate_scale, w_down_q, w_down_scale,
+                            kind)
+    return out.reshape(*lead, -1)
 
 
 def ffn_act(x: torch.Tensor, w_up: torch.Tensor, w_gate, w_down: torch.Tensor,

@@ -1,7 +1,10 @@
-"""Paged one-token GQA decode over the CHIME tiered store.
+"""Paged one-token GQA decode over the CHIME tiered store and over a flat
+store.
 
-Replaces the TPU kernel `repro/kernels/paged_decode.py::paged_decode_tiered`.
-The CUDA kernel is `csrc/paged_decode.cu`: one block per (slot, kv head)
+`paged_decode_tiered` replaces the TPU kernel
+`repro/kernels/paged_decode.py::paged_decode_tiered`; `paged_decode_flat`
+replaces `repro/kernels/paged_decode.py::paged_decode_flat`. The CUDA
+kernels are in `csrc/paged_decode.cu`. Tiered: one block per (slot, kv head)
 with the G query rows of the group; the hot ring first (anchoring the
 running max), then the slot's cold pages through its block table (-1 =
 dead) with int8 K/V and the f32 scales factored out of both dots (see its
@@ -16,10 +19,17 @@ Layouts (store-native): q (B, Hkv, G, D) with head h = hkv*G + g; hot k/v
 (B, W, Hkv, D); cold int8 (B, max_len, Hkv, D) with f32 scales
 (B, max_len, Hkv, 1); lengths (B,) int32; table (B, num_pages) int32.
 
-`paged_decode_tiered` launches the kernel for CUDA tensors and runs
-`paged_decode_tiered_plain` (the two-segment merge of
-`models.attention.attend_tiered`, with the same page-skip rule) only for
-CPU tensors; ``paged_decode_tiered.launches`` counts kernel launches.
+Flat: the same page loop over a full-precision (B, max_len, Hkv, D) store
+with no hot ring, no scales and no sparse read; a token is attendable iff
+its position <= lengths[b]. The ragged tail page (max_len not a multiple
+of ``block_k``) is masked, not padded.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain twin
+(`paged_decode_tiered_plain`: the two-segment merge of
+`models.attention.attend_tiered` with the same page-skip rule;
+`paged_decode_flat_plain`: `models.attention.attend_flat` read through the
+block table) only for CPU tensors; ``<wrapper>.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -44,10 +54,10 @@ def _segment(qf, k, v, valid, scale, k_scale=None, v_scale=None):
     s = torch.einsum("bhgd,blhd->bhgl", qf, k.float()) * scale
     if k_scale is not None:
         s = s * k_scale[..., 0].transpose(1, 2)[:, :, None, :]
-    s = torch.where(valid[:, None, None, :], s,
-                    torch.tensor(NEG_INF, device=s.device))
+    live = valid[:, None, None, :]
+    s = torch.where(live, s, torch.tensor(NEG_INF, device=s.device))
     m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
+    p = torch.exp(s - m) * live     # a masked key weighs exactly 0
     d = p.sum(-1, keepdim=True)
     if v_scale is not None:
         p = p * v_scale[..., 0].transpose(1, 2)[:, :, None, :]
@@ -68,6 +78,27 @@ def _merge(state, part, take=None):
     return tuple(torch.where(take, n, o) for n, o in zip(new, state))
 
 
+def _page_rows(table, last, block_k: int, max_len: int):
+    """Per page of ``table`` (B, P): the physical rows (B, P, block_k),
+    clamped into the store, and which of them are attendable — a live
+    entry, logical position <= ``last`` (B,), a row inside the store."""
+    dev = last.device
+    tab = table.to(device=dev, dtype=torch.long)
+    i = torch.arange(block_k, device=dev)
+    rows = tab.clamp_min(0)[:, :, None] * block_k + i
+    tok = torch.arange(tab.shape[1], device=dev)[None, :, None] * block_k + i
+    valid = ((tab >= 0)[:, :, None] & (tok <= last[:, None, None])
+             & (rows < max_len))
+    return rows.clamp_max(max_len - 1), valid
+
+
+def _gather(t, rows):
+    """Rows (B, ...) of a (B, L, Hkv, D') store -> (B, n, Hkv, D')."""
+    B = t.shape[0]
+    return torch.take_along_dim(t, rows.reshape(B, -1)[:, :, None, None],
+                                dim=1)
+
+
 def paged_decode_tiered_plain(q, hot_k, hot_v, cold_kq, cold_ks, cold_vq,
                               cold_vs, lengths, table, *, scale=None,
                               block_k: int = 128, tau: float = 0.0):
@@ -86,47 +117,70 @@ def paged_decode_tiered_plain(q, hot_k, hot_v, cold_kq, cold_ks, cold_vq,
     hot_valid = (pos[:, None] - ((pos[:, None] - slots) % W)) >= 0
     state = _segment(qf, hot_k, hot_v, hot_valid, scale)
     n_pages = table.shape[1]
-    tab = table.to(device=dev, dtype=torch.long)
-    i = torch.arange(block_k, device=dev)
-    # per page: physical rows, logical positions and attendability
-    rows = tab.clamp_min(0)[:, :, None] * block_k + i          # (B,P,bk)
-    tok = torch.arange(n_pages, device=dev)[None, :, None] * block_k + i
-    valid = ((tab >= 0)[:, :, None] & (tok <= (pos - W)[:, None, None])
-             & (rows < max_len))
-    rows = rows.clamp_max(max_len - 1)
-
-    def gather(t, r):
-        return torch.take_along_dim(
-            t, r.reshape(B, -1)[:, :, None, None], dim=1)
+    rows, valid = _page_rows(table, pos - W, block_k, max_len)
 
     if tau <= 0.0:
         r = rows.reshape(B, -1)
-        part = _segment(qf, gather(cold_kq, r), gather(cold_vq, r),
-                        valid.reshape(B, -1), scale, gather(cold_ks, r),
-                        gather(cold_vs, r))
+        part = _segment(qf, _gather(cold_kq, r), _gather(cold_vq, r),
+                        valid.reshape(B, -1), scale, _gather(cold_ks, r),
+                        _gather(cold_vs, r))
         m, d, acc = _merge(state, part)
     else:
         q_l1 = qf.abs().sum(-1, keepdim=True)                  # (B,Hkv,G,1)
         log_tau = math.log(tau)
         for j in range(n_pages):
             r = rows[:, j]
-            ks = gather(cold_ks, r)                            # (B,bk,Hkv,1)
+            ks = _gather(cold_ks, r)                           # (B,bk,Hkv,1)
             live_page = valid[:, j].any(-1)                    # (B,)
             max_ks = torch.where(valid[:, j][:, :, None], ks[..., 0],
                                  torch.zeros((), device=dev)).amax(1)
             ub = scale * INT8_QMAX * max_ks[:, :, None, None] * q_l1
             live = (ub >= state[0] + log_tau).any(2, keepdim=True)
             live = live & live_page[:, None, None, None]
-            part = _segment(qf, gather(cold_kq, r), gather(cold_vq, r),
-                            valid[:, j], scale, ks, gather(cold_vs, r))
+            part = _segment(qf, _gather(cold_kq, r), _gather(cold_vq, r),
+                            valid[:, j], scale, ks, _gather(cold_vs, r))
             state = _merge(state, part, live)
         m, d, acc = state
     return (acc / d.clamp_min(1e-30)).to(q.dtype)
 
 
+def paged_decode_flat_plain(q, k, v, lengths, table, *, scale=None,
+                            block_k: int = 128):
+    """Plain PyTorch twin of the flat kernel: the pages of ``table`` read
+    from the (B, max_len, Hkv, D) store, one softmax over their
+    attendable tokens (position <= lengths[b])."""
+    B, Hkv, G, D = q.shape
+    max_len = k.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    pos = lengths.to(device=q.device, dtype=torch.long)
+    rows, valid = _page_rows(table, pos, block_k, max_len)
+    m, d, acc = _segment(q.float(), _gather(k, rows), _gather(v, rows),
+                         valid.reshape(B, -1), scale)
+    return (acc / d.clamp_min(1e-30)).to(q.dtype)
+
+
+def _check(kernel: str, q, expect: dict) -> None:
+    """Raise unless q and every ``expect`` entry (tensor, shape, dtype)
+    is contiguous, of that shape and dtype, on q's device, with the K/V
+    stores 16-byte aligned for the kernel's row loads."""
+    B, Hkv, G, D = q.shape
+    if D not in HEAD_DIMS or G > MAX_GROUP:
+        raise ValueError(f"{kernel} kernel supports head dims {HEAD_DIMS} "
+                         f"and groups <= {MAX_GROUP}, got D={D}, G={G}")
+    if not q.is_contiguous():
+        raise ValueError(f"{kernel}: q must be contiguous")
+    build.require_operands(kernel, q.device, expect)
+    for name, (t, shape, _) in expect.items():
+        if len(shape) == 4 and shape[-1] == D and t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must start 16-byte aligned "
+                             f"(the kernel loads 16-byte rows)")
+
+
 ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
+FLAT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def paged_decode_tiered(q, hot_k, hot_v, cold_kq, cold_ks, cold_vq, cold_vs,
@@ -142,11 +196,7 @@ def paged_decode_tiered(q, hot_k, hot_v, cold_kq, cold_ks, cold_vq, cold_vs,
     W = hot_k.shape[1]
     max_len = cold_kq.shape[1]
     n_pages = -(-max_len // block_k)
-    if D not in HEAD_DIMS or G > MAX_GROUP:
-        raise ValueError(f"paged_decode_tiered kernel supports head dims "
-                         f"{HEAD_DIMS} and groups <= {MAX_GROUP}, got "
-                         f"D={D}, G={G}")
-    expect = {
+    _check("paged_decode_tiered", q, {
         "hot_k": (hot_k, (B, W, Hkv, D), q.dtype),
         "hot_v": (hot_v, (B, W, Hkv, D), q.dtype),
         "cold_kq": (cold_kq, (B, max_len, Hkv, D), torch.int8),
@@ -155,19 +205,7 @@ def paged_decode_tiered(q, hot_k, hot_v, cold_kq, cold_ks, cold_vq, cold_vs,
         "cold_vs": (cold_vs, (B, max_len, Hkv, 1), torch.float32),
         "lengths": (lengths, (B,), torch.int32),
         "table": (table, (B, n_pages), torch.int32),
-    }
-    for name, (t, shape, dt) in expect.items():
-        if tuple(t.shape) != shape or t.dtype != dt \
-                or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"paged_decode_tiered: {name} must be a "
-                             f"contiguous {dt} tensor of shape {shape} on "
-                             f"{q.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    if not q.is_contiguous():
-        raise ValueError("paged_decode_tiered: q must be contiguous")
-    if any(t.data_ptr() % 16 for t in (hot_k, hot_v, cold_kq, cold_vq)):
-        raise ValueError("paged_decode_tiered: K/V stores must start "
-                         "16-byte aligned (the kernel loads 16-byte rows)")
+    })
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
     lib, fn = build.bind("paged_decode", "paged_decode_tiered", ARGTYPES)
@@ -184,3 +222,35 @@ def paged_decode_tiered(q, hot_k, hot_v, cold_kq, cold_ks, cold_vq, cold_vs,
 
 
 paged_decode_tiered.launches = 0
+
+
+def paged_decode_flat(q, k, v, lengths, table, *, scale: float | None = None,
+                      block_k: int = 128) -> torch.Tensor:
+    """q (B, Hkv, G, D); k, v (B, max_len, Hkv, D); lengths (B,) int32;
+    table (B, ceil(max_len / block_k)) int32, -1 = dead -> (B, Hkv, G, D)
+    in q.dtype. See the module docstring."""
+    if not q.is_cuda:
+        return paged_decode_flat_plain(q, k, v, lengths, table, scale=scale,
+                                       block_k=block_k)
+    B, Hkv, G, D = q.shape
+    max_len = k.shape[1]
+    n_pages = -(-max_len // block_k)
+    _check("paged_decode_flat", q, {
+        "k": (k, (B, max_len, Hkv, D), q.dtype),
+        "v": (v, (B, max_len, Hkv, D), q.dtype),
+        "lengths": (lengths, (B,), torch.int32),
+        "table": (table, (B, n_pages), torch.int32),
+    })
+    scale = scale if scale is not None else D ** -0.5
+    out = torch.empty_like(q)
+    lib, fn = build.bind("paged_decode", "paged_decode_flat", FLAT_ARGTYPES)
+    err = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(lengths),
+             build.ptr(table), build.ptr(out), B, Hkv, G, D, max_len, n_pages,
+             block_k, scale, build.dtype_code(q.dtype),
+             build.stream_ptr(q.device))
+    build.check(lib, err, "paged_decode_flat")
+    paged_decode_flat.launches += 1
+    return out
+
+
+paged_decode_flat.launches = 0

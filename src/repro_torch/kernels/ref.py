@@ -8,3 +8,4 @@ from repro_torch.kernels.ffn_act import ffn_act_plain as ffn_act_ref  # noqa: F4
 from repro_torch.kernels.fused_norm import fused_norm_plain as fused_norm_ref  # noqa: F401
 from repro_torch.kernels.paged_decode import (  # noqa: F401
     paged_decode_tiered_plain as paged_decode_tiered_ref)
+from repro_torch.kernels.qkv_proj import qkv_proj_plain as qkv_proj_ref  # noqa: F401

@@ -77,6 +77,17 @@ def main(argv=None):
                     help="param and compute dtype (default: the config's)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and request stream")
+    ap.add_argument("--fused-decode", action="store_true", default=None,
+                    help="fused paged-decode attention over the flat store "
+                         "too (the tiered store always runs its kernel; "
+                         "default: consult REPRO_SERVE_FUSED_DECODE)")
+    ap.add_argument("--sparse-read", type=float, default=None,
+                    metavar="TAU",
+                    help="SLIM-style adaptive-threshold sparse read "
+                         "inside the fused tiered kernel: skip cold pages "
+                         "whose score upper bound is < running-max + "
+                         "log(TAU) (0 = exact; needs --fused-decode; "
+                         "default: consult REPRO_SERVE_SPARSE_READ)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -92,7 +103,8 @@ def main(argv=None):
     max_len = args.max_len or (max(args.prompt_len, vis + 1) + args.gen)
     backend = make_backend("local", model, params,
                            num_slots=args.concurrency, max_len=max_len,
-                           device=dev)
+                           device=dev, fused_decode=args.fused_decode,
+                           sparse_read=args.sparse_read)
     engine = Engine(backend)
     reqs = make_synthetic_requests(cfg, args.requests, args.prompt_len,
                                    args.gen, seed=args.seed,
@@ -110,7 +122,9 @@ def main(argv=None):
           f"requests, {m['total_tokens']} tokens in {wall:.2f}s "
           f"({m['tok_per_s']:.1f} tok/s incl. kernel build; "
           f"ttft p95 {m.get('ttft_p95_s', 0.0) * 1e3:.0f} ms, "
-          f"tbt p95 {m.get('tbt_p95_s', 0.0) * 1e3:.0f} ms)")
+          f"tbt p95 {m.get('tbt_p95_s', 0.0) * 1e3:.0f} ms)"
+          + (f" [fused decode, sparse tau={backend.sparse_read_tau:g}]"
+             if backend.fused_decode else ""))
     if args.kv_policy == "tiered":
         rep = engine.endurance_report()
         print(f"[serve] endurance: max writes/cold-slot="

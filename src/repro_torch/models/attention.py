@@ -1,9 +1,10 @@
-"""GQA attention: projections, the plain softmax attention, and the
-two-segment (hot ring + int8 cold tier) decode merge.
+"""GQA attention: projections, the plain softmax attention, flat-cache
+decode and the two-segment (hot ring + int8 cold tier) decode merge.
 
 Port of the GQA half of the reference's `models/attention.py`. These
 plain functions are the CPU path and the twins the kernels in
-`repro_torch.kernels` are held against. Masks fill with
+`repro_torch.kernels` are held against; `qkv_proj` goes through the
+`qkv_proj` wrapper, whose plain twin is its CPU path. Masks fill with
 ``NEG_INF = -2**20`` (not -inf), as the reference does.
 """
 
@@ -12,6 +13,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import kv_tiers as KT
+from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamInit, apply_rope, torch_dtype
 
 NEG_INF = -2.0 ** 20
@@ -36,15 +39,14 @@ def qkv_proj(p: dict, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """X·Wq (+bq), X·Wk (+bk), X·Wv (+bv); RoPE on q and k (keys are
-    cached post-RoPE). x (B,S,D) -> (B,S,H,Dh), (B,S,Hkv,Dh) x2."""
+    cached post-RoPE). x (B,S,D) -> (B,S,H,Dh), (B,S,Hkv,Dh) x2. The
+    three projections are one `qkv_proj` call: the kernel on a CUDA
+    tensor, its plain twin on the CPU."""
     cd = torch_dtype(cfg.compute_dtype)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cd))
-    if "bq" in p:
-        q = q + p["bq"].to(cd)
-        k = k + p["bk"].to(cd)
-        v = v + p["bv"].to(cd)
+    ws = [p[n].to(cd) for n in ("wq", "wk", "wv")]
+    bs = [p[n].to(cd) for n in ("bq", "bk", "bv")] if "bq" in p \
+        else [None] * 3
+    q, k, v = ops.qkv_proj(x, *ws, *bs)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -79,6 +81,17 @@ def gqa_scores_softmax_pv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhsl,blhd->bshd", probs, vf)
     return out.to(q.dtype)
+
+
+def attend_flat(cfg, q: torch.Tensor, cache: dict, pos) -> torch.Tensor:
+    """Decode attention over a flat cache {"k", "v"} of (B, L, Hkv, D):
+    q (B,1,H,D), keys valid at positions <= pos (an int or a (B,)
+    tensor of per-slot positions)."""
+    k = cache["k"]
+    B, L = k.shape[:2]
+    p = KT.pos_rows(pos, B, k.device)
+    valid = torch.arange(L, device=k.device) <= p[:, None]
+    return gqa_scores_softmax_pv(q, k, cache["v"], _valid4(valid))
 
 
 def attn_out(p: dict, cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:
@@ -156,7 +169,6 @@ def tiered_valid(pos, W: int, max_len: int, device
     """(cold_valid, hot_valid) for a scalar or (B,) ``pos``: a cold token
     is attendable iff its position <= pos - W, a hot slot iff its ring
     position is in [0, pos]."""
-    from repro_torch.core import kv_tiers as KT
     p = pos if isinstance(pos, torch.Tensor) else torch.tensor(int(pos))
     p = p.to(device=device, dtype=torch.long)
     cold_valid = torch.arange(max_len, device=device) <= (p[..., None] - W)

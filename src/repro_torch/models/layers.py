@@ -47,6 +47,17 @@ class ParamInit:
     def ones(self, shape: tuple[int, ...]) -> torch.Tensor:
         return torch.ones(shape, dtype=self.dtype, device=self.device)
 
+    def int8(self, shape: tuple[int, ...]) -> torch.Tensor:
+        """Uniform int8 in [-127, 127], as the reference's int8 leaves."""
+        x = torch.randint(-127, 128, shape, generator=self.gen,
+                          dtype=torch.int16, device=self.device)
+        return x.to(torch.int8)
+
+    def const(self, shape: tuple[int, ...], value: float) -> torch.Tensor:
+        """A constant f32 leaf, whatever the parameter dtype."""
+        return torch.full(shape, value, dtype=torch.float32,
+                          device=self.device)
+
 
 # ---------------------------------------------------------------------------
 # norms
@@ -118,13 +129,24 @@ def init_mlp(b: ParamInit, cfg: ModelConfig, d_ff: int | None = None,
              mlp_type: str | None = None) -> dict:
     d_ff = d_ff or cfg.d_ff
     kind = mlp_type or cfg.mlp_type
-    if cfg.ffn_weight_store != "native":
-        raise NotImplementedError(
-            "int8 FFN weight store: ROADMAP Queue 2, ffn_act_int8")
-    p = {"w_up": b.normal((cfg.d_model, d_ff))}
-    if kind in ("silu_gated", "gelu_gated"):
-        p["w_gate"] = b.normal((cfg.d_model, d_ff))
-    p["w_down"] = b.normal((d_ff, cfg.d_model))
+    gated = kind in ("silu_gated", "gelu_gated")
+    if cfg.ffn_weight_store == "int8":
+        # the "RRAM-domain" store: int8 weights with per-output-column f32
+        # scales, the reference's leaves and constant scale values
+        sc_up = cfg.d_model ** -0.5 / 127.0
+        sc_dn = d_ff ** -0.5 / 127.0
+        p = {"w_up_q": b.int8((cfg.d_model, d_ff)),
+             "w_up_scale": b.const((d_ff,), sc_up)}
+        if gated:
+            p["w_gate_q"] = b.int8((cfg.d_model, d_ff))
+            p["w_gate_scale"] = b.const((d_ff,), sc_up)
+        p["w_down_q"] = b.int8((d_ff, cfg.d_model))
+        p["w_down_scale"] = b.const((cfg.d_model,), sc_dn)
+    else:
+        p = {"w_up": b.normal((cfg.d_model, d_ff))}
+        if gated:
+            p["w_gate"] = b.normal((cfg.d_model, d_ff))
+        p["w_down"] = b.normal((d_ff, cfg.d_model))
     if cfg.use_mlp_bias:
         p["b_up"] = b.zeros((d_ff,))
         p["b_down"] = b.zeros((cfg.d_model,))
@@ -134,10 +156,17 @@ def init_mlp(b: ParamInit, cfg: ModelConfig, d_ff: int | None = None,
 def apply_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor,
               mlp_type: str | None = None) -> torch.Tensor:
     """GEMM -> (+bias) -> act -> (* gate GEMM) -> GEMM -> (+bias): the
-    plain path, used where the fused kernel does not apply (biases)."""
+    plain path, used where the fused kernels do not apply (biases). An
+    int8 weight store is dequantized first, in the compute dtype, as the
+    reference's jnp path does."""
     kind = mlp_type or cfg.mlp_type
     act = act_of(kind)
     cd = torch_dtype(cfg.compute_dtype)
+    if "w_up_q" in p:
+        p = dict(p)
+        for k in ("w_up", "w_gate", "w_down"):
+            if f"{k}_q" in p:
+                p[k] = p[f"{k}_q"].to(cd) * p[f"{k}_scale"].to(cd)
     h = torch.einsum("...d,df->...f", x, p["w_up"].to(cd))
     if "b_up" in p:
         h = h + p["b_up"].to(h.dtype)

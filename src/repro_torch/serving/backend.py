@@ -25,6 +25,7 @@ oversubscription or paging.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Protocol, runtime_checkable
 
 import numpy as np
@@ -41,6 +42,30 @@ from repro_torch.serving.kv_pool import (KVPoolState, TieredKVPool,
 from repro_torch.tree import tree_map
 
 _SPILL = "ROADMAP Queue 1 item 6 (preemption and spill lanes)"
+
+
+def _resolve_fused_decode(flag: bool | None) -> bool:
+    """Resolve the fused paged-decode knob: an explicit bool wins; None
+    consults ``REPRO_SERVE_FUSED_DECODE`` (unset/empty/"0" = off)."""
+    if flag is not None:
+        return bool(flag)
+    return os.environ.get("REPRO_SERVE_FUSED_DECODE",
+                          "").strip() not in ("", "0")
+
+
+def _resolve_sparse_read(tau: float | None) -> float:
+    """Resolve the SLIM sparse-read threshold: an explicit float wins;
+    None consults ``REPRO_SERVE_SPARSE_READ``. Unparsable or negative
+    values resolve to 0.0 (off): an env var must never wedge startup."""
+    if tau is not None:
+        return max(float(tau), 0.0)
+    raw = os.environ.get("REPRO_SERVE_SPARSE_READ", "").strip()
+    if not raw:
+        return 0.0
+    try:
+        return max(float(raw), 0.0)
+    except ValueError:
+        return 0.0
 _PREFIX = "ROADMAP Queue 1 item 6 (paged prefix pool)"
 
 
@@ -55,6 +80,8 @@ class InferenceBackend(Protocol):
     requires_exact_prefill: bool
     chunk_unit: int
     n_spill: int
+    fused_decode: bool        # fused paged-decode attention (resolved)
+    sparse_read_tau: float    # SLIM page skip inside it (0.0 = exact)
 
     def weight_bytes(self) -> tuple[int, int]: ...
 
@@ -79,13 +106,34 @@ class LocalBackend:
     """Single-device executor: every slot decodes in one batched call."""
 
     def __init__(self, model: Model, params: dict, num_slots: int,
-                 max_len: int, *, device=None):
+                 max_len: int, *, device=None,
+                 fused_decode: bool | None = None,
+                 sparse_read: float | None = None):
         cfg = model.cfg
         if num_slots < 1:
             raise ValueError("backend needs at least one decode slot")
         if cfg.weight_stream_layers:
             raise NotImplementedError(
                 "weight streaming: ROADMAP Queue 1 item 6")
+        # fused paged decode (and the sparse read inside it): explicit arg
+        # > cfg flag > env var, GQA-only, and the resolved values are
+        # written back into the config the model runs with, as the
+        # reference's backend does
+        has_gqa = any(u.block.mixer in ("attn", "attn_shared")
+                      for u in model.plan)
+        if fused_decode is None and getattr(cfg, "fused_decode", False):
+            fused_decode = True
+        if sparse_read is None and getattr(cfg, "sparse_read_tau", 0.0):
+            sparse_read = cfg.sparse_read_tau
+        self.fused_decode = _resolve_fused_decode(fused_decode) and has_gqa
+        self.sparse_read_tau = (_resolve_sparse_read(sparse_read)
+                                if self.fused_decode else 0.0)
+        if (self.fused_decode != bool(getattr(cfg, "fused_decode", False))
+                or self.sparse_read_tau
+                != float(getattr(cfg, "sparse_read_tau", 0.0))):
+            cfg = cfg.replace(fused_decode=self.fused_decode,
+                              sparse_read_tau=self.sparse_read_tau)
+            model = Model(cfg)
         self.device = resolve_device(device)
         self.model = model
         self.params = tree_map(lambda t: t.to(self.device), params)
@@ -207,10 +255,13 @@ class LocalBackend:
 
 
 def make_backend(kind: str, model: Model, params, *, num_slots: int,
-                 max_len: int, device=None) -> InferenceBackend:
+                 max_len: int, device=None, fused_decode: bool | None = None,
+                 sparse_read: float | None = None) -> InferenceBackend:
     """CLI-facing factory; only ``kind='local'`` is ported."""
     if kind == "local":
-        return LocalBackend(model, params, num_slots, max_len, device=device)
+        return LocalBackend(model, params, num_slots, max_len, device=device,
+                            fused_decode=fused_decode,
+                            sparse_read=sparse_read)
     if kind == "sharded":
         raise NotImplementedError(
             "ShardedBackend: ROADMAP Queue 1 item 10 (multi-device)")

@@ -41,28 +41,33 @@ F32 = dict(param_dtype="float32", compute_dtype="float32", remat="none")
 # (the registered reduced twins drop use_attn_bias / tie_embeddings)
 FASTVLM_SMALL = dict(segments=(), num_layers=2, d_model=64, num_heads=6,
                      num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256)
+# the MHA (G = 1), bias-free, untied-head mobilevlm-3b, cut the same way
+MOBILEVLM_SMALL = dict(segments=(), num_layers=2, d_model=64, num_heads=4,
+                       num_kv_heads=4, head_dim=16, d_ff=128, vocab_size=256)
+SMALL = {"fastvlm-small": ("fastvlm-1.7b", FASTVLM_SMALL),
+         "mobilevlm-small": ("mobilevlm-3b", MOBILEVLM_SMALL)}
 ARCHS = ("granite-3-2b", "fastvlm-small")
 
 
 def _configs(arch: str):
-    if arch == "fastvlm-small":
-        return (ref_get_config("fastvlm-1.7b").replace(
-                    frontend=RB.FrontendConfig("vision", 32, 8),
-                    **FASTVLM_SMALL),
-                get_config("fastvlm-1.7b").replace(
-                    frontend=PB.FrontendConfig("vision", 32, 8),
-                    **FASTVLM_SMALL))
+    if arch in SMALL:
+        full, cut = SMALL[arch]
+        return (ref_get_config(full).replace(
+                    frontend=RB.FrontendConfig("vision", 32, 8), **cut),
+                get_config(full).replace(
+                    frontend=PB.FrontendConfig("vision", 32, 8), **cut))
     return ref_get_config(arch, reduced=True), get_config(arch, reduced=True)
 
 
 @functools.lru_cache(maxsize=None)
 def build_pair(arch: str = "granite-3-2b", kv_policy: str = "tiered",
-               hot_window: int = 8):
+               hot_window: int = 8, ffn_weight_store: str = "native"):
     """(ref_cfg, ref_model, ref_params, cfg, model, params): the f32
     reference model and its port twin with the same weights. Memoized;
     treat both parameter trees as read-only."""
     rc, pc = _configs(arch)
-    knobs = dict(F32, kv_policy=kv_policy, kv_hot_window=hot_window)
+    knobs = dict(F32, kv_policy=kv_policy, kv_hot_window=hot_window,
+                 ffn_weight_store=ffn_weight_store)
     rc, pc = rc.replace(**knobs), pc.replace(**knobs)
     rmodel = RefModel(rc)
     rparams = rmodel.init(jax.random.PRNGKey(0))
@@ -149,6 +154,15 @@ def test_small_fastvlm_keeps_bias_and_tied_head():
     assert "lm_head" not in params
 
 
+def test_small_mobilevlm_is_mha_without_bias_with_untied_head():
+    rc, _, rparams, pc, _, params = build_pair("mobilevlm-small")
+    assert as_dict(pc) == as_dict(rc)
+    assert pc.num_kv_heads == pc.num_heads
+    assert not (pc.use_attn_bias or pc.use_mlp_bias or pc.tie_embeddings)
+    assert "bq" not in params["units"]["u0"]["mixer"]
+    assert params["lm_head"].shape == (pc.d_model, 256)
+
+
 # ---------------------------------------------------------------------------
 # bridge
 # ---------------------------------------------------------------------------
@@ -170,6 +184,39 @@ def test_bridge_maps_every_leaf_exactly(arch):
                     bridge.cache_to_numpy(own))[0]}
     assert {k: (v.shape, v.dtype) for k, v in own_flat.items()} == \
         {k: (v.shape, v.dtype) for k, v in flat_ref.items()}
+
+
+def _flat(tree) -> dict:
+    return {jax.tree_util.keystr(p): np.asarray(v) for p, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def test_bridge_carries_int8_ffn_tree_as_is():
+    """The int8 "RRAM" FFN store crosses the bridge leaf for leaf: the
+    same paths, int8 payloads and f32 scales, equal values; the port's
+    own init draws the reference's leaves, dtypes and scale values."""
+    _, _, rparams, pc, model, params = build_pair(
+        "mobilevlm-small", ffn_weight_store="int8")
+    ref, port = _flat(rparams), _flat(bridge.cache_to_numpy(params))
+    assert ref.keys() == port.keys()
+    mlp = [k for k in ref if "['mlp']" in k]
+    assert {k.rsplit("[", 1)[1] for k in mlp} == {
+        "'w_up_q']", "'w_up_scale']", "'w_gate_q']", "'w_gate_scale']",
+        "'w_down_q']", "'w_down_scale']"}
+    for k in ref:
+        assert port[k].dtype == ref[k].dtype, k
+        np.testing.assert_array_equal(port[k], ref[k], err_msg=k)
+    assert all(ref[k].dtype == (np.int8 if k.endswith("_q']")
+                                else np.float32) for k in mlp)
+    own = _flat(bridge.cache_to_numpy(
+        model.init(torch.Generator().manual_seed(0))))
+    assert {k: (v.shape, v.dtype) for k, v in own.items()} == \
+        {k: (v.shape, v.dtype) for k, v in ref.items()}
+    for k in mlp:
+        if k.endswith("_scale']"):
+            np.testing.assert_array_equal(own[k], ref[k], err_msg=k)
+        else:
+            assert np.abs(own[k].astype(int)).max() <= 127
 
 
 def test_bridge_bfloat16_round_trip_is_exact():

@@ -3,7 +3,9 @@ Pallas kernel (interpret mode on the CPU), and the extend path routed
 through `attn_stream`.
 
 Tolerance 2e-5 (f32), as `tests/test_kernels.py`: both sides compute in
-f32 in other orders. The CUDA kernels themselves run only on a card:
+f32 in other orders; 1e-5 for the `qkv_proj`, `ffn_act_int8` and
+`paged_decode_flat` twins, whose sums are short. The CUDA kernels
+themselves run only on a card:
 `test_cuda_kernels_match_plain_twins` is marked ``cuda`` and skips
 without one (`python3 chip_smoke.py` holds them at full size).
 """
@@ -21,20 +23,28 @@ from repro.core import kv_tiers as RKT
 from repro.kernels import attn_stream as RAS
 from repro.kernels import ffn_act as RFF
 from repro.kernels import fused_norm as RFN
+from repro.kernels import ops as ROPS
 from repro.kernels import paged_decode as RPD
+from repro.kernels import qkv_proj as RQK
 from repro.kernels import ref as RREF
+from repro.models import attention as RA
+from repro.models import layers as RL
 from repro_torch import kernels
 from repro_torch.core import fusion as F
 from repro_torch.core import kv_tiers as KT
 from repro_torch.kernels import attn_stream as AS
 from repro_torch.kernels import ffn_act as FF
 from repro_torch.kernels import fused_norm as FN
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode as PD
-from test_torch_config import build_pair
+from repro_torch.kernels import qkv_proj as QK
+from repro_torch.models import attention as A
+from test_torch_config import F32, _configs, build_pair
 
 jax.config.update("jax_platform_name", "cpu")
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+TOL2 = dict(rtol=1e-5, atol=1e-5)
 
 
 def _t(a):
@@ -194,6 +204,149 @@ def test_paged_decode_twin_matches_pallas(G, tau, dead):
 
 
 # ---------------------------------------------------------------------------
+# paged_decode_flat
+# ---------------------------------------------------------------------------
+def _flat_case(rng, B, max_len, Hkv, G, D):
+    q = rng.standard_normal((B, Hkv, G, D)).astype(np.float32)
+    k = rng.standard_normal((B, max_len, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, max_len, Hkv, D)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("dead", [False, True])
+def test_paged_decode_flat_twin_matches_pallas(G, dead):
+    """Ragged per-slot lengths, max_len 200 (not a multiple of the 128
+    page: the port masks the tail page the reference pads), and dead
+    table entries, against the reference kernel in interpret mode."""
+    rng = np.random.default_rng(7)
+    B, max_len, Hkv, D, bk = 4, 200, 2, 16, 128
+    q, k, v = _flat_case(rng, B, max_len, Hkv, G, D)
+    lengths = np.asarray([199, 150, 127, 3], np.int32)
+    table = np.asarray(RKT.cold_page_table(jnp.asarray(lengths)[:, None], 0,
+                                           max_len, bk)).astype(np.int32)
+    if dead:
+        table[0, 0] = table[1, 1] = -1
+    args = [q, k, v, lengths, table]
+    want = RPD.paged_decode_flat(*map(jnp.asarray, args), scale=D ** -0.5,
+                                 block_k=bk, interpret=True)
+    got = PD.paged_decode_flat(*map(_t, args), scale=D ** -0.5, block_k=bk)
+    _close(got, want, **TOL2)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_paged_decode_flat_adapter_matches_reference_per_slot(G):
+    """The model-layout adapter with ragged per-slot positions against one
+    reference call per slot: `ops.paged_decode_flat` (interpret mode) and
+    `attention.attend_flat`; the port's `attend_flat` equals both."""
+    rng = np.random.default_rng(8)
+    B, max_len, Hkv, D = 3, 40, 2, 16
+    H = Hkv * G
+    qm = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, max_len, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, max_len, Hkv, D)).astype(np.float32)
+    pos = [39, 17, 0]
+    got = ops.paged_decode_flat(_t(qm), {"flat": _t(k)}, {"flat": _t(v)},
+                                torch.tensor(pos))
+    plain = A.attend_flat(None, _t(qm), {"k": _t(k), "v": _t(v)},
+                          torch.tensor(pos))
+    for b in range(B):
+        sl = slice(b, b + 1)
+        want = ROPS.paged_decode_flat(
+            None, jnp.asarray(qm[sl]), {"flat": jnp.asarray(k[sl])},
+            {"flat": jnp.asarray(v[sl])}, pos[b])
+        oracle = RA.attend_flat(None, jnp.asarray(qm[sl]),
+                                {"k": jnp.asarray(k[sl]),
+                                 "v": jnp.asarray(v[sl])}, pos[b])
+        _close(got[sl], want, **TOL2)
+        _close(got[sl], oracle, **TOL2)
+        _close(plain[sl], oracle, **TOL2)
+
+
+# ---------------------------------------------------------------------------
+# qkv_proj
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("use_bias", [True, False])
+@pytest.mark.parametrize("M", [16, 7])
+def test_qkv_proj_twin_matches_pallas(use_bias, M):
+    """Three operands against the reference kernel over the concatenated
+    weight (interpret mode); M = 7 is ragged against every tile."""
+    rng = np.random.default_rng(9)
+    D, ns = 64, (96, 32, 32)
+    x = rng.standard_normal((M, D)).astype(np.float32)
+    ws = [(rng.standard_normal((D, n)) * 0.1).astype(np.float32)
+          for n in ns]
+    bs = [rng.standard_normal(n).astype(np.float32) for n in ns] \
+        if use_bias else [None] * 3
+    want = RQK.qkv_proj(jnp.asarray(x), jnp.asarray(np.concatenate(ws, 1)),
+                        jnp.asarray(np.concatenate(bs)) if use_bias
+                        else None, interpret=True)
+    got = QK.qkv_proj(_t(x), *map(_t, ws),
+                      *(None if b is None else _t(b) for b in bs))
+    _close(torch.cat(got, 1), want, **TOL2)
+
+
+def test_qkv_proj_model_layout_roundtrip():
+    """ops.qkv_proj reads (D, H, Dh) weights as 2-D views and returns the
+    model layout, as the reference's adapter does."""
+    rng = np.random.default_rng(10)
+    B, S, D, H, Hkv, Dh = 2, 5, 64, 8, 2, 16
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    ws = [(rng.standard_normal((D, h, Dh)) * 0.1).astype(np.float32)
+          for h in (H, Hkv, Hkv)]
+    bs = [rng.standard_normal((h, Dh)).astype(np.float32)
+          for h in (H, Hkv, Hkv)]
+    want = ROPS.qkv_proj(*map(jnp.asarray, [x, *ws, *bs]))
+    got = ops.qkv_proj(*map(_t, [x, *ws, *bs]))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        _close(g, w, **TOL2)
+
+
+# ---------------------------------------------------------------------------
+# ffn_act_int8
+# ---------------------------------------------------------------------------
+def _int8_ffn(rng, D, Fd, gated):
+    def q8(*shape):
+        return rng.integers(-127, 128, shape).astype(np.int8)
+
+    def sc(n):
+        return rng.uniform(1e-3, 2e-3, n).astype(np.float32)
+    return (q8(D, Fd), sc(Fd), q8(D, Fd) if gated else None,
+            sc(Fd) if gated else None, q8(Fd, D), sc(D))
+
+
+@pytest.mark.parametrize("kind", ["gelu", "relu2"])
+def test_ffn_act_int8_twin_matches_pallas(kind):
+    rng = np.random.default_rng(11)
+    M, D, Fd = 16, 64, 128
+    x = rng.standard_normal((M, D)).astype(np.float32)
+    w1q, w1s, _, _, w2q, w2s = _int8_ffn(rng, D, Fd, gated=False)
+    want = RFF.ffn_act_int8(*map(jnp.asarray, (x, w1q, w1s, w2q, w2s)),
+                            kind, block_m=8, block_f=64, interpret=True)
+    got = FF.ffn_act_int8(_t(x), _t(w1q), _t(w1s), None, None, _t(w2q),
+                          _t(w2s), kind)
+    _close(got, want, **TOL2)
+
+
+def test_ffn_act_int8_gated_twin_matches_reference_apply_mlp():
+    """silu_gated over the int8 store: the function the reference model
+    computes there (`layers.apply_mlp`'s int8 branch)."""
+    rng = np.random.default_rng(12)
+    rc = _configs("mobilevlm-small")[0].replace(ffn_weight_store="int8",
+                                                **F32)
+    M, D, Fd = 6, rc.d_model, rc.d_ff
+    x = rng.standard_normal((2, M // 2, D)).astype(np.float32)
+    w = _int8_ffn(rng, D, Fd, gated=True)
+    names = ("w_up_q", "w_up_scale", "w_gate_q", "w_gate_scale",
+             "w_down_q", "w_down_scale")
+    want = RL.apply_mlp({n: jnp.asarray(a) for n, a in zip(names, w)}, rc,
+                        jnp.asarray(x), None)
+    got = ops.ffn_act_int8(_t(x), *map(_t, w), "silu_gated")
+    _close(got, want, **TOL2)
+
+
+# ---------------------------------------------------------------------------
 # wrappers on the CPU: plain twin, no launch counted
 # ---------------------------------------------------------------------------
 def test_cpu_tensors_take_the_plain_twin_and_count_nothing():
@@ -203,6 +356,15 @@ def test_cpu_tensors_take_the_plain_twin_and_count_nothing():
     FF.ffn_act(x, torch.randn(32, 64), None, torch.randn(64, 32), "gelu")
     q = torch.randn(1, 2, 5, 16)
     AS.attn_stream(q, q, q)
+    w8 = torch.randint(-127, 128, (32, 64), dtype=torch.int8)
+    FF.ffn_act_int8(x, w8, torch.ones(64), None, None, w8.T.contiguous(),
+                    torch.ones(32), "gelu")
+    QK.qkv_proj(x, *(torch.randn(32, 16) for _ in range(3)))
+    kv = torch.randn(1, 8, 2, 16)
+    PD.paged_decode_flat(q[:, :, :1].transpose(1, 2).contiguous(), kv, kv,
+                         torch.tensor([5], dtype=torch.int32),
+                         torch.zeros(1, 1, dtype=torch.int32), block_k=8)
+    assert len(kernels.WRAPPERS) == 7
     assert kernels.launch_counts() == {k: 0 for k in kernels.WRAPPERS}
 
 
@@ -255,7 +417,8 @@ def test_extend_via_attn_stream_matches_reference(arch):
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_twins():
     """Each CUDA kernel against its plain twin at small shapes (f32,
-    1e-4). Runs only where a card is present."""
+    1e-4), the flat paged decode on a ragged 8-row store. Runs only where
+    a card is present."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -287,3 +450,34 @@ def test_cuda_kernels_match_plain_twins():
                                PD.paged_decode_tiered_plain(*args,
                                                             block_k=16),
                                atol=1e-4, rtol=0)
+    fargs = (qd, hot, hot, lengths, KT.cold_page_table(lengths, 0, 8, 16))
+    torch.testing.assert_close(PD.paged_decode_flat(*fargs, block_k=16),
+                               PD.paged_decode_flat_plain(*fargs,
+                                                          block_k=16),
+                               atol=1e-4, rtol=0)
+    ws = (r(96, 64), r(96, 32), r(96, 32))
+    for a, b in zip(QK.qkv_proj(x, *ws), QK.qkv_proj_plain(x, *ws)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    w8 = [torch.randint(-127, 128, s_, generator=g, device=dev,
+                        dtype=torch.int8) for s_ in ((96, 208), (96, 208),
+                                                     (208, 96))]
+    sc = [torch.full((n,), 1e-3, device=dev) for n in (208, 208, 96)]
+    args8 = (w8[0], sc[0], w8[1], sc[1], w8[2], sc[2], "silu_gated")
+    torch.testing.assert_close(FF.ffn_act_int8(x, *args8),
+                               FF.ffn_act_int8_plain(x, *args8),
+                               atol=1e-4, rtol=0)
+
+
+def test_require_operands_names_the_bad_operand():
+    """The wrappers' CUDA-side operand check (run here on CPU tensors):
+    shape, dtype and contiguity faults raise naming the operand; an
+    absent optional operand passes."""
+    from repro_torch.kernels import build
+    w = torch.zeros(4, 6)
+    build.require_operands("k", w.device, {"w": (w, (4, 6), torch.float32),
+                                           "b": (None, (6,), torch.float32)})
+    for bad in ((w, (6, 4), torch.float32),        # shape
+                (w, (4, 6), torch.bfloat16),       # dtype
+                (w.T, (6, 4), torch.float32)):     # contiguity
+        with pytest.raises(ValueError, match="k: w must be"):
+            build.require_operands("k", w.device, {"w": bad})
