@@ -15,13 +15,21 @@ source, all started together; seven kernels), then:
      F 6912, H = Hkv = 20, G = 1, Dh 128): qkv_proj, ffn_act_int8,
      ffn_act and fused_norm at decode M = 4 and prefill M = 256,
      paged_decode_flat and paged_decode_tiered at B = 4 slots,
-     attn_stream at S = L = 256; qkv_proj also at fastvlm-1.7b's
-     GQA-with-bias shape; plus ragged, dead-page, ragged-tail-page,
-     unaligned-row and sparse-read cases. Tolerances:
+     attn_stream at S = L = 256; qkv_proj at M = 1, 3, 4 (the GEMV),
+     5 (the first GEMM row count) and prefill, at both models (fastvlm
+     with bias); attn_stream also on an extend chunk (S = 64 at q_offset
+     256 over a strided slice of the (1, 512, Hkv, 128) workspace), at
+     ragged S = L = 200 and at fastvlm-0.6b's Dh 64; plus ragged,
+     dead-page, ragged-tail-page, unaligned-row and sparse-read cases.
+     The banner prints the bf16 tensor-core kernels' tiles from their
+     Python mirrors and holds each mirrored shared-memory size against the
+     built library's. Tolerances:
      max-abs error <= 1e-4 in f32 (f32 sums in another order) and <= 2e-2
      in bf16 (inputs are scaled so outputs stay below magnitude 2, where
-     one bf16 rounding step is <= 7.8e-3). Times are the median of 25
-     CUDA-event timed calls after warm-up;
+     one bf16 rounding step is <= 7.8e-3). Call times are the median of
+     25 CUDA-event timed calls after warm-up, device times the
+     profiler's kernel time a call, for the kernels and for the library
+     call beside them (SDPA; torch.addmm at decode and prefill);
   2. parity — f32 at full width and depth, the serving Engine's tokens
      against `generate` on 2 VQA + 2 text requests, for fastvlm-1.7b over
      the tiered store and for mobilevlm-3b on path A (flat store, fused
@@ -42,11 +50,13 @@ source, all started together; seven kernels), then:
          128) with int8 FFN weights (ffn_act_int8);
      A and B serve 8 requests (4 VQA with 144 visual + 112 text tokens,
      4 text with 256) at concurrency 4, max_len 512, 64 new tokens each.
-     A decode-step profile (torch.profiler) follows each run.
+     A decode-step profile and a whole-prompt prefill profile
+     (torch.profiler) follow each run.
 
 It prints the card (name, power limit), the kernel build time, the
 phases' results, then one JSON line {"kernels": [...]} (launches summed
-over the three serving runs) and, last, the device JSON line. It fails
+over the three serving runs; host_ms is call ms minus device ms) and,
+last, the device JSON line. It fails
 (non-zero exit, no result lines) without a card, outside the repository,
 or when any check fails. `--phases` selects a subset (e.g. `--phases
 kernels` for a quick compile check).
@@ -158,6 +168,79 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+# the bf16 tensor-core kernels: their SASS must hold warpgroup MMAs
+# (HGMMA) and shared-memory tiles filled by cp.async (LDGSTS)
+TENSOR_CORE_LIBS = ("attn_stream", "qkv_proj")
+
+
+def sass_check() -> dict:
+    """Count HGMMA and LDGSTS instructions in the built tensor-core
+    libraries with cuobjdump (beside nvcc) and require both."""
+    from repro_torch.kernels import build
+    tool = pathlib.Path(build.nvcc_path()).with_name("cuobjdump")
+    out = {}
+    for name in TENSOR_CORE_LIBS:
+        sass = subprocess.run([str(tool), "-sass",
+                               str(build.library_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        out[name] = {"HGMMA": sass.count("HGMMA"),
+                     "LDGSTS": sass.count("LDGSTS")}
+        print(f"[sass] {name}: {out[name]['HGMMA']} HGMMA, "
+              f"{out[name]['LDGSTS']} LDGSTS instructions")
+        require(out[name]["HGMMA"] > 0 and out[name]["LDGSTS"] > 0,
+                f"{name}: no wgmma or no cp.async in the built library")
+    return out
+
+
+def tile_banner(dev: str = "cuda") -> dict:
+    """Print the bf16 tensor-core kernels' tiles from their Python mirrors
+    (the constants the CPU tests check against Hopper's shared memory)
+    and, on the card, hold each mirrored shared-memory size against the
+    one the built library reports, so a drift between the two shows."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import attn_stream as AS
+    from repro_torch.kernels import build
+    from repro_torch.kernels import qkv_proj as QK
+
+    tiles = {"attn_stream": {
+                 "BQ": AS.WGMMA_BQ, "BK": AS.WGMMA_BK,
+                 "stages": AS.WGMMA_STAGES,
+                 "smem": {hd: AS.wgmma_smem_bytes(hd)
+                          for hd in AS.HEAD_DIMS}},
+             "qkv_proj": {
+                 "BM": [64, 128], "BN": QK.WGMMA_BN, "BK": QK.WGMMA_BK,
+                 "stages": [QK.wgmma_stages(w) for w in (1, 2)],
+                 "smem": [QK.wgmma_smem_bytes(w) for w in (1, 2)],
+                 "gemv_threads": QK.GEMV_THREADS,
+                 "gemv_blocks_per_sm": QK.GEMV_BLOCKS_PER_SM,
+                 "gemv_max_split": QK.GEMV_MAX_SPLIT}}
+    print(f"[kernels] tiles {json.dumps(tiles)}")
+    if dev != "cuda":
+        return tiles
+    la, lq = build.load("attn_stream"), build.load("qkv_proj")
+    for fn in (la.attn_stream_smem_bytes, lq.qkv_proj_smem_bytes):
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    for hd, want in tiles["attn_stream"]["smem"].items():
+        got = la.attn_stream_smem_bytes(hd)
+        require(got == want, f"attn_stream smem at Dh {hd}: library {got}, "
+                             f"mirror {want}")
+    for wgs in (1, 2):
+        got, want = lq.qkv_proj_smem_bytes(10 + wgs), QK.wgmma_smem_bytes(wgs)
+        require(got == want, f"qkv_proj GEMM smem at {wgs} warpgroups: "
+                             f"library {got}, mirror {want}")
+    for code, dt in ((1, "float32"), (2, "bfloat16")):
+        want = QK.gemv_smem_bytes(0, 0, getattr(torch, dt))
+        require(lq.qkv_proj_smem_bytes(code) == want,
+                f"qkv_proj GEMV {dt} static smem: library "
+                f"{lq.qkv_proj_smem_bytes(code)}, mirror {want}")
+    print("[kernels] tile mirrors match the built libraries")
+    return tiles
+
+
 # ---------------------------------------------------------------------------
 # phase 1: kernels against their plain twins
 # ---------------------------------------------------------------------------
@@ -170,9 +253,11 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
     from repro_torch.kernels import attn_stream as AS
     from repro_torch.kernels import ffn_act as FF
     from repro_torch.kernels import fused_norm as FN
+    from repro_torch.kernels import ops
     from repro_torch.kernels import paged_decode as PD
     from repro_torch.kernels import qkv_proj as QK
 
+    tiles = tile_banner(dev)
     dev = torch.device(dev)
     time_ms, dev_ms = timer, dev_timer
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -180,8 +265,13 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
     def randn(*shape, dtype, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
-    results: dict[str, dict] = {}
+    results: dict[str, dict] = {"tiles": tiles}
     cases: dict[str, list] = {k: [] for k in REPLACES}
+
+    def timed(fn, reps=25):
+        """(call ms, device ms) of ``fn``: CUDA events around the call,
+        and the profiler's device time of what it launches."""
+        return time_ms(fn, reps=reps), dev_ms(fn)
 
     def record(name, label, dtype, err, main=None):
         tol = TOL[dtype]
@@ -263,12 +353,12 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
             plain = time_ms(lambda: AS.attn_stream_plain(q, k, v, True))
             if tuple(int(p) for p in torch.__version__.split(".")[:2]) \
                     >= (2, 5):
-                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                lib, lib_dev = timed(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True))
             else:
                 ke = k.repeat_interleave(HEADS // KV_HEADS, 1)
                 ve = v.repeat_interleave(HEADS // KV_HEADS, 1)
-                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                lib, lib_dev = timed(lambda: F.scaled_dot_product_attention(
                     q, ke, ve, is_causal=True))
             pairs = S * (S + 1) // 2
             nbytes = (2 * HEADS * S + 2 * KV_HEADS * L) * HEAD_DIM * es
@@ -277,9 +367,37 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                              f"{KV_HEADS}, causal", "ms": ms,
                     "device_ms": dev_ms(lambda: AS.attn_stream(
                         q, k, v, causal=True)),
-                    "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                    "plain_ms": plain, "library_ms": lib,
+                    "library_device_ms": lib_dev, "bound_ms": b_ms,
                     "bound_by": b_by}
         record("attn_stream", "causal S=L=320", dt, err, main)
+        # an extend chunk: 64 queries at pos 256 over the first 320 rows of
+        # the (1, 512, Hkv, Dh) workspace, sliced as core/fusion.py passes
+        # it (strided K/V views, model-layout q and output)
+        k_ws = randn(1, 512, KV_HEADS, HEAD_DIM, dtype=tdt)
+        v_ws = randn(1, 512, KV_HEADS, HEAD_DIM, dtype=tdt, std=0.4)
+        qx = randn(1, 64, HEADS, HEAD_DIM, dtype=tdt)
+        kx, vx = k_ws[:, :320], v_ws[:, :320]
+        record("attn_stream", "extend S=64 L=320 workspace slice", dt,
+               max_err(ops.attn_stream(qx, kx, vx, causal=True),
+                       AS.attn_stream_plain(
+                           qx.transpose(1, 2), kx.transpose(1, 2),
+                           vx.transpose(1, 2), True).transpose(1, 2)))
+        del k_ws, v_ws
+        # ragged S = L = 200 (not a multiple of the 64-row tiles)
+        q = randn(1, HEADS, 200, HEAD_DIM, dtype=tdt)
+        k = randn(1, KV_HEADS, 200, HEAD_DIM, dtype=tdt)
+        v = randn(1, KV_HEADS, 200, HEAD_DIM, dtype=tdt, std=0.4)
+        record("attn_stream", "ragged causal S=L=200", dt,
+               max_err(AS.attn_stream(q, k, v, causal=True),
+                       AS.attn_stream_plain(q, k, v, True)))
+        # fastvlm-0.6b's heads: H 14, Hkv 2, Dh 64
+        q = randn(1, 14, 320, 64, dtype=tdt)
+        k = randn(1, 2, 320, 64, dtype=tdt)
+        v = randn(1, 2, 320, 64, dtype=tdt, std=0.4)
+        record("attn_stream", "H=14 Hkv=2 Dh=64 causal S=L=320", dt,
+               max_err(AS.attn_stream(q, k, v, causal=True),
+                       AS.attn_stream_plain(q, k, v, True)))
         # ---- paged_decode_tiered: B=4, W=128, max_len 512, 384 cold -----
         B, W, ML, G = 4, 128, 512, HEADS // KV_HEADS
         qd = randn(B, KV_HEADS, G, HEAD_DIM, dtype=tdt)
@@ -390,46 +508,55 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                    max_err(PD.paged_decode_flat(*rargs),
                            PD.paged_decode_flat_plain(*rargs)))
         del kf, vf, fargs
-        # ---- qkv_proj: mobilevlm-3b (MHA, no bias) M=4 and M=256 --------
-        ws3 = [randn(D3, H3 * HEAD_DIM, dtype=tdt, std=0.5 * D3 ** -0.5)
-               for _ in range(3)]
-        for M in (4, 256):
-            x = randn(M, D3, dtype=tdt)
-            err = max(max_err(a, b) for a, b in zip(
-                QK.qkv_proj(x, *ws3), QK.qkv_proj_plain(x, *ws3)))
-            main = None
-            if M == 4 and dt == "bfloat16":
-                ms = time_ms(lambda: QK.qkv_proj(x, *ws3))
-                plain = time_ms(lambda: QK.qkv_proj_plain(x, *ws3))
-                wcat = torch.cat(ws3, 1)
-                bcat = torch.zeros(wcat.shape[1], dtype=tdt, device=dev)
-                lib = time_ms(lambda: torch.addmm(bcat, x, wcat))
-                del wcat
-                N = 3 * H3 * HEAD_DIM
-                b_ms, b_by = bound(pk, (M * D3 + D3 * N + M * N) * es,
-                                   2 * M * D3 * N, dt)
-                main = {"shape": f"x ({M}, {D3}), N 3 x {H3 * HEAD_DIM}, "
-                                 f"no bias", "ms": ms, "plain_ms": plain,
-                        "library_ms": lib, "bound_ms": b_ms,
-                        "bound_by": b_by,
-                        "device_ms": dev_ms(lambda: QK.qkv_proj(x, *ws3))}
-            if M == 256 and dt == "bfloat16":
-                results["qkv_proj_prefill_ms"] = time_ms(
-                    lambda: QK.qkv_proj(x, *ws3), reps=10)
-            record("qkv_proj", f"mobilevlm M={M}", dt, err, main)
-        del ws3
-        # ---- qkv_proj: fastvlm-1.7b GQA with bias, M=4 and M=320 --------
-        wsf = [randn(D_MODEL, n * HEAD_DIM, dtype=tdt,
-                     std=0.5 * D_MODEL ** -0.5)
-               for n in (HEADS, KV_HEADS, KV_HEADS)]
-        bsf = [randn(n * HEAD_DIM, dtype=tdt, std=0.1)
-               for n in (HEADS, KV_HEADS, KV_HEADS)]
-        for M in (4, 320):
-            x = randn(M, D_MODEL, dtype=tdt)
-            record("qkv_proj", f"fastvlm bias M={M}", dt,
-                   max(max_err(a, b) for a, b in zip(
-                       QK.qkv_proj(x, *wsf, *bsf),
-                       QK.qkv_proj_plain(x, *wsf, *bsf))))
+        # ---- qkv_proj: mobilevlm-3b (MHA, no bias) and fastvlm-1.7b (GQA
+        # with bias): decode M = 1, 3, 4 (the GEMV), M = 5 (the first
+        # GEMM row count) and prefill M = 256 / 320. In bf16 the kernel,
+        # its twin and torch.addmm over the concatenated weight are timed
+        # at decode M = 4 and at prefill
+        for (tag, D_, ns, bias, M_pre) in (
+                ("mobilevlm", D3, (H3 * HEAD_DIM,) * 3, False, 256),
+                ("fastvlm", D_MODEL, (HEADS * HEAD_DIM, KV_HEADS * HEAD_DIM,
+                                      KV_HEADS * HEAD_DIM), True, 320)):
+            wq3 = [randn(D_, n, dtype=tdt, std=0.5 * D_ ** -0.5) for n in ns]
+            bq3 = ([randn(n, dtype=tdt, std=0.1) for n in ns] if bias
+                   else [None] * 3)
+            wcat = torch.cat(wq3, 1)
+            bcat = (torch.cat(bq3) if bias else
+                    torch.zeros(wcat.shape[1], dtype=tdt, device=dev))
+            N = sum(ns)
+            for M in (1, 3, 4, 5, M_pre):
+                x = randn(M, D_, dtype=tdt)
+                err = max(max_err(a, b) for a, b in zip(
+                    QK.qkv_proj(x, *wq3, *bq3),
+                    QK.qkv_proj_plain(x, *wq3, *bq3)))
+                main = None
+                if dt == "bfloat16" and M in (4, M_pre):
+                    ms, dms = timed(lambda: QK.qkv_proj(x, *wq3, *bq3))
+                    lib, lib_dev = timed(lambda: torch.addmm(bcat, x, wcat))
+                    b_ms, b_by = bound(
+                        pk, (M * D_ + D_ * N + M * N + (N if bias else 0))
+                        * es, 2 * M * D_ * N, dt)
+                    where = "decode" if M == 4 else "prefill"
+                    results[f"qkv_proj_{tag}_{where}"] = {
+                        "M": M, "ms": ms, "device_ms": dms,
+                        "library_ms": lib, "library_device_ms": lib_dev,
+                        "bound_ms": b_ms, "bound_by": b_by}
+                    if tag == "mobilevlm" and M == 4:
+                        main = {"shape": f"x ({M}, {D_}), N 3 x {ns[0]}, "
+                                         f"no bias", "ms": ms,
+                                "plain_ms": time_ms(lambda: QK.qkv_proj_plain(
+                                    x, *wq3)),
+                                "library_ms": lib,
+                                "library_device_ms": lib_dev,
+                                "bound_ms": b_ms, "bound_by": b_by,
+                                "device_ms": dms}
+                    print(f"[kernels]   qkv_proj {tag} {where} M={M}: "
+                          f"{1e3 * dms:.1f} us device, {ms:.3f} ms call; "
+                          f"torch.addmm {1e3 * lib_dev:.1f} us device, "
+                          f"{lib:.3f} ms call; bound {1e3 * b_ms:.1f} us")
+                record("qkv_proj", f"{tag}{' bias' if bias else ''} M={M}",
+                       dt, err, main)
+            del wq3, wcat
         # ---- ffn_act_int8: mobilevlm-3b silu_gated M=4 and M=256 --------
         def int8w(k, n):
             return torch.randint(-127, 128, (k, n), generator=gen,
@@ -499,14 +626,18 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         record("ffn_act", f"{kind} M=5 D=320 F=1000", "float32",
                max_err(FF.ffn_act(x, wu, wg, wd, kind),
                        FF.ffn_act_plain(x, wu, wg, wd, kind)))
-    for (S, L, causal, Dh) in ((100, 333, True, 128), (77, 77, False, 64),
-                               (5, 40, True, 16)):
-        q = randn(2, 6, S, Dh, dtype=tdt)
-        k = randn(2, 3, L, Dh, dtype=tdt)
-        v = randn(2, 3, L, Dh, dtype=tdt)
-        record("attn_stream", f"S={S} L={L} causal={causal} D={Dh}",
-               "float32", max_err(AS.attn_stream(q, k, v, causal=causal),
-                                  AS.attn_stream_plain(q, k, v, causal)))
+    # attention at every head dim (bf16: the 32- and 64-byte swizzles at
+    # Dh 16 and 32), ragged and GQA, causal S < L and not causal
+    for dt in ("float32", "bfloat16"):
+        for (S, L, causal, Dh) in ((100, 333, True, 128),
+                                   (77, 77, False, 64), (5, 40, True, 16),
+                                   (40, 72, True, 32)):
+            q = randn(2, 6, S, Dh, dtype=getattr(torch, dt))
+            k = randn(2, 3, L, Dh, dtype=getattr(torch, dt))
+            v = randn(2, 3, L, Dh, dtype=getattr(torch, dt), std=0.4)
+            record("attn_stream", f"S={S} L={L} causal={causal} D={Dh}",
+                   dt, max_err(AS.attn_stream(q, k, v, causal=causal),
+                               AS.attn_stream_plain(q, k, v, causal)))
     # D = 200: W_down rows are not 16-byte multiples, so the kernel stages
     # them a byte at a time
     for (M, D, F_, kind) in ((5, 320, 1000, "gelu"), (5, 320, 1000, "relu2"),
@@ -529,13 +660,18 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                max_err(FF.ffn_act_int8(x, wu, su, wg, sg, wd, sd, kind),
                        FF.ffn_act_int8_plain(x, wu, su, wg, sg, wd, sd,
                                              kind)))
-    for M in (3, 77):
-        x = randn(M, 320, dtype=tdt)
-        ws = [randn(320, n, dtype=tdt, std=320 ** -0.5) for n in (96, 32, 32)]
-        bs = [randn(n, dtype=tdt) for n in (96, 32, 32)]
-        record("qkv_proj", f"ragged M={M} N=96/32/32 bias", "float32",
-               max(max_err(a, b) for a, b in zip(
-                   QK.qkv_proj(x, *ws, *bs), QK.qkv_proj_plain(x, *ws, *bs))))
+    # ragged rows and column tiles (N = 96 is 3/4 of a 128-wide GEMM tile)
+    for dt in ("float32", "bfloat16"):
+        tq = getattr(torch, dt)
+        for M in (3, 77):
+            x = randn(M, 320, dtype=tq)
+            ws = [randn(320, n, dtype=tq, std=0.5 * 320 ** -0.5)
+                  for n in (96, 32, 32)]
+            bs = [randn(n, dtype=tq, std=0.1) for n in (96, 32, 32)]
+            record("qkv_proj", f"ragged M={M} N=96/32/32 bias", dt,
+                   max(max_err(a, b) for a, b in zip(
+                       QK.qkv_proj(x, *ws, *bs),
+                       QK.qkv_proj_plain(x, *ws, *bs))))
     results["cases"] = cases
     return results
 
@@ -762,6 +898,8 @@ def serve_run(label, arch, knobs, bknobs, text_with_image, needs,
     if dev == "cuda":
         res["profile"] = profile_decode(label, model, params, cfg,
                                         text_with_image, bknobs, dev)
+        res["prefill_profile"] = profile_prefill(label, model, params, cfg,
+                                                 bknobs, dev)
     del engine, backend, params
     return res
 
@@ -827,6 +965,61 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
     return out
 
 
+def profile_prefill(label, model, params, cfg, bknobs, dev: str = "cuda",
+                    prompt: int = 256) -> dict:
+    """Device time by kernel of one whole-prompt extend (a 256-token text
+    prompt, committed into slot 0 of a fresh 4-slot pool, max_len 512)
+    under torch.profiler, after one warm-up call; the busy share is
+    kernel time / wall time of the call. Runs after the main path's
+    launch counts were read."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import LocalBackend
+
+    backend = LocalBackend(model, params, 4, 512, device=dev, **bknobs)
+    state = backend.init_pool()
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, prompt)
+    batch = {"tokens": toks.astype(np.int32)[None]}
+
+    def call():
+        return backend.extend_step(batch, state, backend.fresh_extend(), 0,
+                                   0, prompt, True)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    dev_ms = sum(r[2] for r in rows)
+    name = label.split(":")[0].replace(" ", "_")
+    (OUT / f"prefill_profile_{name}.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=40))
+    out = {"prompt": prompt, "wall_ms": wall_ms, "device_ms": dev_ms,
+           "device_launches": sum(r[1] for r in rows),
+           "busy_share": dev_ms / wall_ms if wall_ms else None,
+           "top": [{"kernel": k[:90], "launches": c, "ms": t}
+                   for k, c, t in rows[:14]]}
+    print(f"[profile] {label}: prefill extend ({prompt} tokens): wall "
+          f"{wall_ms:.2f} ms, device busy {dev_ms:.2f} ms in "
+          f"{out['device_launches']} launches, busy share "
+          f"{out['busy_share']:.3f}")
+    for r in out["top"]:
+        print(f"[profile]   {r['ms']:8.3f} ms {r['launches']:5d} launches  "
+              f"{r['kernel']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="kernels,parity,serving")
@@ -864,7 +1057,10 @@ def main(argv=None) -> int:
                 print(f"[ptxas] {k}: {line.strip()}")
 
     report = {"card": card, "build_s": build_s}
-    kern = kernel_phase(pk) if "kernels" in phases else {}
+    kern = {}
+    if "kernels" in phases:
+        report["sass"] = sass_check()
+        kern = kernel_phase(pk)
     if "parity" in phases:
         report["parity"] = parity_phase()
     if "serving" in phases:
@@ -882,14 +1078,18 @@ def main(argv=None) -> int:
             "replaces": REPLACES[k], "tpu_kernel": REPLACES[k],
             "launches": launches.get(k, 0), "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "kernel_ms": r["ms"],
-            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "device_ms": r["device_ms"], "host_ms": r["ms"] - r["device_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"],
-            "dtype": r["dtype"]})
+            "library_ms": r["library_ms"],
+            "library_device_ms": r.get("library_device_ms"),
+            "shape": r["shape"], "dtype": r["dtype"]})
     report["kernels"] = rows
     report["kernel_cases"] = kern.get("cases", {})
     for k in ("ffn_act_prefill_ms", "ffn_act_prefill_device_ms",
-              "qkv_proj_prefill_ms", "ffn_act_int8_prefill_ms"):
+              "ffn_act_int8_prefill_ms", "tiles",
+              *(f"qkv_proj_{t}_{w}" for t in ("mobilevlm", "fastvlm")
+                for w in ("decode", "prefill"))):
         report[k] = kern.get(k)
     (OUT / "report.json").write_text(json.dumps(report, indent=1))
     print(card)

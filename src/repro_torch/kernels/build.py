@@ -14,6 +14,7 @@ module on a machine without nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -136,18 +137,37 @@ def require_operands(kernel: str, device, expect: dict) -> None:
                              f"{t.device}")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    """A tensor's device address, for a ``c_void_p`` argument (ctypes
+    converts the int itself; no pointer object is built per call)."""
+    return t.data_ptr()
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
+def stream_ptr(device) -> int:
+    """The current CUDA stream of ``device`` as an int, read on every call
+    (a capture runs on a side stream): the pointer that
+    ``torch.cuda.current_stream(device).cuda_stream`` holds, without
+    building a Stream object."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index``."""
+    import torch
+    return torch.cuda.get_device_properties(
+        device_index).multi_processor_count
+
+
+_DTYPE_CODES: dict = {}
 
 
 def dtype_code(dtype) -> int:
-    import torch
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    if dtype not in codes:
+    if not _DTYPE_CODES:
+        import torch
+        _DTYPE_CODES.update({torch.float32: 0, torch.bfloat16: 1})
+    code = _DTYPE_CODES.get(dtype)
+    if code is None:
         raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
-    return codes[dtype]
+    return code

@@ -21,7 +21,6 @@ per call: the product kernel and its reduction).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -91,11 +90,6 @@ INT8_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
     ctypes.c_void_p]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _rows_aligned(*ws) -> bool:
     """True when every row of the weights starts 16-byte aligned, so the
     kernel may load their tiles 16 bytes at a time."""
@@ -117,7 +111,7 @@ def _launch(entry: str, argtypes: list, x: torch.Tensor, weights: list,
     if D > MAX_D:
         raise ValueError(f"{entry} kernel supports d_model <= {MAX_D}, "
                          f"got {D}")
-    f_per_block, n_fc = f_chunking(M, F_, _sm_count(x.device))
+    f_per_block, n_fc = f_chunking(M, F_, build.sm_count(x.device.index))
     partial = torch.empty((n_fc, M, D), dtype=torch.float32, device=x.device)
     out = torch.empty((M, D), dtype=x.dtype, device=x.device)
     lib, fn = build.bind(entry, entry, argtypes)

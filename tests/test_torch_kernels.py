@@ -303,6 +303,154 @@ def test_qkv_proj_model_layout_roundtrip():
         _close(g, w, **TOL2)
 
 
+def _qkv_widths(cfg):
+    """(D, (Nq, Nk, Nv)) of a config's QKV projection."""
+    return cfg.d_model, (cfg.num_heads * cfg.head_dim,
+                         cfg.num_kv_heads * cfg.head_dim,
+                         cfg.num_kv_heads * cfg.head_dim)
+
+
+def _qkv_shapes():
+    from repro_torch.configs.base import get_config
+    full = [get_config(a) for a in ("fastvlm-1.7b", "mobilevlm-3b")]
+    small = [_configs(a)[1] for a in ("fastvlm-small", "mobilevlm-small",
+                                      "granite-3-2b")]
+    return [(c.name, True, *_qkv_widths(c)) for c in full] + \
+        [(c.name, False, *_qkv_widths(c)) for c in small]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [1, 4])
+@pytest.mark.parametrize("name,full,D,ns", _qkv_shapes())
+def test_qkv_gemv_split_covers_every_element_once(name, full, D, ns, M,
+                                                  dtype):
+    """The decode GEMV's grid (column tiles of every operand x D chunks)
+    covers each (D row, output column) exactly once, each cluster is at
+    most the portable 8 blocks with no empty chunk, and at the published
+    widths the grid holds at least one block per SM of an H100 (132)."""
+    n_split, d_chunk = QK.gemv_split(M, D, ns, 132, dtype)
+    cw = QK.gemv_columns(dtype)
+    assert 1 <= n_split <= QK.GEMV_MAX_SPLIT
+    assert d_chunk % (QK.GEMV_THREADS // 8) == 0
+    assert (n_split - 1) * d_chunk < D <= n_split * d_chunk
+    blocks = 0
+    for N in ns:
+        assert (N * (4 if dtype == torch.float32 else 2)) % 16 == 0
+        hits = np.zeros((D, N), np.int8)
+        for t in range(-(-N // cw)):          # the kernel's column tiles
+            for y in range(n_split):          # ... times its D chunks
+                d0 = y * d_chunk
+                hits[d0:d0 + min(d_chunk, D - d0), t * cw:(t + 1) * cw] += 1
+                blocks += 1
+        assert (hits == 1).all()
+    # one wave: no more blocks than the SMs hold at once
+    assert blocks <= QK.GEMV_BLOCKS_PER_SM * 132 or n_split == 1
+    if full:
+        assert blocks >= 132
+    else:       # small widths: as many chunks as D and the cluster allow
+        tiles = blocks // n_split
+        assert n_split == min(QK.GEMV_MAX_SPLIT, -(-D // 32),
+                              -(-132 // tiles),
+                              max(1, QK.GEMV_BLOCKS_PER_SM * 132 // tiles))
+    assert QK.gemv_smem_bytes(M, d_chunk, dtype) <= QK.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("head_dim", AS.HEAD_DIMS)
+def test_attn_stream_tiles_fit_shared_memory(head_dim):
+    """The bf16 kernel's Q tile and K/V ring (the Python mirror of the .cu
+    constants, which chip_smoke holds against the built library) fit one
+    block's shared memory on Hopper, with room for a second block at the
+    head dims up to 64."""
+    need = AS.wgmma_smem_bytes(head_dim)
+    assert need <= AS.SMEM_LIMIT
+    assert need == (AS.WGMMA_BQ + 2 * AS.WGMMA_STAGES * AS.WGMMA_BK) \
+        * head_dim * 2 + 1024
+    if head_dim <= 64:
+        assert 2 * need <= AS.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("warpgroups", [1, 2])
+def test_qkv_gemm_tiles_fit_shared_memory(warpgroups):
+    """The bf16 GEMM's x / W ring fits one block's shared memory with at
+    least three stages (two tiles ahead, one in the products), and its
+    tiles are whole wgmma shapes."""
+    assert QK.wgmma_smem_bytes(warpgroups) <= QK.SMEM_LIMIT
+    assert QK.wgmma_stages(warpgroups) >= 3
+    assert QK.WGMMA_BN % 64 == 0 and QK.WGMMA_BN <= 256
+    assert QK.WGMMA_BK % 64 == 0       # whole 128-byte swizzle rows of x
+
+
+@pytest.mark.parametrize("M,D,ns,want", [
+    (256, 2560, (2560,) * 3, 2),              # mobilevlm-3b prefill
+    (320, 1536, (1536, 256, 256), 1),         # fastvlm-1.7b prefill
+    (2048, 1536, (1536, 256, 256), 2),
+    (5, 64, (96, 32, 32), 1)])
+def test_qkv_gemm_warpgroups(M, D, ns, want):
+    """Two warpgroups a block (128-row tiles) only where their grid still
+    gives three of four of the 132 SMs a block."""
+    assert QK.gemm_warpgroups(M, ns, 132) == want
+
+
+@pytest.mark.parametrize("B,H,S,L,causal", [
+    (1, 12, 320, 320, True),       # fastvlm-1.7b prefill
+    (1, 20, 256, 256, True),       # mobilevlm-3b prefill
+    (1, 12, 64, 320, True),        # an extend chunk at q_offset 256
+    (2, 6, 100, 333, True), (1, 4, 200, 200, False), (1, 2, 5, 40, True),
+    (8, 32, 512, 512, True)])      # a full grid: no split
+def test_attn_stream_kv_split_partitions_key_tiles(B, H, S, L, causal):
+    """The bf16 kernel's key split: for every query tile, the cluster's
+    blocks take contiguous runs [jb, je) of its live key tiles (those
+    not wholly above the causal diagonal) that cover each exactly once,
+    at most WGMMA_MAX_SPLIT blocks a cluster."""
+    split = AS.kv_split(B, H, S, L, 132)
+    assert 1 <= split <= AS.WGMMA_MAX_SPLIT
+    bq, bk = AS.WGMMA_BQ, AS.WGMMA_BK
+    for qt in range(-(-S // bq)):
+        kv_end = min(L, qt * bq + bq + L - S) if causal else L
+        n_kt = -(-kv_end // bk)
+        per = -(-n_kt // split)
+        seen = []
+        for rank in range(split):       # the kernel's own arithmetic
+            jb = min(n_kt, rank * per)
+            seen += range(jb, min(n_kt, jb + per))
+        assert seen == list(range(n_kt))
+    if B * H * -(-S // bq) >= AS.BLOCKS_PER_SM * 132:
+        assert split == 1
+
+
+@pytest.mark.parametrize("head_dim", AS.HEAD_DIMS)
+def test_attn_stream_variant_by_dtype(head_dim):
+    assert AS.kernel_variant(torch.bfloat16, head_dim) == "wgmma"
+    assert AS.kernel_variant(torch.float32, head_dim) == "fma"
+
+
+@pytest.mark.parametrize("dtype,head_dim,exc", [
+    (torch.float16, 128, TypeError), (torch.bfloat16, 48, ValueError),
+    (torch.float32, 256, ValueError), (torch.int8, 64, TypeError)])
+def test_attn_stream_variant_rejects_before_launch(dtype, head_dim, exc):
+    """What no kernel takes raises in the dispatch, before the library is
+    loaded or anything launches."""
+    with pytest.raises(exc):
+        AS.kernel_variant(dtype, head_dim)
+
+
+@pytest.mark.parametrize("M,dtype,want", [
+    (1, torch.bfloat16, "gemv"), (4, torch.bfloat16, "gemv"),
+    (5, torch.bfloat16, "wgmma"), (320, torch.bfloat16, "wgmma"),
+    (4, torch.float32, "gemv"), (5, torch.float32, "fma"),
+    (256, torch.float32, "fma")])
+def test_qkv_proj_variant_boundary(M, dtype, want):
+    """The decode/prefill boundary stays at M = 4; bf16 prefill runs the
+    tensor-core GEMM, f32 the CUDA-core one."""
+    assert QK.GEMV_MAX_M == 4
+    assert QK.kernel_variant(M, dtype) == want
+
+
+def test_qkv_proj_variant_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        QK.kernel_variant(4, torch.float16)
+
+
 # ---------------------------------------------------------------------------
 # ffn_act_int8
 # ---------------------------------------------------------------------------
@@ -417,7 +565,8 @@ def test_extend_via_attn_stream_matches_reference(arch):
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_twins():
     """Each CUDA kernel against its plain twin at small shapes (f32,
-    1e-4), the flat paged decode on a ragged 8-row store. Runs only where
+    1e-4), the flat paged decode on a ragged 8-row store, and the bf16
+    tensor-core paths of attn_stream and qkv_proj (2e-2). Runs only where
     a card is present."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -458,6 +607,25 @@ def test_cuda_kernels_match_plain_twins():
     ws = (r(96, 64), r(96, 32), r(96, 32))
     for a, b in zip(QK.qkv_proj(x, *ws), QK.qkv_proj_plain(x, *ws)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    # bf16 (2e-2: outputs below 2, one bf16 step 7.8e-3): the tensor-core
+    # attention at every head dim, causal S < L and ragged S = L = 200,
+    # and the GEMV at M = 1, 3, 4 and the wgmma GEMM at M = 5 and 77
+    bf = torch.bfloat16
+    for (S, L, D) in ((40, 72, 16), (33, 33, 32), (200, 200, 64),
+                      (64, 130, 128)):
+        q, k, v = r(1, 6, S, D).to(bf), r(1, 2, L, D).to(bf), \
+            (0.4 * r(1, 2, L, D)).to(bf)
+        torch.testing.assert_close(AS.attn_stream(q, k, v).float(),
+                                   AS.attn_stream_plain(q, k, v).float(),
+                                   atol=2e-2, rtol=0)
+    for M in (1, 3, 4, 5, 77):
+        xb = r(M, 96).to(bf)
+        wb = [(w / 10).to(bf) for w in ws]
+        bb = [(0.1 * r(w.shape[1])).to(bf) for w in ws]
+        for a, b in zip(QK.qkv_proj(xb, *wb, *bb),
+                        QK.qkv_proj_plain(xb, *wb, *bb)):
+            torch.testing.assert_close(a.float(), b.float(), atol=2e-2,
+                                       rtol=0)
     w8 = [torch.randint(-127, 128, s_, generator=g, device=dev,
                         dtype=torch.int8) for s_ in ((96, 208), (96, 208),
                                                      (208, 96))]
