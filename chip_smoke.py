@@ -19,17 +19,27 @@ source, all started together; seven kernels), then:
      5 (the first GEMM row count) and prefill, at both models (fastvlm
      with bias); attn_stream also on an extend chunk (S = 64 at q_offset
      256 over a strided slice of the (1, 512, Hkv, 128) workspace), at
-     ragged S = L = 200 and at fastvlm-0.6b's Dh 64; plus ragged,
-     dead-page, ragged-tail-page, unaligned-row and sparse-read cases.
-     The banner prints the bf16 tensor-core kernels' tiles from their
-     Python mirrors and holds each mirrored shared-memory size against the
-     built library's. Tolerances:
+     ragged S = L = 200 and at fastvlm-0.6b's Dh 64; fused_norm at M = 1,
+     4, 320 and D 1536, 2560, 1000 and 1001 (the scalar kernel),
+     LayerNorm with bias, a scale in the other type and strided rows
+     (pitch 1544: vector kernel; pitch 1542 or a base one element in:
+     scalar kernel); paged_decode_flat at lengths 0, 1, 127, 128, with a
+     slot's last live page dead, at max_len 500 (ragged tail page), at
+     every head dim, at G 1 to 16 and at B * Hkv = 160 (no key split);
+     plus ragged, dead-page, unaligned-row and sparse-read cases.
+     The banner prints the tensor-core kernels' and the flat decode's
+     tiles from their Python mirrors and holds each mirrored
+     shared-memory size against the built library's; the SASS of the
+     tensor-core libraries must hold HGMMA and LDGSTS, the paged decode
+     library's LDGSTS (cp.async). Tolerances:
      max-abs error <= 1e-4 in f32 (f32 sums in another order) and <= 2e-2
      in bf16 (inputs are scaled so outputs stay below magnitude 2, where
      one bf16 rounding step is <= 7.8e-3). Call times are the median of
      25 CUDA-event timed calls after warm-up, device times the
      profiler's kernel time a call, for the kernels and for the library
-     call beside them (SDPA; torch.addmm at decode and prefill);
+     call beside them (SDPA; torch.addmm at decode and prefill;
+     F.rms_norm; SDPA with a boolean length mask beside the flat decode),
+     with the device kernels each library call launches;
   2. parity — f32 at full width and depth, the serving Engine's tokens
      against `generate` on 2 VQA + 2 text requests, for fastvlm-1.7b over
      the tiered store and for mobilevlm-3b on path A (flat store, fused
@@ -158,6 +168,22 @@ def device_ms(fn, reps: int = 20) -> float:
     return total / 1e3 / reps
 
 
+def device_kernels(fn, reps: int = 10) -> dict:
+    """Device kernels (and copies) one call of ``fn`` launches, by name,
+    from torch.profiler: how many kernels a library call is."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:90]: e.count / reps for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count}
+
+
 def require(cond, msg) -> None:
     """A check of this script; unlike ``assert`` it survives ``-O``."""
     if not cond:
@@ -168,18 +194,22 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-# the bf16 tensor-core kernels: their SASS must hold warpgroup MMAs
-# (HGMMA) and shared-memory tiles filled by cp.async (LDGSTS)
-TENSOR_CORE_LIBS = ("attn_stream", "qkv_proj")
+# what the SASS of each library must hold: the bf16 tensor-core kernels
+# warpgroup MMAs (HGMMA) over shared-memory tiles filled by cp.async
+# (LDGSTS); the flat paged decode its cp.async key ring
+SASS_NEEDS = {"attn_stream": ("HGMMA", "LDGSTS"),
+              "qkv_proj": ("HGMMA", "LDGSTS"),
+              "paged_decode": ("LDGSTS",)}
 
 
 def sass_check() -> dict:
-    """Count HGMMA and LDGSTS instructions in the built tensor-core
-    libraries with cuobjdump (beside nvcc) and require both."""
+    """Count HGMMA and LDGSTS instructions in the built libraries of
+    SASS_NEEDS with cuobjdump (beside nvcc) and require what each
+    needs."""
     from repro_torch.kernels import build
     tool = pathlib.Path(build.nvcc_path()).with_name("cuobjdump")
     out = {}
-    for name in TENSOR_CORE_LIBS:
+    for name, needs in SASS_NEEDS.items():
         sass = subprocess.run([str(tool), "-sass",
                                str(build.library_path(name))],
                               capture_output=True, text=True,
@@ -188,22 +218,25 @@ def sass_check() -> dict:
                      "LDGSTS": sass.count("LDGSTS")}
         print(f"[sass] {name}: {out[name]['HGMMA']} HGMMA, "
               f"{out[name]['LDGSTS']} LDGSTS instructions")
-        require(out[name]["HGMMA"] > 0 and out[name]["LDGSTS"] > 0,
-                f"{name}: no wgmma or no cp.async in the built library")
+        for op in needs:
+            require(out[name][op] > 0,
+                    f"{name}: no {op} instruction in the built library")
     return out
 
 
 def tile_banner(dev: str = "cuda") -> dict:
-    """Print the bf16 tensor-core kernels' tiles from their Python mirrors
-    (the constants the CPU tests check against Hopper's shared memory)
-    and, on the card, hold each mirrored shared-memory size against the
-    one the built library reports, so a drift between the two shows."""
+    """Print the bf16 tensor-core kernels' and the flat paged decode's
+    tiles from their Python mirrors (the constants the CPU tests check
+    against Hopper's shared memory) and, on the card, hold each mirrored
+    shared-memory size against the one the built library reports, so a
+    drift between the two shows."""
     import ctypes
 
     import torch
 
     from repro_torch.kernels import attn_stream as AS
     from repro_torch.kernels import build
+    from repro_torch.kernels import paged_decode as PD
     from repro_torch.kernels import qkv_proj as QK
 
     tiles = {"attn_stream": {
@@ -217,13 +250,26 @@ def tile_banner(dev: str = "cuda") -> dict:
                  "smem": [QK.wgmma_smem_bytes(w) for w in (1, 2)],
                  "gemv_threads": QK.GEMV_THREADS,
                  "gemv_blocks_per_sm": QK.GEMV_BLOCKS_PER_SM,
-                 "gemv_max_split": QK.GEMV_MAX_SPLIT}}
+                 "gemv_max_split": QK.GEMV_MAX_SPLIT},
+             "paged_decode_flat": {
+                 "warps": PD.FLAT_WARPS, "stages": PD.FLAT_STAGES,
+                 "stage_bytes": PD.FLAT_STAGE_BYTES,
+                 "max_split": PD.FLAT_MAX_SPLIT,
+                 "tile_keys_bf16_d128": PD.flat_tile_keys(128,
+                                                          torch.bfloat16),
+                 "smem": {n: PD.flat_smem_bytes(n) for n in (1, 4, 5)}}}
     print(f"[kernels] tiles {json.dumps(tiles)}")
     if dev != "cuda":
         return tiles
     la, lq = build.load("attn_stream"), build.load("qkv_proj")
-    for fn in (la.attn_stream_smem_bytes, lq.qkv_proj_smem_bytes):
+    lp = build.load("paged_decode")
+    for fn in (la.attn_stream_smem_bytes, lq.qkv_proj_smem_bytes,
+               lp.paged_decode_flat_smem_bytes):
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    for n, want in tiles["paged_decode_flat"]["smem"].items():
+        got = lp.paged_decode_flat_smem_bytes(n)
+        require(got == want, f"paged_decode_flat smem at {n} pages: library "
+                             f"{got}, mirror {want}")
     for hd, want in tiles["attn_stream"]["smem"].items():
         got = la.attn_stream_smem_bytes(hd)
         require(got == want, f"attn_stream smem at Dh {hd}: library {got}, "
@@ -245,12 +291,13 @@ def tile_banner(dev: str = "cuda") -> dict:
 # phase 1: kernels against their plain twins
 # ---------------------------------------------------------------------------
 def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
-                 dev_timer=device_ms) -> dict:
+                 dev_timer=device_ms, lib_kernels=device_kernels) -> dict:
     import torch
     import torch.nn.functional as F
 
     from repro_torch.core import kv_tiers as KT
     from repro_torch.kernels import attn_stream as AS
+    from repro_torch.kernels import build
     from repro_torch.kernels import ffn_act as FF
     from repro_torch.kernels import fused_norm as FN
     from repro_torch.kernels import ops
@@ -259,6 +306,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
 
     tiles = tile_banner(dev)
     dev = torch.device(dev)
+    sms = build.sm_count(0) if dev.type == "cuda" else 132
     time_ms, dev_ms = timer, dev_timer
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -284,31 +332,83 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         if main is not None:
             results[name] = dict(main, max_abs_err=err, dtype=dtype)
 
+    def norm_row(x, sc, es):
+        """The bf16 rms fused_norm's times beside its twin and F.rms_norm
+        (call and device time, and the kernels that call launches)."""
+        M, D_ = x.shape
+        ms, dms = timed(lambda: FN.fused_norm(x, sc, None, "rms"))
+        lib = lib_dev = lib_k = None
+        if hasattr(F, "rms_norm"):
+            def call():
+                return F.rms_norm(x, (D_,), sc, 1e-6)
+            lib, lib_dev = timed(call)
+            lib_k = lib_kernels(call)
+        b_ms, b_by = bound(pk, (2 * M * D_ + D_) * es, 0, "bfloat16")
+        return {"shape": f"x ({M}, {D_}) rms", "ms": ms, "device_ms": dms,
+                "plain_ms": time_ms(lambda: FN.fused_norm_plain(
+                    x, sc, None, "rms")),
+                "library_ms": lib, "library_device_ms": lib_dev,
+                "library_kernels": lib_k, "bound_ms": b_ms,
+                "bound_by": b_by}
+
     for dt in ("float32", "bfloat16"):
         tdt = getattr(torch, dt)
         es = torch.tensor([], dtype=tdt).element_size()
-        # ---- fused_norm: decode M=4 and prefill M=320, rms --------------
-        for M in (4, 320):
-            x = randn(M, D_MODEL, dtype=tdt)
-            sc = (0.25 + 0.1 * torch.rand(D_MODEL, generator=gen,
+        # ---- fused_norm: rms at decode M = 1, 4 and prefill M = 320, at
+        # fastvlm-1.7b's D 1536, mobilevlm-3b's 2560 and ragged D 1000
+        # (whole 16-byte vectors, a ragged warp) and 1001 (the scalar
+        # kernel). In bf16 at M = 4 the kernel, its twin and F.rms_norm
+        # are timed at both models' widths
+        for D_ in (D_MODEL, D3, 1000, 1001):
+            sc = (0.25 + 0.1 * torch.rand(D_, generator=gen,
                                           device=dev)).to(tdt)
-            out = FN.fused_norm(x, sc, None, "rms")
-            err = max_err(out, FN.fused_norm_plain(x, sc, None, "rms"))
-            main = None
-            if M == 4 and dt == "bfloat16":
-                ms = time_ms(lambda: FN.fused_norm(x, sc, None, "rms"))
-                plain = time_ms(lambda: FN.fused_norm_plain(x, sc, None,
-                                                            "rms"))
-                lib = (time_ms(lambda: F.rms_norm(x, (D_MODEL,), sc, 1e-6))
-                       if hasattr(F, "rms_norm") else None)
-                b_ms, b_by = bound(pk, (2 * M * D_MODEL + D_MODEL) * es, 0,
-                                   dt)
-                main = {"shape": f"x ({M}, {D_MODEL}) rms", "ms": ms,
-                        "device_ms": dev_ms(lambda: FN.fused_norm(
-                            x, sc, None, "rms")),
-                        "plain_ms": plain, "library_ms": lib,
-                        "bound_ms": b_ms, "bound_by": b_by}
-            record("fused_norm", f"rms M={M}", dt, err, main)
+            for M in (1, 4, 320):
+                x = randn(M, D_, dtype=tdt)
+                out = FN.fused_norm(x, sc, None, "rms")
+                err = max_err(out, FN.fused_norm_plain(x, sc, None, "rms"))
+                main = None
+                if M == 4 and dt == "bfloat16" and D_ in (D_MODEL, D3):
+                    main = norm_row(x, sc, es)
+                    print(f"[kernels]   fused_norm x ({M}, {D_}): "
+                          f"{1e3 * main['device_ms']:.2f} us device, "
+                          f"{main['ms']:.4f} ms call; F.rms_norm (ms) "
+                          f"{main['library_device_ms']} device, "
+                          f"{main['library_ms']} call, kernels "
+                          f"{main['library_kernels']}")
+                    if D_ == D3:
+                        results["fused_norm_mobilevlm"], main = main, None
+                record("fused_norm", f"rms M={M}" if D_ == D_MODEL
+                       else f"rms M={M} D={D_}", dt, err, main)
+        # LayerNorm with bias; scale in the other type; strided rows: pitch
+        # 1544 (whole vectors: the vector kernel), pitch 1542 and a base
+        # one element in (the scalar kernel)
+        for (M, D_) in ((4, D_MODEL), (320, 1000), (3, 1001)):
+            x = randn(M, D_, dtype=tdt)
+            sl, bl = randn(D_, dtype=tdt, std=0.3), randn(D_, dtype=tdt,
+                                                          std=0.3)
+            record("fused_norm", f"layer + bias M={M} D={D_}", dt,
+                   max_err(FN.fused_norm(x, sl, bl, "layer"),
+                           FN.fused_norm_plain(x, sl, bl, "layer")))
+        other = "float32" if dt == "bfloat16" else "bfloat16"
+        x = randn(4, D3, dtype=tdt)
+        so = (0.25 + 0.1 * torch.rand(D3, generator=gen, device=dev)).to(
+            getattr(torch, other))
+        record("fused_norm", f"rms M=4 D={D3} {other} scale", dt,
+               max_err(FN.fused_norm(x, so, None, "rms"),
+                       FN.fused_norm_plain(x, so, None, "rms")))
+        sc = (0.25 + 0.1 * torch.rand(D_MODEL, generator=gen,
+                                      device=dev)).to(tdt)
+        for (pitch, off, want) in ((1544, 0, "vector"), (1542, 0, "scalar"),
+                                   (1544, 1, "scalar")):
+            x = randn(320, pitch, dtype=tdt)[:, off:off + D_MODEL]
+            got = FN.variant(D_MODEL, x.stride(0), es,
+                             x.data_ptr() | sc.data_ptr())
+            require(got == want, f"fused_norm on pitch {pitch} offset {off}: "
+                                 f"{got} kernel, expected {want}")
+            record("fused_norm", f"rms M=320 pitch {pitch} offset {off} "
+                                 f"({got})", dt,
+                   max_err(FN.fused_norm(x, sc, None, "rms"),
+                           FN.fused_norm_plain(x, sc, None, "rms")))
         # ---- ffn_act: decode M=4 and prefill M=320, silu_gated ----------
         w_up = randn(D_MODEL, D_FF, dtype=tdt, std=0.5 * D_MODEL ** -0.5)
         w_gate = randn(D_MODEL, D_FF, dtype=tdt, std=0.5 * D_MODEL ** -0.5)
@@ -473,24 +573,33 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         err = max_err(out, PD.paged_decode_flat_plain(*fargs))
         main = None
         if dt == "bfloat16":
-            ms = time_ms(lambda: PD.paged_decode_flat(*fargs))
             plain = time_ms(lambda: PD.paged_decode_flat_plain(*fargs))
             q4 = q3.reshape(B, H3, 1, HEAD_DIM)
             kt, vt = kf.transpose(1, 2), vf.transpose(1, 2)
             live = (torch.arange(ML, device=dev)[None]
                     <= lengths3[:, None].long())[:, None, None]
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                q4, kt, vt, attn_mask=live))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q4, kt, vt,
+                                                      attn_mask=live)
+            lib, lib_dev = timed(sdpa)
             n_tok = int((lengths3.long() + 1).sum())
             nbytes = (2 * q3.numel() * es + 2 * n_tok * H3 * HEAD_DIM * es
                       + lengths3.numel() * 4 + tab3.numel() * 4)
             b_ms, b_by = bound(pk, nbytes, 4 * HEAD_DIM * H3 * n_tok, dt)
+            ms, dms = timed(lambda: PD.paged_decode_flat(*fargs))
             main = {"shape": f"B {B}, Hkv {H3}, G 1, max_len {ML}, ctx "
-                             f"{lengths3.tolist()}",
+                             f"{lengths3.tolist()}, split "
+                             f"{PD.flat_split(B, H3, sms)}",
                     "ms": ms, "plain_ms": plain, "library_ms": lib,
-                    "device_ms": dev_ms(lambda: PD.paged_decode_flat(
-                        *fargs)),
-                    "bound_ms": b_ms, "bound_by": b_by}
+                    "library_device_ms": lib_dev,
+                    "library_kernels": lib_kernels(sdpa),
+                    "device_ms": dms, "bound_ms": b_ms, "bound_by": b_by}
+            print(f"[kernels]   paged_decode_flat {main['shape']}: "
+                  f"{1e3 * dms:.2f} us device, {ms:.4f} ms call; masked "
+                  f"SDPA {1e3 * lib_dev:.2f} us device, {lib:.4f} ms call, "
+                  f"kernels {main['library_kernels']}; bound "
+                  f"{1e3 * b_ms:.2f} us")
         record("paged_decode_flat", "B=4 Hkv=20 G=1 ctx~300", dt, err, main)
         # ragged lengths, a dead page and a ragged tail page (max_len 500)
         for (hkv, g) in ((H3, 1), (KV_HEADS, HEADS // KV_HEADS)):
@@ -505,6 +614,36 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
             rargs = (qr, kr, vr, lr, tr)
             record("paged_decode_flat",
                    f"Hkv={hkv} G={g} ragged, dead page, max_len {ML5}", dt,
+                   max_err(PD.paged_decode_flat(*rargs),
+                           PD.paged_decode_flat_plain(*rargs)))
+        # positions 0 and 1 and both sides of a page edge; a slot whose
+        # last live page is dead (and one with no live page: zeros); every
+        # head dim; G up to 16; B * Hkv >= 132 (no split)
+        for (label, Bf, hkv, g, Df, MLf, lens, dead) in (
+                ("lengths 0,1,127,128", 4, H3, 1, HEAD_DIM, ML,
+                 (0, 1, 127, 128), ()),
+                ("last live page dead", 4, H3, 1, HEAD_DIM, ML,
+                 (300, 200, 260, 129), ((0, 2), (3, 1))),
+                ("Hkv=2 G=6 D=64", 4, KV_HEADS, 6, 64, ML,
+                 (318, 300, 257, 290), ()),
+                ("Hkv=20 G=1 D=64", 4, H3, 1, 64, ML, (318, 0, 127, 511),
+                 ()),
+                ("Hkv=2 G=7 D=32 max_len 200", 2, 2, 7, 32, 200, (199, 64),
+                 ()),
+                ("Hkv=1 G=16 D=16, no live page", 2, 1, 16, 16, 100,
+                 (99, 31), ((1, 0),)),
+                ("B=8 Hkv=20 (B*Hkv=160)", 8, H3, 1, HEAD_DIM, ML,
+                 (318, 300, 257, 290, 511, 0, 128, 200), ())):
+            qr = randn(Bf, hkv, g, Df, dtype=tdt)
+            kr = randn(Bf, MLf, hkv, Df, dtype=tdt)
+            vr = randn(Bf, MLf, hkv, Df, dtype=tdt, std=0.3)
+            lr = torch.tensor(lens, dtype=torch.int32, device=dev)
+            tr = KT.cold_page_table(lr, 0, MLf, 128).clone()
+            for (b_, j_) in dead:
+                tr[b_, j_] = -1
+            rargs = (qr, kr, vr, lr, tr)
+            record("paged_decode_flat",
+                   f"{label}, split {PD.flat_split(Bf, hkv, sms)}", dt,
                    max_err(PD.paged_decode_flat(*rargs),
                            PD.paged_decode_flat_plain(*rargs)))
         del kf, vf, fargs
@@ -947,7 +1086,7 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
     name = label.split(":")[0].replace(" ", "_")
     (OUT / f"decode_profile_{name}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total",
-                                  row_limit=40))
+                                  row_limit=80))
     out = {"steps": n_steps, "wall_ms_per_step": wall_ms / n_steps,
            "device_ms_per_step": dev_ms / n_steps,
            "device_launches_per_step": sum(r[1] for r in rows) / n_steps,
@@ -1004,7 +1143,7 @@ def profile_prefill(label, model, params, cfg, bknobs, dev: str = "cuda",
     name = label.split(":")[0].replace(" ", "_")
     (OUT / f"prefill_profile_{name}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total",
-                                  row_limit=40))
+                                  row_limit=80))
     out = {"prompt": prompt, "wall_ms": wall_ms, "device_ms": dev_ms,
            "device_launches": sum(r[1] for r in rows),
            "busy_share": dev_ms / wall_ms if wall_ms else None,
@@ -1083,11 +1222,12 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "library_device_ms": r.get("library_device_ms"),
+            "library_kernels": r.get("library_kernels"),
             "shape": r["shape"], "dtype": r["dtype"]})
     report["kernels"] = rows
     report["kernel_cases"] = kern.get("cases", {})
     for k in ("ffn_act_prefill_ms", "ffn_act_prefill_device_ms",
-              "ffn_act_int8_prefill_ms", "tiles",
+              "ffn_act_int8_prefill_ms", "tiles", "fused_norm_mobilevlm",
               *(f"qkv_proj_{t}_{w}" for t in ("mobilevlm", "fastvlm")
                 for w in ("decode", "prefill"))):
         report[k] = kern.get(k)

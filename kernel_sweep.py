@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Sweep the launch choices of the bf16 tensor-core kernels on the card.
+"""Sweep the launch choices of the port's bf16 kernels on the card.
 
     python3 kernel_sweep.py          # one CUDA card, from the repository root
+    python3 kernel_sweep.py --only flat,norm,host
+    python3 kernel_sweep.py --only host --src OTHER/src   # another tree's
+                                                          # fused_norm wrapper
 
 The planners in `src/repro_torch/kernels` pick, per call, how
 `attn_stream` splits a query tile's key tiles over a cluster
@@ -15,36 +18,138 @@ twin (bf16, 2e-2). Device times are torch.profiler kernel time a call
 (`chip_smoke.device_ms`). The GEMV is timed warm (the same weights every
 call, which then sit in the 50 MB L2) and cold (four weight sets in
 turn, 157 MB at mobilevlm-3b: each call reads its weights from HBM, as
-a decode step does). It prints the card's name and power limit first and
-writes chiprun_out/kernel_sweep.json.
+a decode step does).
+
+It also times every key split (`paged_decode.flat_split`) of the flat
+paged decode at mobilevlm-3b's decode shape (B 4, Hkv 20, G 1, ctx
+257-318, a full 511-token context, and one key a slot: the kernel's
+fixed cost; warm, and cold over four stores) beside SDPA with a boolean
+length mask; every threads-a-row choice (`fused_norm.threads_per_row`)
+of `fused_norm` at D 1536 and 2560 beside `F.rms_norm`; and where
+`fused_norm`'s host time goes: host µs a call over back-to-back calls
+(time.perf_counter_ns; the card keeps up), for the wrapper,
+`F.rms_norm`, and each part of the wrapper. With ``--src`` the host
+section times that tree's `repro_torch` wrapper instead (the parent's,
+to compare).
+
+It prints the card's name and power limit first and writes
+chiprun_out/kernel_sweep.json (kernel_sweep_host.json for ``--only
+host``).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import pathlib
 import sys
+import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
+SECTIONS = ("attn", "qkv", "flat", "norm", "host")
 
 
-def main() -> int:
+def host_us(fn, n: int = 3000) -> float:
+    """Host µs a call: ``n`` calls back to back, then one synchronize.
+    Every call here launches at most one kernel of a few µs, so the card
+    keeps up and the time is the host's."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return t / n / 1e3
+
+
+def norm_host_breakdown(FN, build, x, sc) -> dict:
+    """Where the host time of one rms `fused_norm(x, sc)` call goes. The
+    parts of the wrapper are timed alone; "rest" is the wrapper less
+    their sum (the calls between them, the launch counter). A tree whose
+    wrapper has no `_plan` (the parent's) gets its own statements timed:
+    the ctypes call and launch are then its rest."""
+    import torch
+    import torch.nn.functional as F
+    M, D = x.shape
+    out = {"shape": f"x ({M}, {D}) {x.dtype}",
+           "wrapper_us": host_us(lambda: FN.fused_norm(x, sc, None)),
+           "rms_norm_us": host_us(lambda: F.rms_norm(x, (D,), sc, 1e-6))}
+    parts = {}
+    if hasattr(FN, "_plan"):
+        px, ps, pb, M_, D_, xs, mode, dev = FN._plan(x, sc, None, 0)
+        o = torch.empty_like(x)
+        stream = torch._C._cuda_getCurrentRawStream(dev)
+        parts["plan: checks, variant, threads"] = host_us(
+            lambda: FN._plan(x, sc, None, 0))
+        parts["torch.empty_like"] = host_us(lambda: torch.empty_like(x))
+        parts["current stream"] = host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(dev))
+        parts["C entry: ctypes call + launch"] = host_us(
+            lambda: FN._entry(px, ps, pb, o.data_ptr(), M, D, xs, 1e-6, mode,
+                              stream))
+    else:
+        parts["checks: torch.device, shape, contiguity"] = host_us(
+            lambda: (sc.device != x.device, sc.shape != (D,),
+                     sc.is_contiguous(), x.stride(-1) != 1))
+        parts["build.bind lookup"] = host_us(
+            lambda: build.bind("fused_norm", "fused_norm", FN.ARGTYPES))
+        parts["torch.empty(dtype=, device=)"] = host_us(
+            lambda: torch.empty((M, D), dtype=x.dtype, device=x.device))
+        parts["args: ptrs, strides, dtype codes, stream"] = host_us(
+            lambda: (build.ptr(x), build.ptr(sc), build.ptr(x), x.stride(0),
+                     x.stride(0), build.dtype_code(x.dtype),
+                     build.dtype_code(sc.dtype),
+                     build.stream_ptr(x.device)))
+    out["parts_us"] = parts
+    out["rest_us"] = out["wrapper_us"] - sum(parts.values())
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=",".join(SECTIONS),
+                    help=f"sections to run, of {SECTIONS}")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the tree whose repro_torch is imported")
+    args = ap.parse_args(argv)
+    only = set(args.only.split(","))
     import torch
     if not torch.cuda.is_available():
         print("kernel_sweep: no CUDA device; this sweep runs on the card",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, args.src)
     sys.path.insert(0, str(ROOT))
     import torch.nn.functional as F
 
     import chip_smoke as CS
-    from repro_torch.kernels import attn_stream as AS
     from repro_torch.kernels import build
-    from repro_torch.kernels import qkv_proj as QK
 
     print(CS.card_line())
-    build.build_all(("attn_stream", "qkv_proj"))
+    dst = ROOT / "chiprun_out"
+    dst.mkdir(exist_ok=True)
+    if only == {"host"}:
+        from repro_torch.kernels import fused_norm as FN
+        g = torch.Generator(device="cuda").manual_seed(0)
+        res = {"card": CS.card_line(), "src": args.src, "fused_norm": []}
+        for D in (1536, 2560):
+            x = torch.randn(4, D, generator=g, device="cuda").bfloat16()
+            sc = torch.rand(D, generator=g, device="cuda").bfloat16()
+            res["fused_norm"].append(norm_host_breakdown(FN, build, x, sc))
+            print(f"[sweep] fused_norm host {res['fused_norm'][-1]}",
+                  flush=True)
+        (dst / "kernel_sweep_host.json").write_text(json.dumps(res,
+                                                               indent=1))
+        return 0
+    from repro_torch.core import kv_tiers as KT
+    from repro_torch.kernels import attn_stream as AS
+    from repro_torch.kernels import fused_norm as FN
+    from repro_torch.kernels import paged_decode as PD
+    from repro_torch.kernels import qkv_proj as QK
+    build.build_all(("attn_stream", "qkv_proj", "paged_decode",
+                     "fused_norm"))
     dev, bf = "cuda", torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -54,9 +159,6 @@ def main() -> int:
 
     def us(fn):
         return 1e3 * CS.device_ms(fn)
-
-    dst = ROOT / "chiprun_out"
-    dst.mkdir(exist_ok=True)
 
     def save():
         (dst / "kernel_sweep.json").write_text(json.dumps(out, indent=1))
@@ -71,10 +173,12 @@ def main() -> int:
             row[key] = f"refused: {e}"
 
     out = {"card": CS.card_line(), "attn_stream": [], "qkv_gemv": [],
-           "qkv_gemm": []}
+           "qkv_gemm": [], "paged_decode_flat": [], "fused_norm": [],
+           "fused_norm_host": []}
     plan_kv = AS.kv_split
     for (H, Hkv, S, L) in ((12, 2, 320, 320), (20, 20, 256, 256),
-                           (12, 2, 64, 320), (14, 2, 320, 320)):
+                           (12, 2, 64, 320), (14, 2, 320, 320)) \
+            if "attn" in only else ():
         Dh = 64 if H == 14 else 128
         q, k = rn(1, H, S, Dh), rn(1, Hkv, L, Dh)
         v = rn(1, Hkv, L, Dh, std=0.4)
@@ -94,7 +198,8 @@ def main() -> int:
 
     plan_gemv, plan_wgs = QK.gemv_split, QK.gemm_warpgroups
     for (tag, D, ns) in (("mobilevlm-3b", 2560, (2560,) * 3),
-                         ("fastvlm-1.7b", 1536, (1536, 256, 256))):
+                         ("fastvlm-1.7b", 1536, (1536, 256, 256))) \
+            if "qkv" in only else ():
         sets = [[rn(D, n, std=0.5 * D ** -0.5) for n in ns]
                 for _ in range(4)]
         cats = [torch.cat(w, 1) for w in sets]
@@ -130,7 +235,8 @@ def main() -> int:
         del sets, cats
 
     for (tag, M, D, ns) in (("mobilevlm-3b", 256, 2560, (2560,) * 3),
-                            ("fastvlm-1.7b", 320, 1536, (1536, 256, 256))):
+                            ("fastvlm-1.7b", 320, 1536, (1536, 256, 256))) \
+            if "qkv" in only else ():
         w = [rn(D, n, std=0.5 * D ** -0.5) for n in ns]
         cat = torch.cat(w, 1)
         bias = torch.zeros(cat.shape[1], dtype=bf, device=dev)
@@ -146,6 +252,82 @@ def main() -> int:
         out["qkv_gemm"].append(row)
         save()
         print(f"[sweep] qkv_proj prefill {row}", flush=True)
+
+    # the flat paged decode's key split at mobilevlm-3b's decode heads,
+    # warm (one store) and cold (four stores in turn, 168 MB: each call
+    # reads its keys from HBM, as a decode step does)
+    plan_flat = PD.flat_split
+    B, Hkv, ML, Dh = 4, 20, 512, 128
+    for lens in ((318, 300, 257, 290), (511,) * 4, (0,) * 4) \
+            if "flat" in only else ():
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        table = KT.cold_page_table(lengths, 0, ML, 128)
+        q = rn(B, Hkv, 1, Dh)
+        stores = [(rn(B, ML, Hkv, Dh), rn(B, ML, Hkv, Dh, std=0.3))
+                  for _ in range(4)]
+        live = (torch.arange(ML, device=dev)[None]
+                <= lengths[:, None].long())[:, None, None]
+        turn = [0]
+
+        def cold(fn):
+            def call():
+                turn[0] += 1
+                return fn(*stores[turn[0] % 4])
+            return call
+
+        def sdpa(k, v):
+            return F.scaled_dot_product_attention(
+                q.reshape(B, Hkv, 1, Dh), k.transpose(1, 2),
+                v.transpose(1, 2), attn_mask=live)
+
+        def flat(k, v):
+            return PD.paged_decode_flat(q, k, v, lengths, table)
+        row = {"shape": f"B {B}, Hkv {Hkv}, G 1, D {Dh}, ctx {list(lens)}",
+               "planned_split": plan_flat(B, Hkv, sms),
+               "sdpa_warm_us": us(lambda: sdpa(*stores[0])),
+               "sdpa_cold_us": us(cold(sdpa))}
+        for split in range(1, PD.FLAT_MAX_SPLIT + 1):
+            PD.flat_split = lambda *a, _s=split: _s
+            timed(row, f"split{split}_warm_us",
+                  lambda: [flat(*stores[0])],
+                  lambda: [PD.paged_decode_flat_plain(q, *stores[0],
+                                                      lengths, table)])
+            if isinstance(row[f"split{split}_warm_us"], float):
+                row[f"split{split}_cold_us"] = us(cold(flat))
+        PD.flat_split = plan_flat
+        out["paged_decode_flat"].append(row)
+        save()
+        print(f"[sweep] paged_decode_flat {row}", flush=True)
+        del stores
+
+    # fused_norm's threads a row at decode and prefill, beside F.rms_norm
+    plan_tpr = FN.threads_per_row
+    for (M, D) in ((4, 1536), (4, 2560), (320, 1536), (256, 2560)) \
+            if "norm" in only else ():
+        x = rn(M, D)
+        sc = (0.25 + 0.1 * torch.rand(D, generator=g, device=dev)).to(bf)
+        units = D // 8
+        row = {"shape": f"x ({M}, {D}) rms", "planned_threads":
+               plan_tpr(units),
+               "rms_norm_us": us(lambda: F.rms_norm(x, (D,), sc, 1e-6))}
+        for tpr in (32, 64, 96, 128, 160, 192, 256, 320, 384, 512, 1024):
+            if units > FN.MAX_UNITS * tpr or tpr >= 2 * units + 32:
+                continue
+            FN.threads_per_row = lambda u, _t=tpr: _t
+            timed(row, f"threads{tpr}_us",
+                  lambda: [FN.fused_norm(x, sc, None)],
+                  lambda: [FN.fused_norm_plain(x, sc, None)])
+        FN.threads_per_row = plan_tpr
+        out["fused_norm"].append(row)
+        save()
+        print(f"[sweep] fused_norm {row}", flush=True)
+    for D in (1536, 2560) if "host" in only else ():
+        x = rn(4, D)
+        sc = (0.25 + 0.1 * torch.rand(D, generator=g, device=dev)).to(bf)
+        out["fused_norm_host"].append(norm_host_breakdown(FN, build, x, sc))
+        save()
+        print(f"[sweep] fused_norm host {out['fused_norm_host'][-1]}",
+              flush=True)
     return 0
 
 

@@ -19,10 +19,16 @@ Layouts (store-native): q (B, Hkv, G, D) with head h = hkv*G + g; hot k/v
 (B, W, Hkv, D); cold int8 (B, max_len, Hkv, D) with f32 scales
 (B, max_len, Hkv, 1); lengths (B,) int32; table (B, num_pages) int32.
 
-Flat: the same page loop over a full-precision (B, max_len, Hkv, D) store
+Flat: the same pages over a full-precision (B, max_len, Hkv, D) store
 with no hot ring, no scales and no sparse read; a token is attendable iff
 its position <= lengths[b]. The ragged tail page (max_len not a multiple
-of ``block_k``) is masked, not padded.
+of ``block_k``) is masked, not padded. Its kernel is split-K
+(flash-decoding): each (slot, kv head)'s live keys are shared by the
+``flat_split`` blocks of a thread-block cluster, which read lengths[b]
+themselves (the host never does) and take contiguous runs of the live
+key tiles; a block's 4 warps stream their tiles through cp.async rings
+and the partials merge in rank order through distributed shared
+memory, in one launch.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain twin
 (`paged_decode_tiered_plain`: the two-segment merge of
@@ -35,6 +41,7 @@ launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -45,6 +52,43 @@ NEG_INF = -2.0 ** 20
 INT8_QMAX = 127.0
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 16
+# mirror of the flat kernel's constants in csrc/paged_decode.cu (FL_*);
+# chip_smoke holds `flat_smem_bytes` against the library's
+FLAT_WARPS = 4            # warps a block, each with its own key tiles
+FLAT_STAGES = 3           # key tiles in a warp's cp.async ring
+FLAT_STAGE_BYTES = 4096   # one warp's K and V tile
+FLAT_MAX_SPLIT = 8        # blocks (a cluster) sharing a (slot, kv head)
+FLAT_BLOCKS_PER_SM = 2    # grid target the split is sized for
+SMEM_LIMIT = 232_448      # shared memory one block may use on Hopper
+
+
+def flat_smem_bytes(n_pages: int) -> int:
+    """Dynamic shared memory of a flat-kernel block: the warps' rings
+    (their partials reuse them) and the slot's block table."""
+    return (FLAT_WARPS * FLAT_STAGES * FLAT_STAGE_BYTES
+            + (4 * n_pages + 15) // 16 * 16)
+
+
+def flat_tile_keys(head_dim: int, dtype: torch.dtype) -> int:
+    """Keys in one of the flat kernel's tiles: K and V rows of a tile
+    fill FLAT_STAGE_BYTES (16-byte chunks, four a lane)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    return FLAT_STAGE_BYTES // (2 * head_dim * es)
+
+
+@functools.lru_cache(maxsize=256)
+def flat_split(B: int, Hkv: int, n_sms: int) -> int:
+    """Blocks (one cluster) that share a (slot, kv head)'s live keys,
+    from shapes and the SM count only (never from lengths): 1 where B *
+    Hkv blocks already fill the card; else enough that the grid gives
+    every SM FLAT_BLOCKS_PER_SM blocks (four fit an SM), at most
+    FLAT_MAX_SPLIT. At mobilevlm-3b's decode (80 (slot, kv head) pairs)
+    that is 4: kernel_sweep.py timed splits 3-4 best at ctx 257-318 and
+    4 best at ctx 511. A rank whose share of a short slot is empty reads
+    nothing."""
+    if B * Hkv >= n_sms:
+        return 1
+    return min(FLAT_MAX_SPLIT, -(-FLAT_BLOCKS_PER_SM * n_sms // (B * Hkv)))
 
 
 def _segment(qf, k, v, valid, scale, k_scale=None, v_scale=None):
@@ -180,7 +224,7 @@ ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
 FLAT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def paged_decode_tiered(q, hot_k, hot_v, cold_kq, cold_ks, cold_vq, cold_vs,
@@ -241,12 +285,16 @@ def paged_decode_flat(q, k, v, lengths, table, *, scale: float | None = None,
         "lengths": (lengths, (B,), torch.int32),
         "table": (table, (B, n_pages), torch.int32),
     })
+    if flat_smem_bytes(n_pages) > SMEM_LIMIT:
+        raise ValueError(f"paged_decode_flat: {n_pages} pages do not fit "
+                         f"the block table in shared memory")
     scale = scale if scale is not None else D ** -0.5
+    split = flat_split(B, Hkv, build.sm_count(q.device.index))
     out = torch.empty_like(q)
     lib, fn = build.bind("paged_decode", "paged_decode_flat", FLAT_ARGTYPES)
     err = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(lengths),
              build.ptr(table), build.ptr(out), B, Hkv, G, D, max_len, n_pages,
-             block_k, scale, build.dtype_code(q.dtype),
+             block_k, scale, build.dtype_code(q.dtype), split,
              build.stream_ptr(q.device))
     build.check(lib, err, "paged_decode_flat")
     paged_decode_flat.launches += 1

@@ -84,6 +84,48 @@ def test_fused_norm_twin_ragged_rows():
                                jnp.asarray(b), "layer"))
 
 
+@pytest.mark.parametrize("D,pitch,dtype,offset,want", [
+    (1536, 1536, torch.bfloat16, 0, "vector"),    # fastvlm-1.7b
+    (2560, 2560, torch.bfloat16, 0, "vector"),    # mobilevlm-3b
+    (1000, 1000, torch.bfloat16, 0, "vector"),    # 125 vectors: ragged warp
+    (1001, 1001, torch.bfloat16, 0, "scalar"),    # D not whole vectors
+    (1536, 1540, torch.bfloat16, 0, "scalar"),    # pitch not whole vectors
+    (1536, 1544, torch.bfloat16, 0, "vector"),    # strided, pitch whole
+    (1536, 1544, torch.bfloat16, 1, "scalar"),    # base 2 bytes off
+    (200, 200, torch.float32, 0, "vector"),
+    (202, 202, torch.float32, 0, "scalar")])
+def test_fused_norm_variant_by_d_and_alignment(D, pitch, dtype, offset, want):
+    """The wrapper's choice between the 16-byte vector kernel and the
+    scalar one, from D, the row pitch and the base addresses of real
+    (strided, offset) views."""
+    big = torch.zeros(3, pitch + offset, dtype=dtype)
+    x = big[:, offset:offset + D]
+    sc = torch.ones(D, dtype=torch.float32)
+    got = FN.variant(D, x.stride(0), x.element_size(),
+                     x.data_ptr() | sc.data_ptr())
+    assert got == want
+    # a scale 16-byte aligned in no view of it forces the scalar kernel
+    if want == "vector":
+        sc_off = torch.ones(D + 1, dtype=torch.float32)[1:]
+        assert FN.variant(D, x.stride(0), x.element_size(),
+                          x.data_ptr() | sc_off.data_ptr()) == "scalar"
+
+
+@pytest.mark.parametrize("units,tpr", [
+    (192, 192),      # fastvlm-1.7b bf16: 1536 / 8
+    (320, 320),      # mobilevlm-3b bf16: 2560 / 8
+    (125, 128),      # D 1000 bf16
+    (1001, 1024),    # D 1001, scalar
+    (50, 64),        # D 200 f32
+    (12, 32),        # D 96 bf16
+    (4096, 1024)])   # D 32768 bf16: four vectors a thread
+def test_fused_norm_threads_per_row(units, tpr):
+    """About one 16-byte vector a thread in whole warps, at most 1024
+    threads a row; past that a thread loops over at most MAX_UNITS."""
+    assert FN.threads_per_row(units) == tpr
+    assert tpr % 32 == 0 and -(-units // tpr) <= FN.MAX_UNITS
+
+
 # ---------------------------------------------------------------------------
 # attn_stream
 # ---------------------------------------------------------------------------
@@ -261,6 +303,156 @@ def test_paged_decode_flat_adapter_matches_reference_per_slot(G):
         _close(got[sl], want, **TOL2)
         _close(got[sl], oracle, **TOL2)
         _close(plain[sl], oracle, **TOL2)
+
+
+def _live_keys(pos, table_row, block_k, max_len):
+    """Logical positions the flat kernel must attend for one slot."""
+    return {j * block_k + i for j, phys in enumerate(table_row)
+            if phys >= 0 for i in range(block_k)
+            if j * block_k + i <= pos and phys * block_k + i < max_len}
+
+
+def _flat_partition(pos, n_pages, block_k, tile_keys, split):
+    """The flat kernel's assignment of one slot's live key tiles, in its
+    own arithmetic (csrc/paged_decode.cu, the FL_ section): tiles of
+    ``tile_keys`` keys, ceil(block_k / tile_keys) to a page, live up to
+    the one holding position ``pos``; rank r of the cluster takes a
+    contiguous run, its warp w every FLAT_WARPS-th tile of the run from
+    the w-th. -> [rank][warp] lists of (page, first key in the page,
+    keys) triples."""
+    tpp = -(-block_k // tile_keys)
+    n_live = 0 if pos < 0 else min(
+        n_pages * tpp,
+        (pos // block_k) * tpp + (pos % block_k) // tile_keys + 1)
+    per = -(-n_live // split)
+    out = []
+    for r in range(split):
+        jb = min(n_live, r * per)
+        je = min(n_live, jb + per)
+        out.append([[(t // tpp, (t % tpp) * tile_keys,
+                      min(tile_keys, block_k - (t % tpp) * tile_keys))
+                     for t in range(jb + w, je, PD.FLAT_WARPS)]
+                    for w in range(PD.FLAT_WARPS)])
+    return out
+
+
+def _partition_keys(part, pos, table_row, block_k, max_len):
+    """Attendable logical keys of each (rank, warp) of a partition."""
+    return [[[j * block_k + c0 + i for (j, c0, n) in tiles for i in range(n)
+              if table_row[j] >= 0 and j * block_k + c0 + i <= pos
+              and table_row[j] * block_k + c0 + i < max_len]
+             for tiles in ranks] for ranks in part]
+
+
+@pytest.mark.parametrize("B,Hkv,max_len,block_k", [
+    (4, 20, 512, 128),     # mobilevlm-3b path A
+    (4, 2, 512, 128),      # fastvlm-1.7b heads on a flat store
+    (4, 20, 500, 128),     # ragged tail page
+    (8, 20, 512, 128),     # B * Hkv >= 132: no split
+    (2, 2, 200, 16),       # small pages
+    (3, 1, 40, 8),         # pages smaller than a tile
+    (1, 1, 8, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_flat_split_covers_live_keys_once(B, Hkv, max_len,
+                                                       block_k, dtype):
+    """The flat kernel's split, in its own arithmetic (`_flat_partition`):
+    across the cluster's ranks and their warps every attendable key of a
+    slot is read exactly once, for lengths at position 0, at page edges,
+    at the end of the store, and with dead pages (the last live one
+    included). The split comes from shapes and the SM count only, stays
+    within a portable cluster, is 1 where B * Hkv fills the card and fills
+    it at mobilevlm-3b's decode shape."""
+    split = PD.flat_split(B, Hkv, 132)
+    assert 1 <= split <= PD.FLAT_MAX_SPLIT
+    if B * Hkv >= 132:
+        assert split == 1
+    if (B, Hkv, max_len) == (4, 20, 512):
+        assert B * Hkv * split >= 132
+    n_pages = -(-max_len // block_k)
+    for D in PD.HEAD_DIMS:
+        tk = PD.flat_tile_keys(D, dtype)
+        for pos in sorted({0, 1, block_k - 1, block_k, max_len // 2,
+                           max_len - 2, max_len - 1}):
+            last = pos // block_k
+            for dead in ((), (last,), (0, last), (max(last - 1, 0),)):
+                table_row = [j if j * block_k <= pos and j not in dead
+                             else -1 for j in range(n_pages)]
+                for s_ in sorted({1, split, PD.FLAT_MAX_SPLIT}):
+                    part = _flat_partition(pos, n_pages, block_k, tk, s_)
+                    assert len(part) == s_
+                    assert all(len(w) == PD.FLAT_WARPS for w in part)
+                    assert all(c0 + n <= block_k for r in part for w in r
+                               for (_, c0, n) in w)
+                    got = [k for r in _partition_keys(
+                        part, pos, table_row, block_k, max_len)
+                        for w in r for k in w]
+                    assert sorted(got) == sorted(_live_keys(
+                        pos, table_row, block_k, max_len))
+                    assert len(got) == len(set(got))
+
+
+@pytest.mark.parametrize("G", [1, 6])
+@pytest.mark.parametrize("block_k", [128, 16])
+def test_paged_decode_flat_rank_order_merge_matches_plain(G, block_k):
+    """A plain-PyTorch model of the split kernel: per-(rank, warp)
+    partials over `_flat_partition`'s keys (an empty warp or rank gives m
+    = NEG_INF, d = 0), merged in (rank, warp) order, equals
+    `paged_decode_flat_plain` within 1e-6 in f32 at every split, with
+    lengths at 0 and page edges, a ragged tail page and dead pages."""
+    rng = np.random.default_rng(12)
+    B, max_len, Hkv, D = 4, 200, 2, 16
+    q, k, v = map(_t, _flat_case(rng, B, max_len, Hkv, G, D))
+    lengths = torch.tensor([0, block_k, 199, 150], dtype=torch.int32)
+    table = KT.cold_page_table(lengths, 0, max_len, block_k).clone()
+    table[2, 1] = -1
+    table[3, -1] = -1
+    want = PD.paged_decode_flat_plain(q, k, v, lengths, table,
+                                      block_k=block_k)
+    tk = PD.flat_tile_keys(D, torch.float32)
+    n_pages = table.shape[1]
+    qf, scale = q.float(), D ** -0.5
+    for split in range(1, PD.FLAT_MAX_SPLIT + 1):
+        got = torch.empty_like(want)
+        for b in range(B):
+            pos, row = int(lengths[b]), table[b].tolist()
+            state = (torch.full((1, Hkv, G, 1), PD.NEG_INF),
+                     torch.zeros(1, Hkv, G, 1), torch.zeros(1, Hkv, G, D))
+            for ranks in _partition_keys(
+                    _flat_partition(pos, n_pages, block_k, tk, split),
+                    pos, row, block_k, max_len):
+                for keys in ranks:
+                    if not keys:
+                        continue        # (NEG_INF, 0, 0) merges as a no-op
+                    rows = torch.tensor([row[t // block_k] * block_k
+                                         + t % block_k for t in keys])
+                    part = PD._segment(qf[b:b + 1], k[b:b + 1, rows],
+                                       v[b:b + 1, rows],
+                                       torch.ones(1, len(keys), dtype=bool),
+                                       scale)
+                    state = PD._merge(state, part)
+            m, d, acc = state
+            got[b] = (acc / d.clamp_min(1e-30))[0]
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("head_dim", PD.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_flat_tiles_fit_shared_memory(head_dim, dtype):
+    """The flat kernel's tiles (the Python mirror of the .cu constants,
+    which chip_smoke holds against the built library): a tile's K and V
+    rows fill one ring stage in whole 16-byte chunks, four a lane; the
+    warps' partials (m, d and G x D accumulators, G up to 16) fit their
+    rings; at mobilevlm-3b's 4 pages four blocks share an SM."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    tk = PD.flat_tile_keys(head_dim, dtype)
+    lanes_a_key = head_dim * es // 16
+    assert 1 <= lanes_a_key <= 32 and tk == 4 * (32 // lanes_a_key)
+    assert 2 * tk * head_dim * es == PD.FLAT_STAGE_BYTES
+    ring = PD.FLAT_STAGES * PD.FLAT_STAGE_BYTES
+    assert 4 * (2 * PD.MAX_GROUP + PD.MAX_GROUP * head_dim) <= ring
+    assert PD.flat_smem_bytes(4) == PD.FLAT_WARPS * ring + 16
+    assert 4 * PD.flat_smem_bytes(4) <= PD.SMEM_LIMIT
+    assert PD.flat_smem_bytes(-(-32768 // 16)) <= PD.SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------
@@ -603,6 +795,19 @@ def test_cuda_kernels_match_plain_twins():
     torch.testing.assert_close(PD.paged_decode_flat(*fargs, block_k=16),
                                PD.paged_decode_flat_plain(*fargs,
                                                           block_k=16),
+                               atol=1e-4, rtol=0)
+    # fused_norm's scalar kernel on rows whose pitch is not whole vectors
+    xs = r(5, 100)[:, :96]
+    torch.testing.assert_close(FN.fused_norm(xs, s, s, "layer"),
+                               FN.fused_norm_plain(xs, s, s, "layer"),
+                               atol=1e-4, rtol=0)
+    # the split flat kernel at mobilevlm-3b's decode heads (a cluster of
+    # blocks a (slot, kv head)) on a store with a ragged tail page
+    lf = torch.tensor([0, 128, 250, 199], dtype=torch.int32, device=dev)
+    qf, kf = r(4, 20, 1, 128), r(4, 251, 20, 128)
+    fargs = (qf, kf, kf, lf, KT.cold_page_table(lf, 0, 251, 128))
+    torch.testing.assert_close(PD.paged_decode_flat(*fargs),
+                               PD.paged_decode_flat_plain(*fargs),
                                atol=1e-4, rtol=0)
     ws = (r(96, 64), r(96, 32), r(96, 32))
     for a, b in zip(QK.qkv_proj(x, *ws), QK.qkv_proj_plain(x, *ws)):
