@@ -26,11 +26,22 @@ source, all started together; seven kernels), then:
      scalar kernel); paged_decode_flat at lengths 0, 1, 127, 128, with a
      slot's last live page dead, at max_len 500 (ragged tail page), at
      every head dim, at G 1 to 16 and at B * Hkv = 160 (no key split);
+     ffn_act and ffn_act_int8 in every form, the one that ran asserted:
+     in bf16 the stream form at M 1, 3, 4 and 5 (each beside the bound
+     of its 16-bit rounding of h) and the wgmma form at M 63, 65, 256,
+     257 and 320, the FMA tiles in f32 at every M, at D 320 (a ragged
+     k-tile), F 1000 / 1024, every activation, int8 gated and not, and
+     the FMA tiles for rows that are not whole 16-byte vectors (int8 F
+     1000 or D 200, bf16 F 1004); the FFN's decode and prefill shapes of
+     both models are timed beside their bound and, as a yardstick only,
+     the cuBLAS chain mm, mm, silu * mul, mm (a chain of kernels, not
+     one call);
      plus ragged, dead-page, unaligned-row and sparse-read cases.
-     The banner prints the tensor-core kernels' and the flat decode's
-     tiles from their Python mirrors and holds each mirrored
-     shared-memory size against the built library's; the SASS of the
-     tensor-core libraries must hold HGMMA and LDGSTS, the paged decode
+     The banner prints the tensor-core kernels', the FFN forms' and the
+     flat decode's tiles and plans from their Python mirrors and holds
+     each mirrored shared-memory size against the built library's; the
+     SASS of the tensor-core libraries (attn_stream, qkv_proj, ffn_act,
+     ffn_act_int8) must hold HGMMA and LDGSTS, the paged decode
      library's LDGSTS (cp.async). Tolerances:
      max-abs error <= 1e-4 in f32 (f32 sums in another order) and <= 2e-2
      in bf16 (inputs are scaled so outputs stay below magnitude 2, where
@@ -196,9 +207,12 @@ def max_err(a, b) -> float:
 
 # what the SASS of each library must hold: the bf16 tensor-core kernels
 # warpgroup MMAs (HGMMA) over shared-memory tiles filled by cp.async
-# (LDGSTS); the flat paged decode its cp.async key ring
+# (LDGSTS; the FFN's stream form fills its ring with it too); the flat
+# paged decode its cp.async key ring
 SASS_NEEDS = {"attn_stream": ("HGMMA", "LDGSTS"),
               "qkv_proj": ("HGMMA", "LDGSTS"),
+              "ffn_act": ("HGMMA", "LDGSTS"),
+              "ffn_act_int8": ("HGMMA", "LDGSTS"),
               "paged_decode": ("LDGSTS",)}
 
 
@@ -236,10 +250,39 @@ def tile_banner(dev: str = "cuda") -> dict:
 
     from repro_torch.kernels import attn_stream as AS
     from repro_torch.kernels import build
+    from repro_torch.kernels import ffn_act as FF
     from repro_torch.kernels import paged_decode as PD
     from repro_torch.kernels import qkv_proj as QK
 
-    tiles = {"attn_stream": {
+    # the FFN's mirrors: the stream form at its row counts, both models'
+    # widths and every D split; the GEMM phases at both warpgroup counts,
+    # per weight size (2: bf16, 1: int8)
+    stream_at = [(m, d, ds) for m in (1, 4, 8) for d in (D_MODEL, D3)
+                 for ds in (1, 2, 4, 8)]
+    ffn_stream = {f"w{es} M{m} D{d} ds{ds}":
+                  FF.stream_smem_bytes(m, d, ds, es == 1)
+                  for es in (2, 1) for (m, d, ds) in stream_at}
+    ffn_tc = {f"w{es} phase{ph} wgs{w}": FF.wgmma_smem_bytes(ph, es, w)
+              for es in (2, 1) for ph in (1, 2) for w in (1, 2)}
+    tiles = {"ffn_act": {
+                 "stream_threads": FF.STREAM_THREADS,
+                 "stream_slice": FF.STREAM_SLICE,
+                 "stream_stages": FF.STREAM_STAGES,
+                 "stream_stage_bytes": [FF.STREAM_STAGE_BYTES,
+                                        FF.STREAM_INT8_STAGE_BYTES],
+                 "stream_max_m": FF.STREAM_MAX_M,
+                 "stream_plans (ds, cluster, blocks)": {
+                     f"F{f}": FF.stream_plan(f, 132) for f in (D_FF, F3)},
+                 "wgmma_plans (wgs, ks, k_chunk)": {
+                     f"M{m} D{d} F{f}": FF.wgmma_plan(m, d, f, 132)
+                     for (m, d, f) in ((320, D_MODEL, D_FF),
+                                       (256, D3, F3))},
+                 "wgmma_tile": [128, FF.WGMMA_BN, FF.WGMMA_BK],
+                 "wgmma_stages": {f"w{es} phase{ph} wgs{w}": FF.wgmma_stages(
+                     es, 64 * w, 3 - ph)[0] for es in (2, 1)
+                     for ph in (1, 2) for w in (1, 2)},
+                 "stream_smem": ffn_stream, "wgmma_smem": ffn_tc},
+             "attn_stream": {
                  "BQ": AS.WGMMA_BQ, "BK": AS.WGMMA_BK,
                  "stages": AS.WGMMA_STAGES,
                  "smem": {hd: AS.wgmma_smem_bytes(hd)
@@ -283,6 +326,23 @@ def tile_banner(dev: str = "cuda") -> dict:
         require(lq.qkv_proj_smem_bytes(code) == want,
                 f"qkv_proj GEMV {dt} static smem: library "
                 f"{lq.qkv_proj_smem_bytes(code)}, mirror {want}")
+    for lib_name in ("ffn_act", "ffn_act_int8"):
+        lf = build.load(lib_name)
+        lf.ffn_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lf.ffn_smem_bytes.restype = ctypes.c_int
+        es = 2 if lib_name == "ffn_act" else 1
+        for (m, d, ds) in stream_at:
+            got = lf.ffn_smem_bytes(0, m, d, ds)
+            want = ffn_stream[f"w{es} M{m} D{d} ds{ds}"]
+            require(got == want, f"{lib_name} stream smem at M {m} D {d} "
+                                 f"D split {ds}: library {got}, mirror "
+                                 f"{want}")
+        for ph in (1, 2):
+            for w in (1, 2):
+                got = lf.ffn_smem_bytes(ph, w, 0, 0)
+                want = ffn_tc[f"w{es} phase{ph} wgs{w}"]
+                require(got == want, f"{lib_name} phase-{ph} smem at wgs "
+                                     f"{w}: library {got}, mirror {want}")
     print("[kernels] tile mirrors match the built libraries")
     return tiles
 
@@ -321,13 +381,16 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         and the profiler's device time of what it launches."""
         return time_ms(fn, reps=reps), dev_ms(fn)
 
-    def record(name, label, dtype, err, main=None):
+    def record(name, label, dtype, err, main=None, extra=None):
         tol = TOL[dtype]
         ok = err <= tol
         cases[name].append({"case": label, "dtype": dtype,
-                            "max_abs_err": err, "tol": tol, "ok": ok})
+                            "max_abs_err": err, "tol": tol, "ok": ok,
+                            **(extra or {})})
+        more = "".join(f" {k}={v:.3e}" for k, v in (extra or {}).items())
         print(f"[kernels] {name:20s} {label:34s} {dtype:8s} "
-              f"max|err|={err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+              f"max|err|={err:.3e} (tol {tol:g}){more} "
+              f"{'ok' if ok else 'FAIL'}")
         require(ok, f"{name} {label} {dtype}: {err} > {tol}")
         if main is not None:
             results[name] = dict(main, max_abs_err=err, dtype=dtype)
@@ -350,6 +413,78 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                 "library_ms": lib, "library_device_ms": lib_dev,
                 "library_kernels": lib_k, "bound_ms": b_ms,
                 "bound_by": b_by}
+
+    results["ffn_rows"] = []
+
+    def ffn_case(name, x, w, kind, dt, label, want_variant, row=None,
+                 is_main=False):
+        """One FFN case: ``name`` on x and its weight operands ``w``
+        against its plain twin, the form that ran asserted. A stream case
+        also records the bound of its 16-bit rounding of h, u * max_md
+        sum_f |h_mf w_fd| (u = 2^-9 for bf16 h, 2^-11 for the fp16 h of
+        int8 weights). With ``row`` = (weight bytes, chain) in bf16 also
+        its times beside its bound and, as a yardstick only, the device
+        time of ``chain``, the cuBLAS chain mm, mm, silu * mul, mm on the
+        same (int8: pre-dequantized bf16) weights."""
+        kern, twin = getattr(FF, name), getattr(FF, f"{name}_plain")
+
+        def fn():
+            return kern(x, *w, kind)
+
+        def ref():
+            return twin(x, *w, kind)
+        err = max_err(fn(), ref())
+        got = kern.variant
+        require(got == want_variant, f"{name} {label} {dt}: ran the {got} "
+                                     f"form, expected {want_variant}")
+        extra = None
+        if got == "stream":
+            int8 = name == "ffn_act_int8"
+            wu, wg, wd = ([None if w[i] is None else
+                           FF.dequantize(w[i], w[i + 1]) for i in (0, 2, 4)]
+                          if int8 else [None if t is None else t.float()
+                                        for t in w])
+            h = FF.activation(x.float() @ wu, kind)
+            if wg is not None:
+                h = h * (x.float() @ wg)
+            extra = {"h_round_bound": 2.0 ** (-11 if int8 else -9) * float(
+                (h.abs() @ wd.abs()).max())}
+        main = None
+        if row is not None:
+            (M, D_), F_ = x.shape, w[0].shape[1]
+            w_bytes, chain = row
+            ms, dms = timed(fn)
+            c_ms, c_dms = timed(chain)
+            c_k = lib_kernels(chain)
+            b_ms, b_by = bound(pk, 4 * M * D_ + w_bytes, 6 * M * D_ * F_,
+                               "bfloat16")
+            main = {"shape": f"x ({M}, {D_}), F {F_}, {label}", "ms": ms,
+                    "device_ms": dms, "plain_ms": time_ms(ref),
+                    "library_ms": None, "variant": got,
+                    "chain_ms": c_ms, "chain_device_ms": c_dms,
+                    "chain_kernels": c_k,
+                    "chain": f"cuBLAS chain of {round(sum(c_k.values()))} "
+                             f"kernels (mm, mm, silu * mul, mm), not one "
+                             f"call", "bound_ms": b_ms, "bound_by": b_by}
+            results["ffn_rows"].append(dict(main, name=name,
+                                            max_abs_err=err, **(extra or {})))
+            print(f"[kernels]   {name} {main['shape']} ({got}): "
+                  f"{1e3 * dms:.2f} us device, {ms:.4f} ms call; "
+                  f"{main['chain']} {1e3 * c_dms:.2f} us device; bound "
+                  f"{1e3 * b_ms:.2f} us ({b_by})")
+        record(name, f"{label} ({got})", dt, err, main if is_main else None,
+               extra)
+
+    def ffn_form(M, dt):
+        """The FFN form expected for M rows of ``dt`` x, rows aligned."""
+        if dt == "float32":
+            return "fma"
+        return "stream" if M <= FF.STREAM_MAX_M else "wgmma"
+
+    def chain_of(x, wu, wg, wd):
+        def call():
+            return (F.silu(x @ wu) * (x @ wg)) @ wd
+        return call
 
     for dt in ("float32", "bfloat16"):
         tdt = getattr(torch, dt)
@@ -409,36 +544,19 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                                  f"({got})", dt,
                    max_err(FN.fused_norm(x, sc, None, "rms"),
                            FN.fused_norm_plain(x, sc, None, "rms")))
-        # ---- ffn_act: decode M=4 and prefill M=320, silu_gated ----------
+        # ---- ffn_act: decode M=4 (stream) and prefill M=320 (wgmma in
+        # bf16, the FMA tiles in f32), silu_gated; bf16 rows timed
         w_up = randn(D_MODEL, D_FF, dtype=tdt, std=0.5 * D_MODEL ** -0.5)
         w_gate = randn(D_MODEL, D_FF, dtype=tdt, std=0.5 * D_MODEL ** -0.5)
         w_down = randn(D_FF, D_MODEL, dtype=tdt, std=D_FF ** -0.5)
         for M in (4, 320):
             x = randn(M, D_MODEL, dtype=tdt)
-            out = FF.ffn_act(x, w_up, w_gate, w_down, "silu_gated")
-            err = max_err(out, FF.ffn_act_plain(x, w_up, w_gate, w_down,
-                                                "silu_gated"))
-            main = None
-            if M == 4 and dt == "bfloat16":
-                ms = time_ms(lambda: FF.ffn_act(x, w_up, w_gate, w_down,
-                                                "silu_gated"))
-                plain = time_ms(lambda: FF.ffn_act_plain(
-                    x, w_up, w_gate, w_down, "silu_gated"))
-                nbytes = (2 * M * D_MODEL + 3 * D_MODEL * D_FF) * es
-                b_ms, b_by = bound(pk, nbytes, 6 * M * D_MODEL * D_FF, dt)
-                main = {"shape": f"x ({M}, {D_MODEL}), F {D_FF}, silu_gated",
-                        "ms": ms, "plain_ms": plain, "library_ms": None,
-                        "device_ms": dev_ms(lambda: FF.ffn_act(
-                            x, w_up, w_gate, w_down, "silu_gated")),
-                        "bound_ms": b_ms, "bound_by": b_by}
-            if M == 320 and dt == "bfloat16":
-                results["ffn_act_prefill_ms"] = time_ms(
-                    lambda: FF.ffn_act(x, w_up, w_gate, w_down,
-                                       "silu_gated"), reps=20)
-                results["ffn_act_prefill_device_ms"] = dev_ms(
-                    lambda: FF.ffn_act(x, w_up, w_gate, w_down,
-                                       "silu_gated"))
-            record("ffn_act", f"silu_gated M={M}", dt, err, main)
+            row = None
+            if dt == "bfloat16":
+                row = (3 * D_MODEL * D_FF * es,
+                       chain_of(x, w_up, w_gate, w_down))
+            ffn_case("ffn_act", x, (w_up, w_gate, w_down), "silu_gated", dt,
+                     f"silu_gated M={M}", ffn_form(M, dt), row, M == 4)
         del w_up, w_gate, w_down
         # ---- attn_stream: prefill S = L = 320 causal --------------------
         S = L = 320
@@ -704,29 +822,16 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         s_dn = torch.full((D3,), F3 ** -0.5 / 127, device=dev)
         wq8 = (int8w(D3, F3), s_up, int8w(D3, F3), s_up.clone(),
                int8w(F3, D3), s_dn)
+        deq = [FF.dequantize(wq8[i], wq8[i + 1]).bfloat16()
+               for i in (0, 2, 4)]
         for M in (4, 256):
             x = randn(M, D3, dtype=tdt)
-            out = FF.ffn_act_int8(x, *wq8, "silu_gated")
-            err = max_err(out, FF.ffn_act_int8_plain(x, *wq8, "silu_gated"))
-            main = None
-            if M == 4 and dt == "bfloat16":
-                ms = time_ms(lambda: FF.ffn_act_int8(x, *wq8, "silu_gated"))
-                plain = time_ms(lambda: FF.ffn_act_int8_plain(
-                    x, *wq8, "silu_gated"))
-                nbytes = (2 * M * D3 * es + 3 * D3 * F3
-                          + 4 * (2 * F3 + D3))
-                b_ms, b_by = bound(pk, nbytes, 6 * M * D3 * F3, dt)
-                main = {"shape": f"x ({M}, {D3}), F {F3}, int8 weights, "
-                                 f"silu_gated", "ms": ms,
-                        "plain_ms": plain, "library_ms": None,
-                        "device_ms": dev_ms(lambda: FF.ffn_act_int8(
-                            x, *wq8, "silu_gated")),
-                        "bound_ms": b_ms, "bound_by": b_by}
-            if M == 256 and dt == "bfloat16":
-                results["ffn_act_int8_prefill_ms"] = time_ms(
-                    lambda: FF.ffn_act_int8(x, *wq8, "silu_gated"), reps=10)
-            record("ffn_act_int8", f"silu_gated M={M}", dt, err, main)
-        del wq8
+            row = None
+            if dt == "bfloat16":
+                row = (3 * D3 * F3 + 4 * (2 * F3 + D3), chain_of(x, *deq))
+            ffn_case("ffn_act_int8", x, wq8, "silu_gated", dt,
+                     f"silu_gated M={M}", ffn_form(M, dt), row, M == 4)
+        del wq8, deq
         # ---- ffn_act and fused_norm at mobilevlm-3b (path A's shapes) ---
         w3 = (randn(D3, F3, dtype=tdt, std=0.5 * D3 ** -0.5),
               randn(D3, F3, dtype=tdt, std=0.5 * D3 ** -0.5),
@@ -734,9 +839,11 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         sc3 = (0.25 + 0.1 * torch.rand(D3, generator=gen, device=dev)).to(tdt)
         for M in (4, 256):
             x = randn(M, D3, dtype=tdt)
-            record("ffn_act", f"mobilevlm silu_gated M={M}", dt,
-                   max_err(FF.ffn_act(x, *w3, "silu_gated"),
-                           FF.ffn_act_plain(x, *w3, "silu_gated")))
+            row = None
+            if dt == "bfloat16":
+                row = (3 * D3 * F3 * es, chain_of(x, *w3))
+            ffn_case("ffn_act", x, w3, "silu_gated", dt,
+                     f"mobilevlm silu_gated M={M}", ffn_form(M, dt), row)
             record("fused_norm", f"mobilevlm rms M={M}", dt,
                    max_err(FN.fused_norm(x, sc3, None, "rms"),
                            FN.fused_norm_plain(x, sc3, None, "rms")))
@@ -756,15 +863,6 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
     record("fused_norm", "layer M=7 D=200", "float32",
            max_err(FN.fused_norm(x, sc, bi, "layer"),
                    FN.fused_norm_plain(x, sc, bi, "layer")))
-    for kind in ("gelu", "relu2", "gelu_gated"):
-        x = randn(5, 320, dtype=tdt)
-        wu = randn(320, 1000, dtype=tdt, std=320 ** -0.5)
-        wg = randn(320, 1000, dtype=tdt, std=320 ** -0.5) \
-            if kind == "gelu_gated" else None
-        wd = randn(1000, 320, dtype=tdt, std=1000 ** -0.5)
-        record("ffn_act", f"{kind} M=5 D=320 F=1000", "float32",
-               max_err(FF.ffn_act(x, wu, wg, wd, kind),
-                       FF.ffn_act_plain(x, wu, wg, wd, kind)))
     # attention at every head dim (bf16: the 32- and 64-byte swizzles at
     # Dh 16 and 32), ragged and GQA, causal S < L and not causal
     for dt in ("float32", "bfloat16"):
@@ -777,28 +875,52 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
             record("attn_stream", f"S={S} L={L} causal={causal} D={Dh}",
                    dt, max_err(AS.attn_stream(q, k, v, causal=causal),
                                AS.attn_stream_plain(q, k, v, causal)))
-    # D = 200: W_down rows are not 16-byte multiples, so the kernel stages
-    # them a byte at a time
-    for (M, D, F_, kind) in ((5, 320, 1000, "gelu"), (5, 320, 1000, "relu2"),
-                             (7, 320, 1024, "silu_gated"),
-                             (3, 200, 1000, "silu_gated")):
-        gated = kind == "silu_gated"
-        wu = torch.randint(-127, 128, (D, F_), generator=gen, device=dev,
-                           dtype=torch.int8)
-        wg = torch.randint(-127, 128, (D, F_), generator=gen, device=dev,
-                           dtype=torch.int8) if gated else None
-        wd = torch.randint(-127, 128, (F_, D), generator=gen, device=dev,
-                           dtype=torch.int8)
-        su = (0.5 + torch.rand(F_, generator=gen, device=dev)) / (127 * D
-                                                                  ** 0.5)
-        sg = su.flip(0).contiguous() if gated else None
-        sd = (0.5 + torch.rand(D, generator=gen, device=dev)) / (127 * F_
-                                                                 ** 0.5)
-        x = randn(M, D, dtype=tdt)
-        record("ffn_act_int8", f"{kind} M={M} D={D} F={F_}", "float32",
-               max_err(FF.ffn_act_int8(x, wu, su, wg, sg, wd, sd, kind),
-                       FF.ffn_act_int8_plain(x, wu, su, wg, sg, wd, sd,
-                                             kind)))
+    # the FFN forms on ragged shapes, f32 and bf16: M 1, 3, 5 (the stream
+    # form), 63, 65, 257 (wgmma in bf16, the FMA tiles in f32); D 320 (a
+    # ragged last 64-deep tile); F 1000 with weights in the model's type
+    # (every activation) and F 1024 with int8 weights (gated and not).
+    # Rows that are not whole 16-byte vectors take the FMA tiles at any M:
+    # int8 at F 1000 or D 200, bf16 at F 1004
+    def int8_ffn(D, F_, gated):
+        def q8(*shape):
+            return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                 dtype=torch.int8)
+        su = (0.5 + torch.rand(F_, generator=gen, device=dev)) / (
+            127 * D ** 0.5)
+        sd = (0.5 + torch.rand(D, generator=gen, device=dev)) / (
+            127 * F_ ** 0.5)
+        return (q8(D, F_), su, q8(D, F_) if gated else None,
+                su.flip(0).contiguous() if gated else None, q8(F_, D), sd)
+
+    for dt in ("float32", "bfloat16"):
+        tq = getattr(torch, dt)
+        for i, M in enumerate((1, 3, 5, 63, 65, 257)):
+            x = randn(M, 320, dtype=tq)
+            for kind in ("silu_gated", "gelu", "gelu_gated", "relu2"):
+                wu = randn(320, 1000, dtype=tq, std=0.5 * 320 ** -0.5)
+                wg = (randn(320, 1000, dtype=tq, std=0.5 * 320 ** -0.5)
+                      if kind.endswith("gated") else None)
+                wd = randn(1000, 320, dtype=tq, std=1000 ** -0.5)
+                ffn_case("ffn_act", x, (wu, wg, wd), kind, dt,
+                         f"{kind} M={M} D=320 F=1000", ffn_form(M, dt))
+            for gated in (True, False):
+                kind = "silu_gated" if gated else ("gelu", "relu2")[i % 2]
+                ffn_case("ffn_act_int8", x, int8_ffn(320, 1024, gated), kind,
+                         dt, f"{kind} M={M} D=320 F=1024", ffn_form(M, dt))
+        for (M, D, F_, kind) in ((5, 320, 1000, "gelu"),
+                                 (65, 320, 1000, "relu2"),
+                                 (3, 200, 1000, "silu_gated")):
+            ffn_case("ffn_act_int8", randn(M, D, dtype=tq),
+                     int8_ffn(D, F_, kind == "silu_gated"), kind, dt,
+                     f"{kind} M={M} D={D} F={F_} unaligned rows", "fma")
+        if dt == "bfloat16":
+            for M in (3, 65):
+                wu, wg = (randn(320, 1004, dtype=tq, std=0.5 * 320 ** -0.5)
+                          for _ in range(2))
+                wd = randn(1004, 320, dtype=tq, std=1004 ** -0.5)
+                ffn_case("ffn_act", randn(M, 320, dtype=tq), (wu, wg, wd),
+                         "silu_gated", dt,
+                         f"silu_gated M={M} F=1004 unaligned rows", "fma")
     # ragged rows and column tiles (N = 96 is 3/4 of a 128-wide GEMM tile)
     for dt in ("float32", "bfloat16"):
         tq = getattr(torch, dt)
@@ -1224,10 +1346,16 @@ def main(argv=None) -> int:
             "library_device_ms": r.get("library_device_ms"),
             "library_kernels": r.get("library_kernels"),
             "shape": r["shape"], "dtype": r["dtype"]})
+        # the FFN's other timed shapes (decode at the other model, the
+        # prefill tiles), each beside its bound and the cuBLAS chain
+        rows[-1]["forms"] = [
+            {f: fr[f] for f in ("shape", "variant", "device_ms", "ms",
+                                "bound_ms", "bound_by", "chain_device_ms",
+                                "chain")}
+            for fr in kern.get("ffn_rows", []) if fr["name"] == k]
     report["kernels"] = rows
     report["kernel_cases"] = kern.get("cases", {})
-    for k in ("ffn_act_prefill_ms", "ffn_act_prefill_device_ms",
-              "ffn_act_int8_prefill_ms", "tiles", "fused_norm_mobilevlm",
+    for k in ("ffn_rows", "tiles", "fused_norm_mobilevlm",
               *(f"qkv_proj_{t}_{w}" for t in ("mobilevlm", "fastvlm")
                 for w in ("decode", "prefill"))):
         report[k] = kern.get(k)

@@ -3,6 +3,7 @@
 
     python3 kernel_sweep.py          # one CUDA card, from the repository root
     python3 kernel_sweep.py --only flat,norm,host
+    python3 kernel_sweep.py --only ffn
     python3 kernel_sweep.py --only host --src OTHER/src   # another tree's
                                                           # fused_norm wrapper
 
@@ -32,6 +33,18 @@ of `fused_norm` at D 1536 and 2560 beside `F.rms_norm`; and where
 section times that tree's `repro_torch` wrapper instead (the parent's,
 to compare).
 
+The ffn section times every plan of the FFN kernels (`ffn_act`,
+`ffn_act_int8`) at fastvlm-1.7b (D 1536, F 8960) and mobilevlm-3b (D
+2560, F 6912), bf16 and int8 weights: the decode stream form at M 4 for
+every D split x cluster size (`ffn_act.stream_plan`), warm and cold
+(four weight sets in turn: each call reads its weights from HBM, as a
+decode step does), and the prefill wgmma form at M 256 (and 320 at
+fastvlm) for every tile height x phase-2 F split (`ffn_act.wgmma_plan`),
+beside the cuBLAS chain mm, mm, silu * mul, mm on the same (int8:
+pre-dequantized) weights -- a chain of kernels, not one call. The host
+section also breaks down the host time of an `ffn_act` / `ffn_act_int8`
+call at decode (x (4, D), a narrow F so the card keeps up).
+
 It prints the card's name and power limit first and writes
 chiprun_out/kernel_sweep.json (kernel_sweep_host.json for ``--only
 host``).
@@ -40,13 +53,31 @@ host``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-SECTIONS = ("attn", "qkv", "flat", "norm", "host")
+SECTIONS = ("attn", "qkv", "flat", "norm", "host", "ffn")
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, planner):
+    """``module.name`` replaced by ``planner`` inside the block. The
+    module's cached wrapper plan (`_plan`, where it is an lru_cache) is
+    cleared on entry and on exit, so each call plans anew."""
+    old = getattr(module, name)
+    clear = getattr(getattr(module, "_plan", None), "cache_clear",
+                    lambda: None)
+    setattr(module, name, planner)
+    clear()
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+        clear()
 
 
 def host_us(fn, n: int = 3000) -> float:
@@ -107,6 +138,101 @@ def norm_host_breakdown(FN, build, x, sc) -> dict:
     return out
 
 
+def ffn_host_breakdown(FF, build, x, w, int8: bool) -> dict:
+    """Where the host time of one silu_gated `ffn_act` (``int8``:
+    `ffn_act_int8`) call on x and the weight operands ``w`` goes, as
+    `norm_host_breakdown` does for `fused_norm`. A tree whose wrapper has
+    no `_pointers` (the parent's) gets its own statements timed: the
+    ctypes call and launches are then its rest."""
+    import torch
+    name = "ffn_act_int8" if int8 else "ffn_act"
+    kern = getattr(FF, name)
+    M, D = x.shape
+    F_ = w[0].shape[1]
+    out = {"shape": f"{name} x ({M}, {D}) {x.dtype}, F {F_}",
+           "wrapper_us": host_us(lambda: kern(x, *w, "silu_gated"))}
+    if int8:
+        i8, f32 = torch.int8, torch.float32
+        ops = (("w_up_q", w[0], (D, F_), i8), ("w_up_scale", w[1], (F_,), f32),
+               ("w_gate_q", w[2], (D, F_), i8),
+               ("w_gate_scale", w[3], (F_,), f32),
+               ("w_down_q", w[4], (F_, D), i8),
+               ("w_down_scale", w[5], (D,), f32))
+    else:
+        ops = (("w_up", w[0], (D, F_), x.dtype),
+               ("w_gate", w[1], (D, F_), x.dtype),
+               ("w_down", w[2], (F_, D), x.dtype))
+    parts = {}
+    if hasattr(FF, "_pointers"):
+        dev = x.get_device()
+        ptrs = FF._pointers(name, dev, ops)
+        code, _, plan, shape, sdt = FF._plan(M, D, F_, True, 3, True, dev)
+        scratch, o = x.new_empty(shape, dtype=sdt), torch.empty_like(x)
+        fn = FF._entry(name, FF.INT8_ARGTYPES if int8 else FF.ARGTYPES)
+        stream = torch._C._cuda_getCurrentRawStream(dev)
+        parts["checks + addresses (_pointers)"] = host_us(
+            lambda: FF._pointers(name, dev, ops))
+        parts["plan (cached)"] = host_us(
+            lambda: FF._plan(M, D, F_, True, 3, True, dev))
+        parts["scratch + out: new_empty, empty_like"] = host_us(
+            lambda: (x.new_empty(shape, dtype=sdt), torch.empty_like(x)))
+        parts["current stream"] = host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(dev))
+        parts["C entry: ctypes call + launches"] = host_us(
+            lambda: fn(x.data_ptr(), *ptrs, scratch.data_ptr(), o.data_ptr(),
+                       M, D, F_, 0, 1, code, *plan, stream))
+    else:
+        parts["require_operands"] = host_us(
+            lambda: build.require_operands(name, x.device, {
+                n: (t, sh, dt) for (n, t, sh, dt) in ops}))
+        parts["f_chunking + sm_count"] = host_us(
+            lambda: FF.f_chunking(M, F_, build.sm_count(x.device.index)))
+        parts["2 x torch.empty(dtype=, device=)"] = host_us(
+            lambda: (torch.empty((8, M, D), dtype=torch.float32,
+                                 device=x.device),
+                     torch.empty((M, D), dtype=x.dtype, device=x.device)))
+        parts["build.bind lookup"] = host_us(
+            lambda: build.bind(name, name, FF.INT8_ARGTYPES if int8
+                               else FF.ARGTYPES))
+    out["parts_us"] = parts
+    out["rest_us"] = out["wrapper_us"] - sum(parts.values())
+    return out
+
+
+def host_section(res: dict, build) -> None:
+    """The host breakdowns of `fused_norm` and the FFN wrappers at decode
+    (x (4, D) bf16; the FFN at F 1024, narrow enough that the card keeps
+    up with back-to-back calls) into res["fused_norm_host"] and
+    res["ffn_host"]."""
+    import torch
+
+    from repro_torch.kernels import ffn_act as FF
+    from repro_torch.kernels import fused_norm as FN
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for D in (1536, 2560):
+        x = torch.randn(4, D, generator=g, device="cuda").bfloat16()
+        sc = torch.rand(D, generator=g, device="cuda").bfloat16()
+        res["fused_norm_host"].append(norm_host_breakdown(FN, build, x, sc))
+        print(f"[sweep] fused_norm host {res['fused_norm_host'][-1]}",
+              flush=True)
+    F_ = 1024
+    for (D, int8) in ((1536, False), (2560, True)):
+        x = torch.randn(4, D, generator=g, device="cuda").bfloat16()
+        if int8:
+            def q8(*s_):
+                return torch.randint(-127, 128, s_, generator=g,
+                                     device="cuda", dtype=torch.int8)
+            su = torch.full((F_,), D ** -0.5 / 127, device="cuda")
+            w = (q8(D, F_), su, q8(D, F_), su.clone(), q8(F_, D),
+                 torch.full((D,), F_ ** -0.5 / 127, device="cuda"))
+        else:
+            w = tuple((torch.randn(*sh, generator=g, device="cuda")
+                       * 0.02).bfloat16() for sh in ((D, F_), (D, F_),
+                                                     (F_, D)))
+        res["ffn_host"].append(ffn_host_breakdown(FF, build, x, w, int8))
+        print(f"[sweep] ffn host {res['ffn_host'][-1]}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default=",".join(SECTIONS),
@@ -131,15 +257,10 @@ def main(argv=None) -> int:
     dst = ROOT / "chiprun_out"
     dst.mkdir(exist_ok=True)
     if only == {"host"}:
-        from repro_torch.kernels import fused_norm as FN
-        g = torch.Generator(device="cuda").manual_seed(0)
-        res = {"card": CS.card_line(), "src": args.src, "fused_norm": []}
-        for D in (1536, 2560):
-            x = torch.randn(4, D, generator=g, device="cuda").bfloat16()
-            sc = torch.rand(D, generator=g, device="cuda").bfloat16()
-            res["fused_norm"].append(norm_host_breakdown(FN, build, x, sc))
-            print(f"[sweep] fused_norm host {res['fused_norm'][-1]}",
-                  flush=True)
+        build.build_all(("fused_norm", "ffn_act", "ffn_act_int8"))
+        res = {"card": CS.card_line(), "src": args.src,
+               "fused_norm_host": [], "ffn_host": []}
+        host_section(res, build)
         (dst / "kernel_sweep_host.json").write_text(json.dumps(res,
                                                                indent=1))
         return 0
@@ -149,7 +270,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import paged_decode as PD
     from repro_torch.kernels import qkv_proj as QK
     build.build_all(("attn_stream", "qkv_proj", "paged_decode",
-                     "fused_norm"))
+                     "fused_norm", "ffn_act", "ffn_act_int8"))
     dev, bf = "cuda", torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -174,7 +295,8 @@ def main(argv=None) -> int:
 
     out = {"card": CS.card_line(), "attn_stream": [], "qkv_gemv": [],
            "qkv_gemm": [], "paged_decode_flat": [], "fused_norm": [],
-           "fused_norm_host": []}
+           "fused_norm_host": [], "ffn_host": [], "ffn_stream": [],
+           "ffn_wgmma": []}
     plan_kv = AS.kv_split
     for (H, Hkv, S, L) in ((12, 2, 320, 320), (20, 20, 256, 256),
                            (12, 2, 64, 320), (14, 2, 320, 320)) \
@@ -300,6 +422,94 @@ def main(argv=None) -> int:
         print(f"[sweep] paged_decode_flat {row}", flush=True)
         del stores
 
+    # the FFN: the stream form's slice x cluster at decode, the wgmma
+    # form's tiles x F split at prefill, beside the cuBLAS chain
+    from repro_torch.kernels import ffn_act as FF
+    plan_st, plan_tc = FF.stream_plan, FF.wgmma_plan
+    fs = FF.STREAM_SLICE
+
+    def ffn_sets(D, F_, int8, n):
+        def one():
+            if int8:
+                def q8(*s_):
+                    return torch.randint(-127, 128, s_, generator=g,
+                                         device=dev, dtype=torch.int8)
+                su = torch.full((F_,), D ** -0.5 / 127, device=dev)
+                sd = torch.full((D,), F_ ** -0.5 / 127, device=dev)
+                return (q8(D, F_), su, q8(D, F_), su.clone(), q8(F_, D), sd)
+            return (rn(D, F_, std=0.5 * D ** -0.5),
+                    rn(D, F_, std=0.5 * D ** -0.5), rn(F_, D, std=F_ ** -0.5))
+        return [one() for _ in range(n)]
+
+    def ffn_fns(int8):
+        if int8:
+            return (lambda x, w: FF.ffn_act_int8(x, *w),
+                    lambda x, w: FF.ffn_act_int8_plain(x, *w),
+                    lambda w: [FF.dequantize(w[i], w[i + 1]).to(bf)
+                               for i in (0, 2, 4)])
+        return (lambda x, w: FF.ffn_act(x, *w),
+                lambda x, w: FF.ffn_act_plain(x, *w), lambda w: list(w))
+
+    def chain(x, wu, wg, wd):
+        return (F.silu(x @ wu) * (x @ wg)) @ wd
+
+    for (tag, D, F_, int8) in (("fastvlm-1.7b bf16", 1536, 8960, False),
+                               ("mobilevlm-3b bf16", 2560, 6912, False),
+                               ("mobilevlm-3b int8", 2560, 6912, True)) \
+            if "ffn" in only else ():
+        run, twin, dense = ffn_fns(int8)
+        sets = ffn_sets(D, F_, int8, 4)
+        chains = [dense(w) for w in sets]
+        x = rn(4, D)
+        turn = [0]
+
+        def cold(fn, pool):
+            def call():
+                turn[0] += 1
+                return fn(pool[turn[0] % 4])
+            return call
+        row = {"shape": f"{tag} x (4, {D}), F {F_}",
+               "planned (ds, cluster, blocks)": plan_st(F_, sms),
+               "chain_cold_us": us(cold(lambda w: chain(x, *w), chains)),
+               "chain_kernels": CS.device_kernels(
+                   lambda: chain(x, *chains[0]))}
+        del chains
+        for (ds, cl) in ((ds, cl) for ds in (1, 2, 4, 8)
+                         for cl in (1, 2, 4, 8) if cl % ds == 0):
+            n = -(-(-(-F_ // fs)) // (cl // ds)) * cl
+            key = f"ds{ds}_cl{cl}"
+            with swapped(FF, "stream_plan", lambda *a, _p=(ds, cl, n): _p):
+                timed(row, f"{key}_warm_us", lambda: [run(x, sets[0])],
+                      lambda: [twin(x, sets[0])])
+                if isinstance(row[f"{key}_warm_us"], float):
+                    row[f"{key}_cold_us"] = us(cold(lambda w: run(x, w),
+                                                    sets))
+        out["ffn_stream"].append(row)
+        save()
+        print(f"[sweep] ffn decode {row}", flush=True)
+        del sets
+        for M in ((256, 320) if D == 1536 else (256,)):
+            w = ffn_sets(D, F_, int8, 1)[0]
+            wd = dense(w)
+            x = rn(M, D)
+            ref = twin(x, w)
+            row = {"shape": f"{tag} x ({M}, {D}), F {F_}",
+                   "planned (wgs, ks, k_chunk)": plan_tc(M, D, F_, sms),
+                   "chain_us": us(lambda: chain(x, *wd))}
+            steps = -(-F_ // FF.WGMMA_BK)
+            for wgs in (1, 2):
+                for ks in (1, 2, 3, 4, 6, 8):
+                    kc = -(-steps // ks) * FF.WGMMA_BK
+                    if -(-F_ // kc) != ks:
+                        continue
+                    with swapped(FF, "wgmma_plan",
+                                 lambda *a, _p=(wgs, ks, kc): _p):
+                        timed(row, f"wgs{wgs}_ks{ks}_us",
+                              lambda: [run(x, w)], lambda: [ref])
+            out["ffn_wgmma"].append(row)
+            save()
+            print(f"[sweep] ffn prefill {row}", flush=True)
+
     # fused_norm's threads a row at decode and prefill, beside F.rms_norm
     plan_tpr = FN.threads_per_row
     for (M, D) in ((4, 1536), (4, 2560), (320, 1536), (256, 2560)) \
@@ -321,13 +531,9 @@ def main(argv=None) -> int:
         out["fused_norm"].append(row)
         save()
         print(f"[sweep] fused_norm {row}", flush=True)
-    for D in (1536, 2560) if "host" in only else ():
-        x = rn(4, D)
-        sc = (0.25 + 0.1 * torch.rand(D, generator=g, device=dev)).to(bf)
-        out["fused_norm_host"].append(norm_host_breakdown(FN, build, x, sc))
+    if "host" in only:
+        host_section(out, build)
         save()
-        print(f"[sweep] fused_norm host {out['fused_norm_host'][-1]}",
-              flush=True)
     return 0
 
 

@@ -4,8 +4,8 @@
 // four warps of a warpgroup together issue an asynchronous bf16 x bf16 ->
 // f32 product of a 64-row tile, B read from shared memory through a
 // 64-bit descriptor, A from shared memory or from registers. This header
-// holds what `attn_stream.cu` and `qkv_proj.cu` (and, next, the FFN
-// kernels' prefill) build their products from:
+// holds what `attn_stream.cu`, `qkv_proj.cu` and the FFN kernels' prefill
+// (`ffn_act.cuh`) build their products from:
 //   * `cp_async16`: a 16-byte global -> shared copy (cp.async, zero-filled
 //     past the operand's edge), so a tile's load overlaps the products of
 //     the one before it; `load_tile` fills a whole swizzled tile with it;
@@ -16,7 +16,8 @@
 //     / wait helpers that order them.
 //
 // Its users replace the TPU kernels repro/kernels/attn_stream.py::
-// attn_stream and repro/kernels/qkv_proj.py::qkv_proj (prefill). On the
+// attn_stream, repro/kernels/qkv_proj.py::qkv_proj (prefill) and
+// repro/kernels/ffn_act.py::ffn_act / ffn_act_int8 (prefill). On the
 // H100 their products at serving shapes are a few GFLOP over a few MB:
 // scalar f32 FMAs made them issue-bound (one FMA an operand pair), and
 // synchronous loads through registers left every load exposed. wgmma

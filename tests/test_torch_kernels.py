@@ -12,6 +12,10 @@ without one (`python3 chip_smoke.py` holds them at full size).
 
 from __future__ import annotations
 
+import importlib.util
+import math
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -190,12 +194,133 @@ def test_ffn_act_twin_matches_pallas(kind):
 @pytest.mark.parametrize("M,F_,sms", [(4, 8960, 132), (320, 8960, 132),
                                       (5, 1000, 132), (1, 40, 8)])
 def test_ffn_act_chunking_covers_f(M, F_, sms):
-    """The F split of the CUDA kernel covers [0, F) exactly once in whole
+    """The F split of the fma form covers [0, F) exactly once in whole
     32-unit steps and aims at a few blocks per SM."""
     per, n = FF.f_chunking(M, F_, sms)
     assert per % FF.BF == 0 and (n - 1) * per < F_ <= n * per
-    n_mt = -(-M // FF.row_tile(M))
+    n_mt = -(-M // FF.FMA_ROWS)
     assert n_mt * n <= max(FF.BLOCKS_PER_SM * sms, n_mt)
+
+
+@pytest.mark.parametrize("F_,sms", [(8960, 132), (6912, 132), (1000, 132),
+                                    (40, 8), (1024, 132), (128, 132),
+                                    (70000, 132)])
+def test_ffn_stream_plan_covers_f(F_, sms):
+    """The stream form's blocks cover every hidden unit once: each slice
+    split over D among ds blocks of one cluster, each with whole 16-row
+    W_down steps, within two blocks an SM unless one block a slice is
+    already more, the grid padded by less than one cluster of at most 8
+    blocks."""
+    ds, cl, nb = FF.stream_plan(F_, sms)
+    fs = FF.STREAM_SLICE
+    assert 1 <= cl <= FF.STREAM_MAX_SPLIT and nb % cl == 0
+    assert cl % ds == 0 and fs % (16 * ds) == 0
+    n = -(-F_ // fs)
+    assert n * ds <= nb < (n + cl // ds) * ds
+    assert n * ds <= 2 * sms or ds == 1
+    units = np.zeros(nb // ds * fs, int)
+    for sl in range(nb // ds):
+        for r in range(ds):            # block r's W_down rows of the slice
+            lo = sl * fs + r * (fs // ds)
+            units[lo:lo + fs // ds] += 1
+    assert (units == 1).all()
+
+
+@pytest.mark.parametrize("M,D,F_,sms", [(256, 2560, 6912, 132),
+                                        (320, 1536, 8960, 132),
+                                        (65, 320, 1000, 132),
+                                        (257, 320, 1024, 132),
+                                        (9, 2560, 6912, 132),
+                                        (4096, 2560, 6912, 132)])
+def test_ffn_wgmma_plan_covers_f(M, D, F_, sms):
+    """The wgmma form's phase-2 F split: chunks of whole 64-deep tiles
+    covering [0, F) once, a cluster of at most 8 blocks, and no split
+    where the tiles alone fill the card; 128-row tiles above 64 rows."""
+    wgs, ks, kc = FF.wgmma_plan(M, D, F_, sms)
+    assert wgs == (2 if M > 64 else 1)
+    assert kc % FF.WGMMA_BK == 0 and (ks - 1) * kc < F_ <= ks * kc
+    assert 1 <= ks <= FF.STREAM_MAX_SPLIT
+    tiles = -(-M // (64 * wgs)) * -(-D // FF.WGMMA_BN)
+    assert ks == 1 or tiles < sms
+
+
+@pytest.mark.parametrize("M,dtype,aligned,want", [
+    (1, torch.bfloat16, True, "stream"), (4, torch.float32, True, "fma"),
+    (8, torch.bfloat16, True, "stream"), (9, torch.bfloat16, True, "wgmma"),
+    (256, torch.bfloat16, True, "wgmma"), (9, torch.float32, True, "fma"),
+    (320, torch.float32, True, "fma"), (4, torch.bfloat16, False, "fma"),
+    (256, torch.bfloat16, False, "fma")])
+def test_ffn_kernel_variant(M, dtype, aligned, want):
+    assert FF.kernel_variant(M, dtype, aligned) == want
+
+
+def test_ffn_kernel_variant_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        FF.kernel_variant(4, torch.float16)
+
+
+def test_ffn_plan_follows_a_swapped_planner():
+    """kernel_sweep.py times each plan by swapping a planner of the
+    module; the wrapper's cached `_plan` must then launch that plan, and
+    the planned one again once the planner is restored."""
+    spec = importlib.util.spec_from_file_location(
+        "kernel_sweep", pathlib.Path(__file__).parents[1] / "kernel_sweep.py")
+    kernel_sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kernel_sweep)
+    key = (4, 1536, 8960, True, 3, True, 0)
+    sms = FF.build.sm_count
+    FF.build.sm_count = lambda dev: 132
+    try:
+        FF._plan.cache_clear()
+        planned = FF._plan(*key)[2]
+        assert planned == FF.stream_plan(8960, 132)
+        with kernel_sweep.swapped(FF, "stream_plan", lambda *a: (1, 4, 280)):
+            assert FF._plan(*key)[2] == (1, 4, 280)
+        assert FF._plan(*key)[2] == planned
+        key = (256, 2560, 6912, True, 3, True, 0)
+        with kernel_sweep.swapped(FF, "wgmma_plan", lambda *a: (1, 3, 2304)):
+            assert FF._plan(*key)[2] == (1, 3, 2304)
+        assert FF._plan(*key)[2] == FF.wgmma_plan(256, 2560, 6912, 132)
+    finally:
+        FF.build.sm_count = sms
+        FF._plan.cache_clear()
+
+
+@pytest.mark.parametrize("M", [1, 4, 8])
+@pytest.mark.parametrize("D", [320, 1536, 2560, 3072])
+@pytest.mark.parametrize("ds", [1, 2, 4, 8])
+@pytest.mark.parametrize("int8", [False, True])
+def test_ffn_stream_mma_smem_fits_hopper(M, D, ds, int8):
+    """The stream kernel's shared memory fits one block, two an SM (its
+    launch bounds) at decode's 4 rows up to D 2560; its x rows hold every
+    k-step's reach (the block's D rows rounded up to 16) and its bf16
+    ring stage 16 KB of rows."""
+    b = FF.stream_smem_bytes(M, D, ds, int8)
+    assert b <= FF.SMEM_LIMIT and b % 16 == 0
+    if M <= 4 and D <= 2560:
+        assert 2 * (b + 1024) <= 228 * 1024
+    fs = FF.STREAM_SLICE
+    rows = FF.STREAM_STAGE_BYTES // (2 * (2 * fs + 16)) // 16 * 16
+    assert rows * 2 * fs * 2 >= 14 * 1024 and rows % 16 == 0
+    dch = -(-(-(-D // ds)) // 16) * 16
+    assert b >= 16 * (dch + 8) + FF.STREAM_STAGES * (
+        FF.STREAM_INT8_STAGE_BYTES if int8 else FF.STREAM_STAGE_BYTES)
+
+
+@pytest.mark.parametrize("w_es", [1, 2])
+@pytest.mark.parametrize("phase,wgs", [(1, 1), (1, 2), (2, 1), (2, 2)])
+def test_ffn_wgmma_smem_fits_hopper(w_es, phase, wgs):
+    """Each GEMM phase's ring (at least 3 stages: loads run 1+ tiles
+    ahead) and, for int8, its two widened buffers fit one block; phase
+    2's f32 partial of the cluster merge fits over its ring."""
+    stages, b = FF.wgmma_stages(w_es, 64 * wgs, 2 if phase == 1 else 1)
+    assert stages >= 3 and b == FF.wgmma_smem_bytes(phase, w_es, wgs)
+    assert b <= FF.SMEM_LIMIT
+    if phase == 2:
+        bn = FF.WGMMA_BN
+        xb, wb = 2 * 64 * wgs * FF.WGMMA_BK, 2 * FF.WGMMA_BK * bn
+        stage = xb + (FF.WGMMA_BK * bn if w_es == 1 else wb)
+        assert 4 * 64 * wgs * bn <= stages * stage
 
 
 # ---------------------------------------------------------------------------
@@ -684,6 +809,204 @@ def test_ffn_act_int8_gated_twin_matches_reference_apply_mlp():
                         jnp.asarray(x), None)
     got = ops.ffn_act_int8(_t(x), *map(_t, w), "silu_gated")
     _close(got, want, **TOL2)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA forms' orders of operations, emulated in plain PyTorch
+# ---------------------------------------------------------------------------
+def _f16_scaled(v):
+    """v rounded to fp16 after scaling by 2^-k (k >= 0 the least with
+    max|v| * 2^-k < 2^14), the scale undone: the stream kernel's x and h
+    for int8 weights."""
+    k = max(0, math.frexp(float(v.abs().max()))[1] - 14)
+    return (v * 2.0 ** -k).half().float() * 2.0 ** k
+
+
+def _stream_order(x, wu, s1, wg, sg, wd, s2, kind, cl, ds, r16=None):
+    """The stream form in f32, in its order: a slice of STREAM_SLICE
+    hidden units split over D among ``ds`` blocks (contiguous row ranges,
+    whole 16-row steps), the blocks' sums added in block order, then the
+    column scales, act and the gate; block r's (M, D) partial over W_down
+    rows [r STREAM_SLICE / ds, +STREAM_SLICE / ds) of the slice; the
+    partials added in rank order inside each cluster of ``cl`` blocks,
+    the clusters' sums in cluster order, times s2. ``r16`` rounds as the
+    kernel does: "bf16" rounds each block's h to bf16 (x is bf16
+    already), "f16" rounds each block's x rows and its h to fp16 after
+    their power-of-two scaling (int8 weights)."""
+    M, D = x.shape
+    F_ = wu.shape[1]
+    fs = FF.STREAM_SLICE
+    dch = -(-(-(-D // ds)) // 16) * 16
+    n = -(-(-(-F_ // fs) * ds) // cl) * cl      # blocks, whole clusters
+    parts = []
+    for blk in range(n):
+        sl, dr = divmod(blk, ds)
+        cols = slice(sl * fs, min(F_, (sl + 1) * fs))
+        if sl * fs >= F_:
+            parts.append(torch.zeros(M, D))
+            continue
+
+        def sums(w):
+            tot = torch.zeros(M, cols.stop - cols.start)
+            for r in range(ds):
+                rows = torch.arange(r * dch, min(D, (r + 1) * dch))
+                xr = x[:, rows]
+                if r16 == "f16" and len(rows):
+                    xr = _f16_scaled(xr)
+                tot = tot + xr @ w[rows, cols]
+            return tot
+        u = sums(wu) * (1 if s1 is None else s1[cols])
+        h = FF.activation(u, kind)
+        if wg is not None:
+            h = h * sums(wg) * (1 if sg is None else sg[cols])
+        fch = fs // ds
+        mine = slice(dr * fch, min(cols.stop - cols.start, (dr + 1) * fch))
+        hm = h[:, mine]
+        if r16 == "bf16":
+            hm = hm.bfloat16().float()
+        elif r16 == "f16" and hm.numel():
+            hm = _f16_scaled(hm)
+        parts.append(hm @ wd[cols][mine])
+    out = torch.zeros(M, D)
+    for c in range(n // cl):
+        csum = torch.zeros(M, D)
+        for r in range(cl):
+            csum = csum + parts[c * cl + r]
+        out = out + csum
+    return out * (1 if s2 is None else s2)
+
+
+def _prefill_order(x, wu, s1, wg, sg, wd, s2, kind, ks):
+    """The wgmma form's order: bf16 operands (int8 weights widened, which
+    is exact), f32 products, h = act(x·W_up·s1) [* x·W_gate·sg] rounded to
+    bf16, then h·W_down over ``ks`` F chunks added in rank order, times
+    s2, rounded to bf16."""
+    bf = torch.bfloat16
+
+    def w16(w):
+        return w.to(bf).float()
+    xf = x.to(bf).float()
+    u = xf @ w16(wu) * (1 if s1 is None else s1)
+    h = FF.activation(u, kind)
+    if wg is not None:
+        h = h * (xf @ w16(wg) * (1 if sg is None else sg))
+    h = h.to(bf).float()
+    F_ = wu.shape[1]
+    kc = -(-F_ // ks)
+    out = torch.zeros(x.shape[0], wd.shape[1])
+    for r in range(ks):
+        out = out + h[:, r * kc:(r + 1) * kc] @ w16(wd)[r * kc:(r + 1) * kc]
+    return (out * (1 if s2 is None else s2)).to(bf)
+
+
+@pytest.mark.parametrize("kind,cl,ds", [("silu_gated", 4, 1), ("gelu", 2, 1),
+                                        ("relu2", 8, 2), ("gelu_gated", 1, 1),
+                                        ("silu_gated", 8, 2),
+                                        ("relu2", 4, 4)])
+def test_ffn_stream_order_matches_plain_and_pallas(kind, cl, ds):
+    """The stream form's summation order (D split, slice, rank and
+    cluster order, scales after the sums) gives the plain twin's result
+    within 1e-5, over bf16-typed and int8 weights, and the reference
+    Pallas kernel's (interpret mode). With the kernel's 16-bit roundings
+    (bf16 x and h for bf16 weights; x and h in scaled fp16 for int8) it
+    stays within u * sum_f |h_f w_fd| (u = 2^-9 bf16, 2^-11 fp16) of the
+    plain twin on the same bf16 x, the bound the kernel's header
+    states."""
+    rng = np.random.default_rng(21)
+    M, D, Fd = 4, 96, 600
+    x = rng.standard_normal((M, D)).astype(np.float32)
+    gated = kind.endswith("gated")
+    wu = (rng.standard_normal((D, Fd)) / 6).astype(np.float32)
+    wg = (rng.standard_normal((D, Fd)) / 6).astype(np.float32) \
+        if gated else None
+    wd = (rng.standard_normal((Fd, D)) / 16).astype(np.float32)
+    tw = [_t(wu), None if wg is None else _t(wg), _t(wd)]
+    got = _stream_order(_t(x), tw[0], None, tw[1], None, tw[2], None, kind,
+                        cl, ds)
+    _close(got, FF.ffn_act_plain(_t(x), *tw, kind), **TOL2)
+    want = RFF.ffn_act(jnp.asarray(x), jnp.asarray(wu),
+                       None if wg is None else jnp.asarray(wg),
+                       jnp.asarray(wd), kind, block_f=120, interpret=True)
+    _close(got, want, **TOL)
+    w = _int8_ffn(rng, D, Fd, gated)
+    t8 = [None if a is None else _t(a) for a in w]
+    f8 = [None if t8[i] is None else FF.dequantize(t8[i], t8[i + 1])
+          for i in (0, 2, 4)]
+    got8 = _stream_order(_t(x), t8[0].float(), t8[1],
+                         None if t8[2] is None else t8[2].float(), t8[3],
+                         t8[4].float(), t8[5], kind, cl, ds)
+    _close(got8, FF.ffn_act_int8_plain(_t(x), *t8, kind), **TOL2)
+    # the kernel's roundings, held to the stated bound
+    xb = _t(x).bfloat16().float()
+    for ws, q, r16, u in ((tw, (None,) * 3, "bf16", 2.0 ** -9),
+                          (f8, (t8[1], t8[3], t8[5]), "f16", 2.0 ** -11)):
+        wl = [None if a is None else a.bfloat16().float() if r16 == "bf16"
+              else a for a in ws]
+        ref = FF.ffn_act_plain(xb, *wl, kind)
+        h = FF.activation(xb @ wl[0], kind)
+        if wl[1] is not None:
+            h = h * (xb @ wl[1])
+        if r16 == "bf16":
+            got16 = _stream_order(xb, wl[0], None, wl[1], None, wl[2], None,
+                                  kind, cl, ds, r16)
+        else:
+            got16 = _stream_order(xb, t8[0].float(), q[0],
+                                  None if t8[2] is None else t8[2].float(),
+                                  q[1], t8[4].float(), q[2], kind, cl, ds,
+                                  r16)
+        err = (got16 - ref).abs()
+        assert (err <= u * (h.abs() @ wl[2].abs()) + 1e-5).all()
+
+
+@pytest.mark.parametrize("kind,gated,ks", [("silu_gated", True, 3),
+                                           ("gelu", False, 1),
+                                           ("relu2", False, 2)])
+def test_ffn_prefill_order_within_bf16_tolerance(kind, gated, ks):
+    """The wgmma form's two-phase order (h rounded to bf16, scales after
+    the sums, F split in rank order) stays within the card's bf16
+    tolerance (2e-2) of the f32 plain twin, over int8 weights, and of the
+    reference int8 Pallas kernel (interpret mode) where it applies
+    (ungated)."""
+    rng = np.random.default_rng(22)
+    M, D, Fd = 70, 128, 384
+    x = rng.standard_normal((M, D)).astype(np.float32)
+    w = list(_int8_ffn(rng, D, Fd, gated))
+    w[5] = (w[5] / 16).astype(np.float32)      # outputs below 2
+    tw = [None if a is None else _t(a) for a in w]
+    got = _prefill_order(_t(x), tw[0].float(), tw[1],
+                         None if tw[2] is None else tw[2].float(), tw[3],
+                         tw[4].float(), tw[5], kind, ks)
+    want = FF.ffn_act_int8_plain(_t(x).bfloat16(), *tw, kind)
+    assert 0.05 < float(want.float().abs().max()) < 2
+    _close(got.float(), want.float(), rtol=0, atol=2e-2)
+    if not gated:
+        ref = RFF.ffn_act_int8(*map(jnp.asarray, (x, w[0], w[1], w[4],
+                                                  w[5])),
+                               kind, block_m=14, block_f=64, interpret=True)
+        _close(got.float(), ref, rtol=0, atol=2e-2)
+
+
+def test_int8_weights_round_trip_through_bf16_and_the_byte_permute():
+    """The premises of the int8 paths: every int8 value is exact in bf16
+    (the wgmma form widens int8 tiles to bf16), and (q ^ 0x80) placed in
+    the mantissa of 2^23 is the float 2^23 + 128 + q (the f32 stream
+    kernel's widening: a byte permute and one subtraction); bf16 is the
+    high half of its f32; and the same in fp16 over 1024."""
+    q = torch.arange(-128, 128, dtype=torch.int8)
+    assert torch.equal(q.to(torch.bfloat16).to(torch.int8), q)
+    assert torch.equal(q.to(torch.bfloat16).float(), q.float())
+    u = (q.numpy().view(np.uint8) ^ 0x80).astype(np.uint32) | 0x4B000000
+    np.testing.assert_array_equal(u.view(np.float32) - np.float32(8388736),
+                                  q.numpy().astype(np.float32))
+    b = torch.randn(64).bfloat16()
+    hi = b.view(torch.int16).numpy().astype(np.int32) << 16
+    np.testing.assert_array_equal(hi.view(np.float32), b.float().numpy())
+    # the tensor-core stream form's fp16 pairs: byte 0x64 over (q ^ 0x80)
+    # is the half 1024 + 128 + q; minus 1152 (0x6480) leaves q exactly
+    h = 0x6400 | (q.numpy().view(np.uint8) ^ 0x80).astype(np.uint16)
+    np.testing.assert_array_equal(
+        h.view(np.float16) - np.float16(1152), q.numpy().astype(np.float16))
+    assert np.uint16(0x6480).view(np.float16) == 1152
 
 
 # ---------------------------------------------------------------------------
