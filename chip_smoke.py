@@ -26,6 +26,13 @@ source, all started together; seven kernels), then:
      scalar kernel); paged_decode_flat at lengths 0, 1, 127, 128, with a
      slot's last live page dead, at max_len 500 (ragged tail page), at
      every head dim, at G 1 to 16 and at B * Hkv = 160 (no key split);
+     paged_decode_tiered at lengths 0, 1, W - 1, W, W + 1 and max_len - 1,
+     with dead pages (a slot's last live one, a slot with none), at G 1,
+     2, 3, 4, 6, 8 and 16, every head dim, B * Hkv = 160, and the sparse
+     read (tau = 1e-3, split 1) against the twin at the same tau, once on
+     inputs where it really skips pages; its fastvlm (Hkv 2, G 6) and
+     mobilevlm-3b (Hkv 20, G 1) shapes are timed beside their bound, the
+     device time also from CUDA events (`event_ms`);
      ffn_act and ffn_act_int8 in every form, the one that ran asserted:
      in bf16 the stream form at M 1, 3, 4 and 5 (each beside the bound
      of its 16-bit rounding of h) and the wgmma form at M 63, 65, 256,
@@ -38,14 +45,20 @@ source, all started together; seven kernels), then:
      one call);
      plus ragged, dead-page, unaligned-row and sparse-read cases.
      The banner prints the tensor-core kernels', the FFN forms' and the
-     flat decode's tiles and plans from their Python mirrors and holds
-     each mirrored shared-memory size against the built library's; the
-     SASS of the tensor-core libraries (attn_stream, qkv_proj, ffn_act,
-     ffn_act_int8) must hold HGMMA and LDGSTS, the paged decode
-     library's LDGSTS (cp.async). Tolerances:
+     paged decodes' tiles and plans (the decodes' planned splits too)
+     from their Python mirrors and holds each mirrored shared-memory size
+     against the built library's; the SASS of the tensor-core libraries
+     (attn_stream, qkv_proj, ffn_act, ffn_act_int8) must hold HGMMA and
+     LDGSTS, and every instance of the paged decode library's two kernel
+     functions LDGSTS (their cp.async key rings); every tiered instance
+     must leave room for the planner's 2 blocks an SM. Tolerances:
      max-abs error <= 1e-4 in f32 (f32 sums in another order) and <= 2e-2
      in bf16 (inputs are scaled so outputs stay below magnitude 2, where
-     one bf16 rounding step is <= 7.8e-3). Call times are the median of
+     one bf16 rounding step is <= 7.8e-3); the paged decodes, whose
+     outputs are softmax means of V rows (1e-2 to 1 here), are held to
+     the same numbers times each (slot, kv head)'s largest output, and
+     the sparse case's skip must move the output by more than twice
+     that. Call times are the median of
      25 CUDA-event timed calls after warm-up, device times the
      profiler's kernel time a call, for the kernels and for the library
      call beside them (SDPA; torch.addmm at decode and prefill;
@@ -53,9 +66,10 @@ source, all started together; seven kernels), then:
      with the device kernels each library call launches;
   2. parity — f32 at full width and depth, the serving Engine's tokens
      against `generate` on 2 VQA + 2 text requests, for fastvlm-1.7b over
-     the tiered store and for mobilevlm-3b on path A (flat store, fused
+     the tiered store, for mobilevlm-3b on path A (flat store, fused
      decode in the Engine, the unfused store_read + softmax decode in
-     `generate`); a differing token passes only where `generate`'s top-2
+     `generate`) and on path B (tiered store, hot window 64, int8 FFN
+     weights); a differing token passes only where `generate`'s top-2
      logit margin at that step is below 1e-3 (a tie);
   3. serving — three bf16 runs through the Engine at full width and
      depth, each the main path of its configuration: the kernels' launch
@@ -72,7 +86,10 @@ source, all started together; seven kernels), then:
      A and B serve 8 requests (4 VQA with 144 visual + 112 text tokens,
      4 text with 256) at concurrency 4, max_len 512, 64 new tokens each.
      A decode-step profile and a whole-prompt prefill profile
-     (torch.profiler) follow each run.
+     (torch.profiler) follow each run; in each, every kernel's launches
+     in the profile are compared with its launch counter over the same
+     window (a mismatch is printed), and the run's paged decode is timed
+     alone on its last call's operands (profiler and CUDA events).
 
 It prints the card (name, power limit), the kernel build time, the
 phases' results, then one JSON line {"kernels": [...]} (launches summed
@@ -179,6 +196,29 @@ def device_ms(fn, reps: int = 20) -> float:
     return total / 1e3 / reps
 
 
+def event_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device time of one call from CUDA events: ``n`` calls enqueued
+    behind a `torch.cuda._sleep` of ~5 ms, so the host has queued them all
+    before the first runs and the events bracket the kernels back to back
+    (launch gaps on the card included, the host's excluded); the median
+    of ``reps`` such runs, per call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        torch.cuda._sleep(10_000_000)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e) / n)
+    return statistics.median(ts)
+
+
 def device_kernels(fn, reps: int = 10) -> dict:
     """Device kernels (and copies) one call of ``fn`` launches, by name,
     from torch.profiler: how many kernels a library call is."""
@@ -207,19 +247,35 @@ def max_err(a, b) -> float:
 
 # what the SASS of each library must hold: the bf16 tensor-core kernels
 # warpgroup MMAs (HGMMA) over shared-memory tiles filled by cp.async
-# (LDGSTS; the FFN's stream form fills its ring with it too); the flat
-# paged decode its cp.async key ring
+# (LDGSTS; the FFN's stream form fills its ring with it too); the paged
+# decode library's two split-K kernels their cp.async key rings, counted
+# in every instance of each kernel function
 SASS_NEEDS = {"attn_stream": ("HGMMA", "LDGSTS"),
               "qkv_proj": ("HGMMA", "LDGSTS"),
               "ffn_act": ("HGMMA", "LDGSTS"),
               "ffn_act_int8": ("HGMMA", "LDGSTS"),
               "paged_decode": ("LDGSTS",)}
+SASS_PER_FUNCTION = {"paged_decode": ("paged_decode_tiered_kernel",
+                                      "paged_decode_flat_kernel")}
+
+
+def sass_functions(sass: str) -> dict:
+    """cuobjdump -sass text -> {kernel function (mangled): its SASS}."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return {k: "\n".join(v) for k, v in out.items()}
 
 
 def sass_check() -> dict:
     """Count HGMMA and LDGSTS instructions in the built libraries of
     SASS_NEEDS with cuobjdump (beside nvcc) and require what each
-    needs."""
+    needs; for SASS_PER_FUNCTION also LDGSTS in every instance of each
+    named kernel function."""
     from repro_torch.kernels import build
     tool = pathlib.Path(build.nvcc_path()).with_name("cuobjdump")
     out = {}
@@ -235,12 +291,24 @@ def sass_check() -> dict:
         for op in needs:
             require(out[name][op] > 0,
                     f"{name}: no {op} instruction in the built library")
+        funcs = sass_functions(sass)
+        for kern in SASS_PER_FUNCTION.get(name, ()):
+            counts = [f.count("LDGSTS") for k, f in funcs.items()
+                      if kern in k]
+            out[name][kern] = {"instances": len(counts),
+                               "LDGSTS_min": min(counts, default=0),
+                               "LDGSTS_max": max(counts, default=0)}
+            print(f"[sass]   {kern}: {len(counts)} instances, LDGSTS "
+                  f"{min(counts, default=0)}-{max(counts, default=0)} "
+                  f"each")
+            require(counts and min(counts) > 0,
+                    f"{name}: an instance of {kern} has no LDGSTS")
     return out
 
 
 def tile_banner(dev: str = "cuda") -> dict:
-    """Print the bf16 tensor-core kernels' and the flat paged decode's
-    tiles from their Python mirrors (the constants the CPU tests check
+    """Print the bf16 tensor-core kernels' and the paged decodes' tiles and
+    planned splits from their Python mirrors (the constants the CPU tests check
     against Hopper's shared memory) and, on the card, hold each mirrored
     shared-memory size against the one the built library reports, so a
     drift between the two shows."""
@@ -264,6 +332,14 @@ def tile_banner(dev: str = "cuda") -> dict:
                   for es in (2, 1) for (m, d, ds) in stream_at}
     ffn_tc = {f"w{es} phase{ph} wgs{w}": FF.wgmma_smem_bytes(ph, es, w)
               for es in (2, 1) for ph in (1, 2) for w in (1, 2)}
+    # the tiered decode's instances (table entries, dtype code, head dim,
+    # G): every dtype, head dim and G form at 4 pages, 1 and 5 pages at
+    # fastvlm-1.7b's (bf16, 128, G 6 -> 8)
+    tiered_at = {f"{n}p {dt} D{hd} G{g}": (n, code, hd, g)
+                 for (code, dt) in ((0, "float32"), (1, "bfloat16"))
+                 for hd in PD.HEAD_DIMS for g in (1, 2, 4, 8, 16)
+                 for n in ((1, 4, 5) if (dt, hd, g) == ("bfloat16", 128, 8)
+                           else (4,))}
     tiles = {"ffn_act": {
                  "stream_threads": FF.STREAM_THREADS,
                  "stream_slice": FF.STREAM_SLICE,
@@ -300,7 +376,21 @@ def tile_banner(dev: str = "cuda") -> dict:
                  "max_split": PD.FLAT_MAX_SPLIT,
                  "tile_keys_bf16_d128": PD.flat_tile_keys(128,
                                                           torch.bfloat16),
-                 "smem": {n: PD.flat_smem_bytes(n) for n in (1, 4, 5)}}}
+                 "smem": {n: PD.flat_smem_bytes(n) for n in (1, 4, 5)},
+                 "splits (B, Hkv)": {f"{b} {h}": PD.flat_split(b, h, 132)
+                                     for (b, h) in ((4, 20), (8, 20))}},
+             "paged_decode_tiered": {
+                 "features_a_lane": PD.TIERED_FEATURES,
+                 "tile_keys_d128 (bf16, f32)": [
+                     PD.tiered_tile_keys(128, torch.bfloat16),
+                     PD.tiered_tile_keys(128, torch.float32)],
+                 "smem": {k: PD.tiered_smem_bytes(
+                     n, hd, g, torch.float32 if code == 0 else torch.bfloat16)
+                     for k, (n, code, hd, g) in tiered_at.items()},
+                 "splits (B, Hkv, sparse)": {
+                     f"{b} {h} {sp}": PD.tiered_split(b, h, 132, sp)
+                     for (b, h) in ((4, 2), (4, 20), (8, 20))
+                     for sp in (False, True)}}}
     print(f"[kernels] tiles {json.dumps(tiles)}")
     if dev != "cuda":
         return tiles
@@ -309,10 +399,29 @@ def tile_banner(dev: str = "cuda") -> dict:
     for fn in (la.attn_stream_smem_bytes, lq.qkv_proj_smem_bytes,
                lp.paged_decode_flat_smem_bytes):
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    for fn in (lp.paged_decode_tiered_smem_bytes,
+               lp.paged_decode_tiered_blocks_per_sm):
+        fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
     for n, want in tiles["paged_decode_flat"]["smem"].items():
         got = lp.paged_decode_flat_smem_bytes(n)
         require(got == want, f"paged_decode_flat smem at {n} pages: library "
                              f"{got}, mirror {want}")
+    occupancy = {}
+    for k, args in tiered_at.items():
+        got = lp.paged_decode_tiered_smem_bytes(*args)
+        want = tiles["paged_decode_tiered"]["smem"][k]
+        require(got == want, f"paged_decode_tiered smem at {k}: library "
+                             f"{got}, mirror {want}")
+        if args[0] == 4:
+            occupancy[k[3:]] = lp.paged_decode_tiered_blocks_per_sm(*args)
+    # the planner's grid target (FLAT_BLOCKS_PER_SM blocks an SM) has to
+    # be resident at once: registers, static and dynamic shared memory
+    print(f"[kernels] paged_decode_tiered blocks an SM holds at 4 pages: "
+          f"{json.dumps(occupancy)}")
+    tiles["paged_decode_tiered"]["blocks_per_sm"] = occupancy
+    low = {k: v for k, v in occupancy.items() if v < PD.FLAT_BLOCKS_PER_SM}
+    require(not low, f"paged_decode_tiered instances below the planner's "
+                     f"{PD.FLAT_BLOCKS_PER_SM} blocks an SM: {low}")
     for hd, want in tiles["attn_stream"]["smem"].items():
         got = la.attn_stream_smem_bytes(hd)
         require(got == want, f"attn_stream smem at Dh {hd}: library {got}, "
@@ -351,7 +460,8 @@ def tile_banner(dev: str = "cuda") -> dict:
 # phase 1: kernels against their plain twins
 # ---------------------------------------------------------------------------
 def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
-                 dev_timer=device_ms, lib_kernels=device_kernels) -> dict:
+                 dev_timer=device_ms, lib_kernels=device_kernels,
+                 ev_timer=event_ms) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -373,7 +483,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
     def randn(*shape, dtype, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
-    results: dict[str, dict] = {"tiles": tiles}
+    results: dict[str, dict] = {"tiles": tiles, "extra_rows": []}
     cases: dict[str, list] = {k: [] for k in REPLACES}
 
     def timed(fn, reps=25):
@@ -381,19 +491,34 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         and the profiler's device time of what it launches."""
         return time_ms(fn, reps=reps), dev_ms(fn)
 
-    def record(name, label, dtype, err, main=None, extra=None):
+    def record(name, label, dtype, err, main=None, extra=None, rel=None):
+        """One case: ``err`` (max-abs) is held to the dtype's limit, or,
+        where ``rel`` is given (the paged decodes), ``rel`` is."""
         tol = TOL[dtype]
-        ok = err <= tol
+        ok = (err if rel is None else rel) <= tol
         cases[name].append({"case": label, "dtype": dtype,
                             "max_abs_err": err, "tol": tol, "ok": ok,
+                            **({} if rel is None else {"rel_err": rel}),
                             **(extra or {})})
         more = "".join(f" {k}={v:.3e}" for k, v in (extra or {}).items())
+        held = (f"(tol {tol:g})" if rel is None
+                else f"rel {rel:.3e} (tol {tol:g} rel)")
         print(f"[kernels] {name:20s} {label:34s} {dtype:8s} "
-              f"max|err|={err:.3e} (tol {tol:g}){more} "
-              f"{'ok' if ok else 'FAIL'}")
-        require(ok, f"{name} {label} {dtype}: {err} > {tol}")
+              f"max|err|={err:.3e} {held}{more} {'ok' if ok else 'FAIL'}")
+        require(ok, f"{name} {label} {dtype}: {err if rel is None else rel} "
+                    f"> {tol}")
         if main is not None:
             results[name] = dict(main, max_abs_err=err, dtype=dtype)
+
+    def decode_errs(got, want):
+        """(max-abs error, error relative to each (slot, kv head)'s largest
+        output) of a paged decode. Its outputs are softmax means of V
+        rows, small (1e-2 to 1 here) and far apart from slot to slot, so
+        each (slot, kv head) is held to the limit times its own largest
+        output; one with no attendable key must give exactly 0."""
+        e = (got.float() - want.float()).abs().flatten(2).amax(-1)
+        w = want.float().abs().flatten(2).amax(-1)
+        return float(e.max()), float((e / w.clamp_min(1e-30)).max())
 
     def norm_row(x, sc, es):
         """The bf16 rms fused_norm's times beside its twin and F.rms_norm
@@ -616,79 +741,160 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         record("attn_stream", "H=14 Hkv=2 Dh=64 causal S=L=320", dt,
                max_err(AS.attn_stream(q, k, v, causal=True),
                        AS.attn_stream_plain(q, k, v, True)))
-        # ---- paged_decode_tiered: B=4, W=128, max_len 512, 384 cold -----
+        # ---- paged_decode_tiered: hot window 128, max_len 512, 128-token
+        # pages; cold int8 with scales in 0.002-0.008
         B, W, ML, G = 4, 128, 512, HEADS // KV_HEADS
-        qd = randn(B, KV_HEADS, G, HEAD_DIM, dtype=tdt)
-        hk = randn(B, W, KV_HEADS, HEAD_DIM, dtype=tdt)
-        hv = randn(B, W, KV_HEADS, HEAD_DIM, dtype=tdt, std=0.3)
 
-        def cold():
-            qv = torch.randint(-127, 128, (B, ML, KV_HEADS, HEAD_DIM),
-                               generator=gen, device=dev, dtype=torch.int8)
-            s = (0.002 + 0.006 * torch.rand(B, ML, KV_HEADS, 1,
-                                            generator=gen, device=dev))
-            return qv, s
-        ckq, cks = cold()
-        cvq, cvs = cold()
-        lengths = torch.full((B,), ML - 1, dtype=torch.int32, device=dev)
-        table = KT.cold_page_table(lengths, W, ML, 128)
-        args = (qd, hk, hv, ckq, cks, cvq, cvs, lengths, table)
-        out = PD.paged_decode_tiered(*args)
-        err = max_err(out, PD.paged_decode_tiered_plain(*args))
+        def tiered_args(Bt, hkv, g, Dt, lens, dead=(), skew=False):
+            """Operands of one tiered call. ``skew`` (for tau = 1e-3, whose
+            skip threshold is m + ln(1e-3) = m - 6.91): one query row over
+            the group; hot slot 0 along sign(q) with score 12, the running
+            max; every cold key along sign(q) too, so a page's score equals
+            its bound, 127 * k-scale * scale * ||q||_1: 12 - 7.2 on pages 0
+            and 2+ (0.3 under the threshold: skipped, yet 7.5e-4 of slot
+            0's weight a key) and 12 - 6 on page 1 (read). Skipping nothing,
+            or page 1 too, moves some (slot, kv head)'s output by over a
+            tenth of its largest value."""
+            qd = randn(Bt, hkv, g, Dt, dtype=tdt)
+            if skew:
+                qd = qd[:, :, :1].expand(Bt, hkv, g, Dt).contiguous()
+            hk = randn(Bt, W, hkv, Dt, dtype=tdt)
+            hv = randn(Bt, W, hkv, Dt, dtype=tdt, std=0.3)
+            ck, cv = (torch.randint(-127, 128, (Bt, ML, hkv, Dt),
+                                    generator=gen, device=dev,
+                                    dtype=torch.int8) for _ in range(2))
+            ks, vs = (0.002 + 0.006 * torch.rand(Bt, ML, hkv, 1,
+                                                 generator=gen, device=dev)
+                      for _ in range(2))
+            if skew:
+                sgn = torch.sign(qd[:, :, 0].float())          # (Bt, hkv, Dt)
+                unit = Dt ** -0.5 * qd[:, :, 0].float().abs().sum(-1)
+                hk[:, 0] = (12.0 / unit[..., None] * sgn).to(tdt)
+                ck[:] = (127 * sgn).to(torch.int8)[:, None]
+                score = torch.full((ML,), 12.0 - 7.2, device=dev)
+                score[128:256] = 12.0 - 6.0
+                ks = (score[None, :, None] / (127 * unit[:, None])
+                      )[..., None].contiguous()
+            lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+            tab = KT.cold_page_table(lt, W, ML, 128).clone()
+            for (b_, j_) in dead:
+                tab[b_, j_] = -1
+            return (qd, hk, hv, ck, ks, cv, vs, lt, tab)
+
+        def tiered_row(targs, label):
+            """Times of one bf16 tiered call beside its bound (the live hot
+            slots and cold rows + scales, each read once; q read, out
+            written) and its twin's."""
+            qd, hk, lt = targs[0], targs[1], targs[7]
+            _, hkv, g, Dt = qd.shape
+            n_hot = sum(min(int(p) + 1, W) for p in lt)
+            n_cold = sum(max(int(p) - W + 1, 0) for p in lt)
+            nbytes = (2 * qd.numel() * es + 2 * n_hot * hkv * Dt * es
+                      + 2 * n_cold * hkv * (Dt + 4)
+                      + lt.numel() * 4 + targs[8].numel() * 4)
+            b_ms, b_by = bound(pk, nbytes, 4 * g * Dt * hkv
+                               * (n_hot + n_cold), dt)
+            split = PD.tiered_split(qd.shape[0], hkv, sms, False)
+            ms, dms = timed(lambda: PD.paged_decode_tiered(*targs))
+            row = {"shape": f"{label}, split {split}", "ms": ms,
+                   "device_ms": dms,
+                   "event_ms": ev_timer(lambda: PD.paged_decode_tiered(
+                       *targs)),
+                   "plain_ms": time_ms(lambda: PD.paged_decode_tiered_plain(
+                       *targs)),
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            print(f"[kernels]   paged_decode_tiered {row['shape']}: "
+                  f"{1e3 * dms:.2f} us device (profiler), "
+                  f"{1e3 * row['event_ms']:.2f} us (CUDA events), "
+                  f"{ms:.4f} ms call; bound {1e3 * b_ms:.2f} us ({b_by}); "
+                  f"plain {row['plain_ms']:.3f} ms")
+            return row
+
+        args = tiered_args(B, KV_HEADS, G, HEAD_DIM, (ML - 1,) * B)
+        err, rel = decode_errs(PD.paged_decode_tiered(*args),
+                               PD.paged_decode_tiered_plain(*args))
         main = None
         if dt == "bfloat16":
-            ms = time_ms(lambda: PD.paged_decode_tiered(*args))
-            plain = time_ms(lambda: PD.paged_decode_tiered_plain(*args))
-            n_cold = int(sum(max(int(p) - W + 1, 0) for p in lengths))
-            nbytes = (2 * qd.numel() * es + 2 * hk.numel() * es
-                      + 2 * n_cold * KV_HEADS * (HEAD_DIM + 4)
-                      + lengths.numel() * 4 + table.numel() * 4)
-            flops = 4 * G * HEAD_DIM * KV_HEADS * (B * W + n_cold)
-            b_ms, b_by = bound(pk, nbytes, flops, dt)
-            main = {"shape": f"B {B}, Hkv {KV_HEADS}, G {G}, W {W}, "
-                             f"max_len {ML}, {n_cold // B} cold tokens/slot",
-                    "ms": ms, "plain_ms": plain, "library_ms": None,
-                    "device_ms": dev_ms(lambda: PD.paged_decode_tiered(
-                        *args)),
-                    "bound_ms": b_ms, "bound_by": b_by}
+            main = tiered_row(args, f"B {B}, Hkv {KV_HEADS}, G {G}, W {W}, "
+                                    f"max_len {ML}, {ML - W} cold tokens/slot")
         record("paged_decode_tiered", "B=4 W=128 384 cold/slot", dt, err,
-               main)
-        # ragged per-slot lengths, one dead page, and the sparse read
-        lengths_r = torch.tensor([ML - 1, 300, 129, 20], dtype=torch.int32,
-                                 device=dev)
-        table_r = KT.cold_page_table(lengths_r, W, ML, 128).clone()
-        table_r[0, 1] = -1
-        for tau in (0.0, 1e-3):
-            args_r = (qd, hk, hv, ckq, cks, cvq, cvs, lengths_r, table_r)
-            err = max_err(PD.paged_decode_tiered(*args_r, tau=tau),
-                          PD.paged_decode_tiered_plain(*args_r, tau=tau))
-            record("paged_decode_tiered",
-                   f"ragged + dead page, tau={tau:g}", dt, err)
-        # ---- paged_decode_tiered at mobilevlm-3b: Hkv 20, G = 1 ----------
+               main, rel=rel)
+        # mobilevlm-3b (path B): Hkv 20, G 1, ctx 257-318, timed in bf16
+        args3 = tiered_args(B, H3, 1, HEAD_DIM, (318, 300, 257, 290))
+        err, rel = decode_errs(PD.paged_decode_tiered(*args3),
+                               PD.paged_decode_tiered_plain(*args3))
+        record("paged_decode_tiered", "Hkv=20 G=1 ctx~300", dt, err, rel=rel)
+        if dt == "bfloat16":
+            results["extra_rows"].append(dict(
+                tiered_row(args3, f"B {B}, Hkv {H3}, G 1, W {W}, max_len "
+                                  f"{ML}, ctx [318, 300, 257, 290]"),
+                name="paged_decode_tiered"))
+        del args3
+        # around the hot window and the pages: lengths 0, 1, W - 1, W,
+        # W + 1 and max_len - 1; dead pages (a slot's last live one, and a
+        # slot left with no live page); every G form (1, 2, 4, 8, 16) and
+        # every head dim (bf16 G >= 2: the tensor-core scores); the sparse
+        # read, with pages really skipped, held against the twin at the
+        # same tau; B * Hkv >= 132 (no split)
+        for (label, Bt, hkv, g, Dt, lens, dead, tau, skew) in (
+                ("lengths 0,1,W-1,W", 4, KV_HEADS, 6, HEAD_DIM,
+                 (0, 1, W - 1, W), (), 0.0, False),
+                ("lengths W+1,max_len-1,255,256, dead pages", 4, KV_HEADS,
+                 6, HEAD_DIM, (W + 1, ML - 1, 255, 256),
+                 ((1, 0), (1, 2), (2, 0)), 0.0, False),
+                ("ragged + dead page", 4, KV_HEADS, 6, HEAD_DIM,
+                 (ML - 1, 300, 129, 20), ((0, 1),), 0.0, False),
+                ("ragged + dead page, tau=1e-3", 4, KV_HEADS, 6, HEAD_DIM,
+                 (ML - 1, 300, 129, 20), ((0, 1),), 1e-3, False),
+                ("pages skipped, tau=1e-3", 4, KV_HEADS, 6, HEAD_DIM,
+                 (ML - 1, 400, 300, 200), (), 1e-3, True),
+                ("Hkv=20 G=1 D=128, tau=1e-3", 4, H3, 1, HEAD_DIM,
+                 (318, 0, 127, 511), ((3, 1),), 1e-3, False),
+                ("Hkv=20 G=1 D=64", 4, H3, 1, 64, (318, 0, 127, 511), (),
+                 0.0, False),
+                ("Hkv=4 G=2 D=64", 4, 4, 2, 64, (300, 129, 64, 511),
+                 ((0, 1),), 0.0, False),
+                ("Hkv=2 G=8 D=64", 2, 2, 8, 64, (400, 200), (), 0.0, False),
+                ("Hkv=2 G=4 D=32", 2, 2, 4, 32, (300, 64), ((0, 0),), 0.0,
+                 False),
+                ("Hkv=1 G=3 D=16", 2, 1, 3, 16, (511, 129), (), 0.0, False),
+                ("Hkv=1 G=16 D=128", 2, 1, 16, HEAD_DIM, (ML - 1, 130),
+                 ((0, 3),), 0.0, False),
+                ("Hkv=1 G=16 D=64, tau=1e-3", 2, 1, 16, 64, (ML - 1, 130),
+                 (), 1e-3, False),
+                ("B=8 Hkv=20 (B*Hkv=160)", 8, H3, 1, HEAD_DIM,
+                 (318, 300, 257, 290, 511, 0, 128, 200), (), 0.0, False)):
+            targs = tiered_args(Bt, hkv, g, Dt, lens, dead, skew)
+            want = PD.paged_decode_tiered_plain(*targs, tau=tau)
+            extra = None
+            if tau:     # does the twin's skip rule fire on these inputs?
+                moved, moved_rel = decode_errs(
+                    want, PD.paged_decode_tiered_plain(*targs))
+                extra = {"skip_changed_output": moved,
+                         "skip_changed_rel": moved_rel}
+                # twice the limit: a kernel within it of the skipping
+                # twin is out of it of the twin that skips nothing
+                if skew:
+                    require(moved_rel > 2 * TOL[dt],
+                            f"paged_decode_tiered {label}: skipping moves "
+                            f"the output by {moved_rel:.3e} of its largest "
+                            f"value, not over twice the limit {TOL[dt]}")
+            split = PD.tiered_split(Bt, hkv, sms, tau > 0)
+            err, rel = decode_errs(PD.paged_decode_tiered(*targs, tau=tau),
+                                   want)
+            record("paged_decode_tiered", f"{label}, split {split}", dt, err,
+                   extra=extra, rel=rel)
+            del targs
+        # ---- paged_decode_flat: mobilevlm-3b B=4, Hkv 20, G 1, ctx ~300 -
         q3 = randn(B, H3, 1, HEAD_DIM, dtype=tdt)
-        hk3 = randn(B, W, H3, HEAD_DIM, dtype=tdt)
-        hv3 = randn(B, W, H3, HEAD_DIM, dtype=tdt, std=0.3)
-        c3 = [torch.randint(-127, 128, (B, ML, H3, HEAD_DIM), generator=gen,
-                            device=dev, dtype=torch.int8),
-              0.002 + 0.006 * torch.rand(B, ML, H3, 1, generator=gen,
-                                         device=dev)]
-        c3v = [torch.randint(-127, 128, (B, ML, H3, HEAD_DIM), generator=gen,
-                             device=dev, dtype=torch.int8), c3[1].clone()]
         lengths3 = torch.tensor([318, 300, 257, 290], dtype=torch.int32,
                                 device=dev)
-        args3 = (q3, hk3, hv3, c3[0], c3[1], c3v[0], c3v[1], lengths3,
-                 KT.cold_page_table(lengths3, W, ML, 128))
-        record("paged_decode_tiered", "Hkv=20 G=1 ctx~300", dt,
-               max_err(PD.paged_decode_tiered(*args3),
-                       PD.paged_decode_tiered_plain(*args3)))
-        del hk3, hv3, c3, c3v, args3
-        # ---- paged_decode_flat: mobilevlm-3b B=4, Hkv 20, G 1, ctx ~300 -
         kf = randn(B, ML, H3, HEAD_DIM, dtype=tdt)
         vf = randn(B, ML, H3, HEAD_DIM, dtype=tdt, std=0.3)
         tab3 = KT.cold_page_table(lengths3, 0, ML, 128)
         fargs = (q3, kf, vf, lengths3, tab3)
         out = PD.paged_decode_flat(*fargs)
-        err = max_err(out, PD.paged_decode_flat_plain(*fargs))
+        err, rel = decode_errs(out, PD.paged_decode_flat_plain(*fargs))
         main = None
         if dt == "bfloat16":
             plain = time_ms(lambda: PD.paged_decode_flat_plain(*fargs))
@@ -718,7 +924,8 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                   f"SDPA {1e3 * lib_dev:.2f} us device, {lib:.4f} ms call, "
                   f"kernels {main['library_kernels']}; bound "
                   f"{1e3 * b_ms:.2f} us")
-        record("paged_decode_flat", "B=4 Hkv=20 G=1 ctx~300", dt, err, main)
+        record("paged_decode_flat", "B=4 Hkv=20 G=1 ctx~300", dt, err, main,
+               rel=rel)
         # ragged lengths, a dead page and a ragged tail page (max_len 500)
         for (hkv, g) in ((H3, 1), (KV_HEADS, HEADS // KV_HEADS)):
             ML5 = 500
@@ -730,10 +937,11 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
             tr = KT.cold_page_table(lr, 0, ML5, 128).clone()
             tr[0, 1] = -1
             rargs = (qr, kr, vr, lr, tr)
+            err, rel = decode_errs(PD.paged_decode_flat(*rargs),
+                                   PD.paged_decode_flat_plain(*rargs))
             record("paged_decode_flat",
                    f"Hkv={hkv} G={g} ragged, dead page, max_len {ML5}", dt,
-                   max_err(PD.paged_decode_flat(*rargs),
-                           PD.paged_decode_flat_plain(*rargs)))
+                   err, rel=rel)
         # positions 0 and 1 and both sides of a page edge; a slot whose
         # last live page is dead (and one with no live page: zeros); every
         # head dim; G up to 16; B * Hkv >= 132 (no split)
@@ -760,10 +968,11 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
             for (b_, j_) in dead:
                 tr[b_, j_] = -1
             rargs = (qr, kr, vr, lr, tr)
+            err, rel = decode_errs(PD.paged_decode_flat(*rargs),
+                                   PD.paged_decode_flat_plain(*rargs))
             record("paged_decode_flat",
-                   f"{label}, split {PD.flat_split(Bf, hkv, sms)}", dt,
-                   max_err(PD.paged_decode_flat(*rargs),
-                           PD.paged_decode_flat_plain(*rargs)))
+                   f"{label}, split {PD.flat_split(Bf, hkv, sms)}", dt, err,
+                   rel=rel)
         del kf, vf, fargs
         # ---- qkv_proj: mobilevlm-3b (MHA, no bias) and fastvlm-1.7b (GQA
         # with bias): decode M = 1, 3, 4 (the GEMV), M = 5 (the first
@@ -794,21 +1003,22 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                         pk, (M * D_ + D_ * N + M * N + (N if bias else 0))
                         * es, 2 * M * D_ * N, dt)
                     where = "decode" if M == 4 else "prefill"
+                    plain = time_ms(lambda: QK.qkv_proj_plain(x, *wq3, *bq3))
                     results[f"qkv_proj_{tag}_{where}"] = {
                         "M": M, "ms": ms, "device_ms": dms,
-                        "library_ms": lib, "library_device_ms": lib_dev,
-                        "bound_ms": b_ms, "bound_by": b_by}
+                        "plain_ms": plain, "library_ms": lib,
+                        "library_device_ms": lib_dev, "bound_ms": b_ms,
+                        "bound_by": b_by}
                     if tag == "mobilevlm" and M == 4:
                         main = {"shape": f"x ({M}, {D_}), N 3 x {ns[0]}, "
                                          f"no bias", "ms": ms,
-                                "plain_ms": time_ms(lambda: QK.qkv_proj_plain(
-                                    x, *wq3)),
-                                "library_ms": lib,
+                                "plain_ms": plain, "library_ms": lib,
                                 "library_device_ms": lib_dev,
                                 "bound_ms": b_ms, "bound_by": b_by,
                                 "device_ms": dms}
                     print(f"[kernels]   qkv_proj {tag} {where} M={M}: "
-                          f"{1e3 * dms:.1f} us device, {ms:.3f} ms call; "
+                          f"{1e3 * dms:.1f} us device, {ms:.3f} ms call, "
+                          f"plain {plain:.3f} ms; "
                           f"torch.addmm {1e3 * lib_dev:.1f} us device, "
                           f"{lib:.3f} ms call; bound {1e3 * b_ms:.1f} us")
                 record("qkv_proj", f"{tag}{' bias' if bias else ''} M={M}",
@@ -997,15 +1207,19 @@ def _requests(cfg, n_vqa: int, n_text: int, text_with_image: int,
 
 def parity_phase(dev: str = "cuda") -> dict:
     """f32 Engine == generate, tie-aware: fastvlm-1.7b over the tiered
-    store (hot window 64) and mobilevlm-3b on path A (flat store, fused
-    decode through the backend knob; `generate` runs the unfused
-    model)."""
+    store (hot window 64), mobilevlm-3b on path A (flat store, fused
+    decode through the backend knob; `generate` runs the unfused model)
+    and on path B (tiered store, hot window 64, int8 FFN weights: the
+    tiered decode at G = 1 and `ffn_act_int8` in f32)."""
     out = {}
     for label, arch, knobs, bknobs in (
             ("fastvlm-1.7b tiered", "fastvlm-1.7b",
              dict(kv_policy="tiered", kv_hot_window=64), {}),
             ("A: mobilevlm-3b flat, fused decode", "mobilevlm-3b",
-             dict(kv_policy="flat"), dict(fused_decode=True))):
+             dict(kv_policy="flat"), dict(fused_decode=True)),
+            ("B: mobilevlm-3b tiered, int8 FFN", "mobilevlm-3b",
+             dict(kv_policy="tiered", kv_hot_window=64,
+                  ffn_weight_store="int8"), {})):
         out[label] = _parity(label, arch, knobs, bknobs, dev)
     return out
 
@@ -1165,6 +1379,63 @@ def serve_run(label, arch, knobs, bknobs, text_with_image, needs,
     return res
 
 
+# the device kernels of each wrapper of which one call launches exactly
+# one (the FFN's second kernel, its reduction or phase 2, is not counted);
+# the two FFN wrappers share their kernels' names
+HEAD_KERNELS = {
+    ("fused_norm",): ("fused_norm_kernel",),
+    ("qkv_proj",): ("qkv_gemv_kernel", "qkv_wgmma_kernel", "qkv_fma_kernel"),
+    ("attn_stream",): ("attn_wgmma_kernel", "attn_fma_kernel"),
+    ("ffn_act", "ffn_act_int8"): ("ffn_stream_mma_kernel", "ffn_up_kernel",
+                                  "ffn_act_kernel"),
+    ("paged_decode_tiered",): ("paged_decode_tiered_kernel",),
+    ("paged_decode_flat",): ("paged_decode_flat_kernel",)}
+
+
+def profile_launch_check(label, what, rows, counts) -> dict:
+    """Each wrapper's launches in a profile (its head kernels' counts in
+    ``rows``) against its Python launch counter over the same window
+    (``counts``); a mismatch is printed and recorded, not fatal: the
+    counters are the record, the profile's times rest on its counts."""
+    out = {}
+    for wrappers, names in HEAD_KERNELS.items():
+        want = sum(counts[w] for w in wrappers)
+        got = sum(c for k, c, _ in rows if any(n in k for n in names))
+        out["+".join(wrappers)] = {"counter": want, "profile": got}
+        if got != want:
+            print(f"[profile] {label} {what}: MISMATCH {'+'.join(wrappers)} "
+                  f"launched {want} times (counter), {got} in the profile")
+    if all(v["counter"] == v["profile"] for v in out.values()):
+        print(f"[profile] {label} {what}: every kernel's launches in the "
+              f"profile equal its counter")
+    return out
+
+
+def lead_in() -> None:
+    """The start of a profiled window, before its measured work: a ~0.5 ms
+    spin kernel, synchronized. The profiler's device tracing starts a
+    little after the window opens and may drop the first kernels
+    launched in it (the first layer's norm and projection); the spin
+    kernel takes that place and is left out of the rows
+    (`device_rows`)."""
+    import torch
+    torch.cuda._sleep(1_000_000)
+    torch.cuda.synchronize()
+
+
+def device_rows(prof) -> list:
+    """(kernel, launches, device ms) of a profiled window: device-side
+    events only (kernels, memcpy, memset; the aten ops that launched them
+    carry the same device time again), the lead-in's spin kernel left
+    out, longest first."""
+    from torch.autograd import DeviceType
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0 and "spin_kernel" not in e.key]
+    return sorted(rows, key=lambda r: -r[2])
+
+
 def profile_decode(label, model, params, cfg, text_with_image, bknobs,
                    dev: str = "cuda", n_steps: int = 8) -> dict:
     """Device time by kernel over ``n_steps`` steady decode steps of 4
@@ -1172,9 +1443,11 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
     share is 1 - kernel time / wall time of the window. Runs after the
     main path's launch counts were read."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_decode as PD
     from repro_torch.serving import Engine, LocalBackend
 
     reqs = _requests(cfg, n_vqa=2, n_text=2,
@@ -1190,21 +1463,50 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
     for _ in range(2):
         engine.step()                      # steady state: decode only
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            engine.step()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    # device-side events only (kernels, memcpy, memset): the aten ops
-    # that launched them carry the same device time again
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[2])
+    # the run's paged decode: its last call at the ops layer (the model
+    # layout's adapter, which counts nothing; the kernel's wrapper is left
+    # as it is) is kept, to time the kernel alone at this decode shape
+    # after the window
+    kern_name = ("paged_decode_tiered" if cfg.kv_policy == "tiered"
+                 else "paged_decode_flat")
+    adapter, seen = getattr(ops, kern_name), {}
+
+    def keep(q, k_store, v_store, pos, **kw):
+        seen["call"] = (q, k_store, v_store,
+                        pos.clone() if torch.is_tensor(pos) else pos, kw)
+        return adapter(q, k_store, v_store, pos, **kw)
+    kernels.reset_launch_counts()
+    setattr(ops, kern_name, keep)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lead_in()
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                engine.step()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        setattr(ops, kern_name, adapter)
+    counts = kernels.launch_counts()
+    rows = device_rows(prof)
     dev_ms = sum(r[2] for r in rows)
+    launch_check = profile_launch_check(label, "decode", rows, counts)
+    q, k_store, v_store, pos, kw = seen["call"]
+    a, kw = getattr(ops, f"{kern_name}_operands")(q, k_store, v_store, pos,
+                                                  **kw)
+    kern = getattr(PD, kern_name)
+    hits = [(c, t) for k, c, t in rows if f"{kern_name}_kernel" in k]
+    alone = {"kernel": kern_name,
+             "shape": f"q {tuple(a[0].shape)}, lengths {a[-2].tolist()}",
+             "profile_us_per_launch": 1e3 * sum(t for _, t in hits)
+             / max(sum(c for c, _ in hits), 1),
+             "device_us": 1e3 * device_ms(lambda: kern(*a, **kw)),
+             "event_us": 1e3 * event_ms(lambda: kern(*a, **kw))}
+    print(f"[profile] {label}: {kern_name} at the decode shape "
+          f"({alone['shape']}): {alone['profile_us_per_launch']:.2f} us a "
+          f"launch in the profile; alone {alone['device_us']:.2f} us "
+          f"(profiler), {alone['event_us']:.2f} us (CUDA events)")
     name = label.split(":")[0].replace(" ", "_")
     (OUT / f"decode_profile_{name}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total",
@@ -1213,6 +1515,7 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
            "device_ms_per_step": dev_ms / n_steps,
            "device_launches_per_step": sum(r[1] for r in rows) / n_steps,
            "idle_share": 1 - dev_ms / wall_ms if wall_ms else None,
+           "launch_check": launch_check, "decode_kernel_alone": alone,
            "top": [{"kernel": k[:90], "launches_per_step": c / n_steps,
                     "ms_per_step": t / n_steps} for k, c, t in rows[:14]]}
     print(f"[profile] {label}: decode step (4 slots, ctx ~256-290): wall "
@@ -1235,9 +1538,9 @@ def profile_prefill(label, model, params, cfg, bknobs, dev: str = "cuda",
     launch counts were read."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import kernels
     from repro_torch.serving import LocalBackend
 
     backend = LocalBackend(model, params, 4, 512, device=dev, **bknobs)
@@ -1250,23 +1553,24 @@ def profile_prefill(label, model, params, cfg, bknobs, dev: str = "cuda",
                                    0, prompt, True)
     call()
     torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        lead_in()
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[2])
+    counts = kernels.launch_counts()
+    rows = device_rows(prof)
     dev_ms = sum(r[2] for r in rows)
+    launch_check = profile_launch_check(label, "prefill", rows, counts)
     name = label.split(":")[0].replace(" ", "_")
     (OUT / f"prefill_profile_{name}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total",
                                   row_limit=80))
     out = {"prompt": prompt, "wall_ms": wall_ms, "device_ms": dev_ms,
+           "launch_check": launch_check,
            "device_launches": sum(r[1] for r in rows),
            "busy_share": dev_ms / wall_ms if wall_ms else None,
            "top": [{"kernel": k[:90], "launches": c, "ms": t}
@@ -1352,10 +1656,15 @@ def main(argv=None) -> int:
             {f: fr[f] for f in ("shape", "variant", "device_ms", "ms",
                                 "bound_ms", "bound_by", "chain_device_ms",
                                 "chain")}
-            for fr in kern.get("ffn_rows", []) if fr["name"] == k]
+            for fr in kern.get("ffn_rows", []) if fr["name"] == k] + [
+            {f: fr[f] for f in ("shape", "device_ms", "event_ms", "ms",
+                                "plain_ms", "bound_ms", "bound_by")}
+            for fr in kern.get("extra_rows", []) if fr["name"] == k]
+        if "event_ms" in r:
+            rows[-1]["event_ms"] = r["event_ms"]
     report["kernels"] = rows
     report["kernel_cases"] = kern.get("cases", {})
-    for k in ("ffn_rows", "tiles", "fused_norm_mobilevlm",
+    for k in ("ffn_rows", "extra_rows", "tiles", "fused_norm_mobilevlm",
               *(f"qkv_proj_{t}_{w}" for t in ("mobilevlm", "fastvlm")
                 for w in ("decode", "prefill"))):
         report[k] = kern.get(k)

@@ -4,6 +4,7 @@
     python3 kernel_sweep.py          # one CUDA card, from the repository root
     python3 kernel_sweep.py --only flat,norm,host
     python3 kernel_sweep.py --only ffn
+    python3 kernel_sweep.py --only tiered
     python3 kernel_sweep.py --only host --src OTHER/src   # another tree's
                                                           # fused_norm wrapper
 
@@ -25,7 +26,11 @@ It also times every key split (`paged_decode.flat_split`) of the flat
 paged decode at mobilevlm-3b's decode shape (B 4, Hkv 20, G 1, ctx
 257-318, a full 511-token context, and one key a slot: the kernel's
 fixed cost; warm, and cold over four stores) beside SDPA with a boolean
-length mask; every threads-a-row choice (`fused_norm.threads_per_row`)
+length mask; every key split (`paged_decode.tiered_split`) of the
+tiered paged decode at both tiered decode shapes (fastvlm-1.7b: B 4, Hkv
+2, G 6; mobilevlm-3b path B: B 4, Hkv 20, G 1; hot window 128, ctx
+257-318 and a full 511-token context; warm, and cold over four stores);
+every threads-a-row choice (`fused_norm.threads_per_row`)
 of `fused_norm` at D 1536 and 2560 beside `F.rms_norm`; and where
 `fused_norm`'s host time goes: host µs a call over back-to-back calls
 (time.perf_counter_ns; the card keeps up), for the wrapper,
@@ -60,7 +65,7 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-SECTIONS = ("attn", "qkv", "flat", "norm", "host", "ffn")
+SECTIONS = ("attn", "qkv", "flat", "tiered", "norm", "host", "ffn")
 
 
 @contextlib.contextmanager
@@ -294,7 +299,8 @@ def main(argv=None) -> int:
             row[key] = f"refused: {e}"
 
     out = {"card": CS.card_line(), "attn_stream": [], "qkv_gemv": [],
-           "qkv_gemm": [], "paged_decode_flat": [], "fused_norm": [],
+           "qkv_gemm": [], "paged_decode_flat": [],
+           "paged_decode_tiered": [], "fused_norm": [],
            "fused_norm_host": [], "ffn_host": [], "ffn_stream": [],
            "ffn_wgmma": []}
     plan_kv = AS.kv_split
@@ -420,6 +426,57 @@ def main(argv=None) -> int:
         out["paged_decode_flat"].append(row)
         save()
         print(f"[sweep] paged_decode_flat {row}", flush=True)
+        del stores
+
+    # the tiered paged decode's key split at both tiered decode shapes,
+    # warm (one store) and cold (four stores in turn: 35 MB at mobilevlm-3b,
+    # so each call reads most of its keys from HBM, as a decode step does)
+    plan_tiered = PD.tiered_split
+    W, ML = 128, 512
+    for (tag, Hkv, G, lens) in (
+            ("fastvlm-1.7b", 2, 6, (318, 300, 257, 290)),
+            ("fastvlm-1.7b", 2, 6, (511,) * 4),
+            ("mobilevlm-3b B", 20, 1, (318, 300, 257, 290)),
+            ("mobilevlm-3b B", 20, 1, (511,) * 4)) \
+            if "tiered" in only else ():
+        B, Dh = 4, 128
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        table = KT.cold_page_table(lengths, W, ML, 128)
+        q = rn(B, Hkv, G, Dh)
+
+        def store():
+            ck, cv = (torch.randint(-127, 128, (B, ML, Hkv, Dh), generator=g,
+                                    device=dev, dtype=torch.int8)
+                      for _ in range(2))
+            ks, vs = (0.002 + 0.006 * torch.rand(B, ML, Hkv, 1, generator=g,
+                                                 device=dev)
+                      for _ in range(2))
+            return (rn(B, W, Hkv, Dh), rn(B, W, Hkv, Dh, std=0.3), ck, ks,
+                    cv, vs)
+        stores = [store() for _ in range(4)]
+        turn = [0]
+
+        def tiered(*st):
+            return PD.paged_decode_tiered(q, *st, lengths, table)
+
+        def cold_tiered():
+            turn[0] += 1
+            return tiered(*stores[turn[0] % 4])
+        row = {"shape": f"{tag}: B {B}, Hkv {Hkv}, G {G}, D {Dh}, W {W}, "
+                        f"ctx {list(lens)}",
+               "planned_split": plan_tiered(B, Hkv, sms, False)}
+        for split in range(1, PD.FLAT_MAX_SPLIT + 1):
+            PD.tiered_split = lambda *a, _s=split: _s
+            timed(row, f"split{split}_warm_us",
+                  lambda: [tiered(*stores[0])],
+                  lambda: [PD.paged_decode_tiered_plain(q, *stores[0],
+                                                        lengths, table)])
+            if isinstance(row[f"split{split}_warm_us"], float):
+                row[f"split{split}_cold_us"] = us(cold_tiered)
+        PD.tiered_split = plan_tiered
+        out["paged_decode_tiered"].append(row)
+        save()
+        print(f"[sweep] paged_decode_tiered {row}", flush=True)
         del stores
 
     # the FFN: the stream form's slice x cluster at decode, the wgmma

@@ -29,13 +29,13 @@ def attn_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def paged_decode_tiered(q: torch.Tensor, k_store: dict, v_store: dict,
-                        pos, *, tau: float = 0.0,
-                        block_k: int = PAGED_DECODE_BLOCK) -> torch.Tensor:
-    """Decode attention over tiered stores. q (B,1,H,D); ``pos`` an int or
-    a (B,) tensor of per-slot positions (the token just appended). The
-    per-slot identity block table comes from `kv_tiers.cold_page_table`
-    (dead pages are -1). Returns (B,1,H,D)."""
+def paged_decode_tiered_operands(q: torch.Tensor, k_store: dict,
+                                 v_store: dict, pos, *, tau: float = 0.0,
+                                 block_k: int = PAGED_DECODE_BLOCK):
+    """The kernel wrapper's (positional, keyword) arguments for
+    `paged_decode_tiered` below: q in the kernel's (B, Hkv, G, D) layout,
+    the stores read in place, per-slot lengths and the identity block
+    table from `kv_tiers.cold_page_table` (dead pages are -1)."""
     B, _, H, D = q.shape
     Hkv = k_store["hot"].shape[2]
     W = KT.hot_window_of(k_store)
@@ -43,31 +43,51 @@ def paged_decode_tiered(q: torch.Tensor, k_store: dict, v_store: dict,
     bk = min(block_k, max_len)
     lengths = KT.pos_rows(pos, B, q.device).to(torch.int32)
     table = KT.cold_page_table(lengths, W, max_len, bk)
-    o = _paged.paged_decode_tiered(
-        q[:, 0].reshape(B, Hkv, H // Hkv, D).contiguous(),
-        k_store["hot"], v_store["hot"], k_store["cold_q"],
-        k_store["cold_scale"], v_store["cold_q"], v_store["cold_scale"],
-        lengths, table, scale=D ** -0.5, block_k=bk, tau=tau)
-    return o.reshape(B, H, D)[:, None]
+    return ((q[:, 0].reshape(B, Hkv, H // Hkv, D).contiguous(),
+             k_store["hot"], v_store["hot"], k_store["cold_q"],
+             k_store["cold_scale"], v_store["cold_q"], v_store["cold_scale"],
+             lengths, table), dict(scale=D ** -0.5, block_k=bk, tau=tau))
 
 
-def paged_decode_flat(q: torch.Tensor, k_store: dict, v_store: dict, pos, *,
-                      block_k: int = PAGED_DECODE_BLOCK) -> torch.Tensor:
-    """Decode attention over flat stores {"flat": (B, max_len, Hkv, D)},
-    read in place. q (B,1,H,D); ``pos`` an int or a (B,) tensor of
-    per-slot positions. The per-slot identity table is
-    `kv_tiers.cold_page_table` with hot window 0 (valid = position <=
-    pos). Returns (B,1,H,D)."""
+def paged_decode_tiered(q: torch.Tensor, k_store: dict, v_store: dict,
+                        pos, *, tau: float = 0.0,
+                        block_k: int = PAGED_DECODE_BLOCK) -> torch.Tensor:
+    """Decode attention over tiered stores. q (B,1,H,D); ``pos`` an int or
+    a (B,) tensor of per-slot positions (the token just appended).
+    Returns (B,1,H,D)."""
+    B, _, H, D = q.shape
+    args, kw = paged_decode_tiered_operands(q, k_store, v_store, pos,
+                                            tau=tau, block_k=block_k)
+    return _paged.paged_decode_tiered(*args, **kw).reshape(B, H, D)[:, None]
+
+
+def paged_decode_flat_operands(q: torch.Tensor, k_store: dict,
+                               v_store: dict, pos, *,
+                               block_k: int = PAGED_DECODE_BLOCK):
+    """The kernel wrapper's (positional, keyword) arguments for
+    `paged_decode_flat` below: q in the kernel's (B, Hkv, G, D) layout,
+    the flat stores read in place, per-slot lengths and the identity
+    table `kv_tiers.cold_page_table` with hot window 0 (valid = position
+    <= pos)."""
     B, _, H, D = q.shape
     k, v = k_store["flat"], v_store["flat"]
     Hkv, max_len = k.shape[2], k.shape[1]
     bk = min(block_k, max_len)
     lengths = KT.pos_rows(pos, B, q.device).to(torch.int32)
     table = KT.cold_page_table(lengths, 0, max_len, bk)
-    o = _paged.paged_decode_flat(
-        q[:, 0].reshape(B, Hkv, H // Hkv, D).contiguous(), k, v, lengths,
-        table, scale=D ** -0.5, block_k=bk)
-    return o.reshape(B, H, D)[:, None]
+    return ((q[:, 0].reshape(B, Hkv, H // Hkv, D).contiguous(), k, v,
+             lengths, table), dict(scale=D ** -0.5, block_k=bk))
+
+
+def paged_decode_flat(q: torch.Tensor, k_store: dict, v_store: dict, pos, *,
+                      block_k: int = PAGED_DECODE_BLOCK) -> torch.Tensor:
+    """Decode attention over flat stores {"flat": (B, max_len, Hkv, D)},
+    read in place. q (B,1,H,D); ``pos`` an int or a (B,) tensor of
+    per-slot positions. Returns (B,1,H,D)."""
+    B, _, H, D = q.shape
+    args, kw = paged_decode_flat_operands(q, k_store, v_store, pos,
+                                          block_k=block_k)
+    return _paged.paged_decode_flat(*args, **kw).reshape(B, H, D)[:, None]
 
 
 def qkv_proj(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,

@@ -4,12 +4,11 @@ store.
 `paged_decode_tiered` replaces the TPU kernel
 `repro/kernels/paged_decode.py::paged_decode_tiered`; `paged_decode_flat`
 replaces `repro/kernels/paged_decode.py::paged_decode_flat`. The CUDA
-kernels are in `csrc/paged_decode.cu`. Tiered: one block per (slot, kv head)
-with the G query rows of the group; the hot ring first (anchoring the
-running max), then the slot's cold pages through its block table (-1 =
-dead) with int8 K/V and the f32 scales factored out of both dots (see its
-header). Per-slot ``lengths`` are the positions just written, so ragged
-slots share one launch.
+kernels are in `csrc/paged_decode.cu`. Tiered: the G query rows of a kv
+head against the hot ring (full precision) and the slot's cold pages
+through its block table (-1 = dead) with int8 K/V and the f32 scales
+factored out of both dots (see its header). Per-slot ``lengths`` are the
+positions just written, so ragged slots share one launch.
 
 SLIM sparse read (``tau`` > 0): a cold page is skipped when, for every
 query row g, ``scale * 127 * max(page k-scales) * ||q_g||_1 < m_g +
@@ -22,13 +21,19 @@ Layouts (store-native): q (B, Hkv, G, D) with head h = hkv*G + g; hot k/v
 Flat: the same pages over a full-precision (B, max_len, Hkv, D) store
 with no hot ring, no scales and no sparse read; a token is attendable iff
 its position <= lengths[b]. The ragged tail page (max_len not a multiple
-of ``block_k``) is masked, not padded. Its kernel is split-K
-(flash-decoding): each (slot, kv head)'s live keys are shared by the
-``flat_split`` blocks of a thread-block cluster, which read lengths[b]
-themselves (the host never does) and take contiguous runs of the live
-key tiles; a block's 4 warps stream their tiles through cp.async rings
-and the partials merge in rank order through distributed shared
-memory, in one launch.
+of ``block_k``) is masked, not padded.
+
+Both kernels are split-K (flash-decoding): each (slot, kv head)'s live
+key tiles are shared by the blocks of a thread-block cluster
+(``tiered_split`` / ``flat_split``, from shapes and the SM count only),
+which read lengths[b] themselves (the host never does) and take
+contiguous runs of the tiles; a block's 4 warps stream their tiles
+through cp.async rings, and the partials merge in a fixed order (a
+block's warps, then the blocks in rank order through distributed shared
+memory), in one launch. The tiered list is the hot
+ring's tiles, then the live cold pages'; at ``tau`` > 0 the tiered
+kernel runs one block a (slot, kv head) and walks the pages in order,
+applying the skip test to the block-wide running max at each page.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain twin
 (`paged_decode_tiered_plain`: the two-segment merge of
@@ -52,13 +57,16 @@ NEG_INF = -2.0 ** 20
 INT8_QMAX = 127.0
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 16
-# mirror of the flat kernel's constants in csrc/paged_decode.cu (FL_*);
-# chip_smoke holds `flat_smem_bytes` against the library's
+# mirror of the two kernels' shared constants in csrc/paged_decode.cu
+# (FL_*); chip_smoke holds `flat_smem_bytes` and `tiered_smem_bytes`
+# against the library's, and the tiered instances' blocks an SM against
+# FLAT_BLOCKS_PER_SM
 FLAT_WARPS = 4            # warps a block, each with its own key tiles
 FLAT_STAGES = 3           # key tiles in a warp's cp.async ring
 FLAT_STAGE_BYTES = 4096   # one warp's K and V tile
 FLAT_MAX_SPLIT = 8        # blocks (a cluster) sharing a (slot, kv head)
 FLAT_BLOCKS_PER_SM = 2    # grid target the split is sized for
+TIERED_FEATURES = 8       # features of a key row a lane owns, both sources
 SMEM_LIMIT = 232_448      # shared memory one block may use on Hopper
 
 
@@ -69,6 +77,20 @@ def flat_smem_bytes(n_pages: int) -> int:
             + (4 * n_pages + 15) // 16 * 16)
 
 
+def tiered_smem_bytes(n_pages: int, head_dim: int, G: int,
+                      dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a tiered-kernel block: the flat kernel's
+    rings and block table, then, where the scores are tensor-core
+    products (bf16, G >= 2), each warp's scratch of a tile's weights
+    (tile keys x GM) and 3 x GM row sums, GM the group rounded up to
+    1/2/4/8/16 (the kernel's template)."""
+    gm = 1 << max(G - 1, 0).bit_length()
+    scratch = 0
+    if dtype == torch.bfloat16 and gm >= 2:
+        scratch = gm * (tiered_tile_keys(head_dim, dtype) + 3)
+    return flat_smem_bytes(n_pages) + 4 * FLAT_WARPS * scratch
+
+
 def flat_tile_keys(head_dim: int, dtype: torch.dtype) -> int:
     """Keys in one of the flat kernel's tiles: K and V rows of a tile
     fill FLAT_STAGE_BYTES (16-byte chunks, four a lane)."""
@@ -76,12 +98,23 @@ def flat_tile_keys(head_dim: int, dtype: torch.dtype) -> int:
     return FLAT_STAGE_BYTES // (2 * head_dim * es)
 
 
+def tiered_tile_keys(head_dim: int, dtype: torch.dtype) -> int:
+    """Keys in one of the tiered kernel's tiles, hot or cold: a lane owns
+    TIERED_FEATURES features of a row, so a warp step covers 32 /
+    (head_dim / 8) keys, and a hot tile's K and V rows in ``dtype`` fill
+    FLAT_STAGE_BYTES (its int8 cold tile, with scales, fits in less)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    keys_a_step = 32 * TIERED_FEATURES // head_dim
+    steps = FLAT_STAGE_BYTES // (2 * 32 * TIERED_FEATURES * es)
+    return keys_a_step * steps
+
+
 @functools.lru_cache(maxsize=256)
 def flat_split(B: int, Hkv: int, n_sms: int) -> int:
     """Blocks (one cluster) that share a (slot, kv head)'s live keys,
     from shapes and the SM count only (never from lengths): 1 where B *
     Hkv blocks already fill the card; else enough that the grid gives
-    every SM FLAT_BLOCKS_PER_SM blocks (four fit an SM), at most
+    every SM FLAT_BLOCKS_PER_SM blocks (shared memory fits four), at most
     FLAT_MAX_SPLIT. At mobilevlm-3b's decode (80 (slot, kv head) pairs)
     that is 4: kernel_sweep.py timed splits 3-4 best at ctx 257-318 and
     4 best at ctx 511. A rank whose share of a short slot is empty reads
@@ -89,6 +122,19 @@ def flat_split(B: int, Hkv: int, n_sms: int) -> int:
     if B * Hkv >= n_sms:
         return 1
     return min(FLAT_MAX_SPLIT, -(-FLAT_BLOCKS_PER_SM * n_sms // (B * Hkv)))
+
+
+@functools.lru_cache(maxsize=256)
+def tiered_split(B: int, Hkv: int, n_sms: int, sparse: bool) -> int:
+    """Blocks (one cluster) that share a (slot, kv head)'s tile list, by
+    the flat kernel's rule (`flat_split`): 8 at fastvlm-1.7b's decode (8
+    pairs), 4 at mobilevlm-3b's (80), 1 where B * Hkv fills the card.
+    At mobilevlm-3b kernel_sweep.py times split 5 faster than 4 at the
+    contexts of the serving runs (~300) and 4 faster at 511; the split
+    comes from shapes alone and serves every context a slot grows to,
+    up to max_len, so 4 is kept. ``sparse`` (tau > 0): 1, since the
+    skip rule is a chain in page order that one block walks."""
+    return 1 if sparse else flat_split(B, Hkv, n_sms)
 
 
 def _segment(qf, k, v, valid, scale, k_scale=None, v_scale=None):
@@ -211,8 +257,9 @@ def _check(kernel: str, q, expect: dict) -> None:
     if D not in HEAD_DIMS or G > MAX_GROUP:
         raise ValueError(f"{kernel} kernel supports head dims {HEAD_DIMS} "
                          f"and groups <= {MAX_GROUP}, got D={D}, G={G}")
-    if not q.is_contiguous():
-        raise ValueError(f"{kernel}: q must be contiguous")
+    if not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError(f"{kernel}: q must be contiguous and start 16-byte "
+                         f"aligned")
     build.require_operands(kernel, q.device, expect)
     for name, (t, shape, _) in expect.items():
         if len(shape) == 4 and shape[-1] == D and t.data_ptr() % 16:
@@ -222,7 +269,7 @@ def _check(kernel: str, q, expect: dict) -> None:
 
 ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_void_p]
 FLAT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
@@ -250,7 +297,11 @@ def paged_decode_tiered(q, hot_k, hot_v, cold_kq, cold_ks, cold_vq, cold_vs,
         "lengths": (lengths, (B,), torch.int32),
         "table": (table, (B, n_pages), torch.int32),
     })
+    if tiered_smem_bytes(n_pages, D, G, q.dtype) > SMEM_LIMIT:
+        raise ValueError(f"paged_decode_tiered: {n_pages} pages do not fit "
+                         f"the block table in shared memory")
     scale = scale if scale is not None else D ** -0.5
+    split = tiered_split(B, Hkv, build.sm_count(q.device.index), tau > 0)
     out = torch.empty_like(q)
     lib, fn = build.bind("paged_decode", "paged_decode_tiered", ARGTYPES)
     err = fn(
@@ -259,7 +310,7 @@ def paged_decode_tiered(q, hot_k, hot_v, cold_kq, cold_ks, cold_vq, cold_vs,
         build.ptr(lengths), build.ptr(table), build.ptr(out), B, Hkv, G, D,
         W, max_len, n_pages, block_k, scale,
         math.log(tau) if tau > 0 else 0.0, int(tau > 0),
-        build.dtype_code(q.dtype), build.stream_ptr(q.device))
+        build.dtype_code(q.dtype), split, build.stream_ptr(q.device))
     build.check(lib, err, "paged_decode_tiered")
     paged_decode_tiered.launches += 1
     return out

@@ -430,6 +430,23 @@ def test_paged_decode_flat_adapter_matches_reference_per_slot(G):
         _close(plain[sl], oracle, **TOL2)
 
 
+def _empty_state(Hkv, G, D):
+    """The partial of a warp or rank with no attendable key."""
+    return (torch.full((1, Hkv, G, 1), PD.NEG_INF), torch.zeros(1, Hkv, G, 1),
+            torch.zeros(1, Hkv, G, D))
+
+
+def _combine(parts):
+    """Flash partials (m, d, acc) combined as the split kernels combine a
+    block's warps and then a cluster's blocks: each weighted by exp(m -
+    the parts' max), summed in order. An empty part weighs 0 beside a
+    live one."""
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    ws = [torch.exp(p[0] - m) for p in parts]
+    return (m, sum(w * p[1] for w, p in zip(ws, parts)),
+            sum(w * p[2] for w, p in zip(ws, parts)))
+
+
 def _live_keys(pos, table_row, block_k, max_len):
     """Logical positions the flat kernel must attend for one slot."""
     return {j * block_k + i for j, phys in enumerate(table_row)
@@ -521,7 +538,8 @@ def test_paged_decode_flat_split_covers_live_keys_once(B, Hkv, max_len,
 def test_paged_decode_flat_rank_order_merge_matches_plain(G, block_k):
     """A plain-PyTorch model of the split kernel: per-(rank, warp)
     partials over `_flat_partition`'s keys (an empty warp or rank gives m
-    = NEG_INF, d = 0), merged in (rank, warp) order, equals
+    = NEG_INF, d = 0), each rank's warps combined at their common max,
+    then the ranks (`_combine`), as the kernel merges them, equals
     `paged_decode_flat_plain` within 1e-6 in f32 at every split, with
     lengths at 0 and page edges, a ragged tail page and dead pages."""
     rng = np.random.default_rng(12)
@@ -540,22 +558,22 @@ def test_paged_decode_flat_rank_order_merge_matches_plain(G, block_k):
         got = torch.empty_like(want)
         for b in range(B):
             pos, row = int(lengths[b]), table[b].tolist()
-            state = (torch.full((1, Hkv, G, 1), PD.NEG_INF),
-                     torch.zeros(1, Hkv, G, 1), torch.zeros(1, Hkv, G, D))
+            blocks = []
             for ranks in _partition_keys(
                     _flat_partition(pos, n_pages, block_k, tk, split),
                     pos, row, block_k, max_len):
+                warps = []
                 for keys in ranks:
-                    if not keys:
-                        continue        # (NEG_INF, 0, 0) merges as a no-op
+                    if not keys:        # an empty warp: (NEG_INF, 0, 0)
+                        warps.append(_empty_state(Hkv, G, D))
+                        continue
                     rows = torch.tensor([row[t // block_k] * block_k
                                          + t % block_k for t in keys])
-                    part = PD._segment(qf[b:b + 1], k[b:b + 1, rows],
-                                       v[b:b + 1, rows],
-                                       torch.ones(1, len(keys), dtype=bool),
-                                       scale)
-                    state = PD._merge(state, part)
-            m, d, acc = state
+                    warps.append(PD._segment(
+                        qf[b:b + 1], k[b:b + 1, rows], v[b:b + 1, rows],
+                        torch.ones(1, len(keys), dtype=bool), scale))
+                blocks.append(_combine(warps))
+            m, d, acc = _combine(blocks)
             got[b] = (acc / d.clamp_min(1e-30))[0]
         torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
 
@@ -578,6 +596,341 @@ def test_paged_decode_flat_tiles_fit_shared_memory(head_dim, dtype):
     assert PD.flat_smem_bytes(4) == PD.FLAT_WARPS * ring + 16
     assert 4 * PD.flat_smem_bytes(4) <= PD.SMEM_LIMIT
     assert PD.flat_smem_bytes(-(-32768 // 16)) <= PD.SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# paged_decode_tiered: the split-K kernel's partition, merge and sparse walk
+# ---------------------------------------------------------------------------
+def _tiered_lists(pos, W, n_pages, block_k, tile_keys):
+    """(n_hot, n_cold, tiles a page) of one slot's tile list in the tiered
+    kernel's own arithmetic (csrc/paged_decode.cu, the tiered section):
+    hot tiles of ``tile_keys`` ring slots up to the one holding slot
+    min(pos, W - 1), then cold tiles, ceil(block_k / tile_keys) to a page,
+    up to the one holding position pos - W."""
+    last = pos - W
+    n_hot = 0 if pos < 0 else min(-(-W // tile_keys), pos // tile_keys + 1)
+    tpp = -(-block_k // tile_keys)
+    n_cold = 0 if last < 0 else min(
+        n_pages * tpp, (last // block_k) * tpp + (last % block_k) // tile_keys
+        + 1)
+    return n_hot, n_cold, tpp
+
+
+def _tiered_tile(t, n_hot, tpp, tile_keys):
+    """Tile t of the list: ("hot", first slot) or ("cold", page, first
+    key in the page)."""
+    if t < n_hot:
+        return ("hot", t * tile_keys)
+    u = t - n_hot
+    return ("cold", u // tpp, (u % tpp) * tile_keys)
+
+
+def _tiered_partition(pos, W, n_pages, block_k, tile_keys, split):
+    """The split kernel's assignment of one slot's tile list: rank r of the
+    cluster takes a contiguous run, its warp w every FLAT_WARPS-th tile of
+    the run from the w-th. -> [rank][warp] lists of tiles."""
+    n_hot, n_cold, tpp = _tiered_lists(pos, W, n_pages, block_k, tile_keys)
+    n = n_hot + n_cold
+    per = -(-n // split)
+    out = []
+    for r in range(split):
+        jb = min(n, r * per)
+        je = min(n, jb + per)
+        out.append([[_tiered_tile(t, n_hot, tpp, tile_keys)
+                     for t in range(jb + w, je, PD.FLAT_WARPS)]
+                    for w in range(PD.FLAT_WARPS)])
+    return out
+
+
+def _tiered_tile_keys(tile, pos, W, table_row, block_k, max_len, tile_keys):
+    """The attendable keys of one tile, by the kernel's masks: ("hot",
+    ring slot) for slot < W and slot <= pos; ("cold", logical position,
+    physical row) for a live page, inside the page and the store, position
+    <= pos - W."""
+    if tile[0] == "hot":
+        return [("hot", s, s) for s in range(tile[1], tile[1] + tile_keys)
+                if s < W and s <= pos]
+    _, j, c0 = tile
+    phys = table_row[j]
+    return [("cold", j * block_k + kk, phys * block_k + kk)
+            for kk in range(c0, c0 + tile_keys)
+            if phys >= 0 and kk < block_k and j * block_k + kk <= pos - W
+            and phys * block_k + kk < max_len]
+
+
+def _tiered_attendable(pos, W, table_row, block_k, max_len):
+    """The keys the reference attends for one slot: ring slots whose
+    position pos - ((pos - i) mod W) is >= 0, and cold positions <= pos -
+    W on live pages inside the store."""
+    hot = {("hot", i, i) for i in range(W) if pos - ((pos - i) % W) >= 0}
+    cold = {("cold", j * block_k + i, phys * block_k + i)
+            for j, phys in enumerate(table_row) if phys >= 0
+            for i in range(block_k)
+            if j * block_k + i <= pos - W and phys * block_k + i < max_len}
+    return hot | cold
+
+
+def test_paged_decode_tiered_split_planner():
+    """`tiered_split` from shapes only: 8 at fastvlm-1.7b's decode (B 4,
+    Hkv 2), 4 at mobilevlm-3b's (Hkv 20), 1 where B * Hkv fills the 132
+    SMs, and 1 for the sparse read at every shape."""
+    assert PD.tiered_split(4, 2, 132, False) == 8
+    assert PD.tiered_split(4, 20, 132, False) == 4
+    for (B, Hkv) in ((8, 20), (132, 1), (33, 4), (4, 40)):
+        assert PD.tiered_split(B, Hkv, 132, False) == 1
+    for (B, Hkv) in ((4, 2), (4, 20), (1, 1), (8, 20)):
+        assert PD.tiered_split(B, Hkv, 132, True) == 1
+    for (B, Hkv) in ((1, 1), (2, 3), (4, 2), (4, 20), (5, 13)):
+        assert 1 <= PD.tiered_split(B, Hkv, 132, False) <= PD.FLAT_MAX_SPLIT
+
+
+@pytest.mark.parametrize("W,max_len,block_k", [
+    (128, 512, 128),     # fastvlm-1.7b / mobilevlm-3b serving
+    (64, 224, 128),      # f32 parity runs: a ragged tail page
+    (128, 500, 128),     # ragged tail page
+    (8, 64, 16),         # small pages
+    (16, 40, 8),         # pages smaller than a tile
+    (4, 8, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_tiered_split_covers_live_keys_once(W, max_len, block_k,
+                                                         dtype):
+    """The tiered kernel's tile list and split, in its own arithmetic:
+    across the cluster's ranks and their warps every attendable key of a
+    slot, hot and cold together, is read exactly once, at every split
+    from 1 to the maximum, for lengths at 0, 1, W - 1, W, W + 1, at page
+    edges and at max_len - 1, with dead pages (the last live one
+    included), at every head dim."""
+    n_pages = -(-max_len // block_k)
+    edges = {W + k * block_k + o for k in range(n_pages) for o in (-1, 0)}
+    positions = sorted(p for p in {0, 1, W - 1, W, W + 1, max_len - 1,
+                                   *edges} if 0 <= p < max_len)
+    for D in PD.HEAD_DIMS:
+        tk = PD.tiered_tile_keys(D, dtype)
+        for pos in positions:
+            last = (pos - W) // block_k
+            for dead in ((), (last,), (0, last), (max(last - 1, 0),)):
+                table_row = [j if j * block_k <= pos - W and j not in dead
+                             else -1 for j in range(n_pages)]
+                want = _tiered_attendable(pos, W, table_row, block_k,
+                                          max_len)
+                for split in range(1, PD.FLAT_MAX_SPLIT + 1):
+                    part = _tiered_partition(pos, W, n_pages, block_k, tk,
+                                             split)
+                    assert len(part) == split
+                    assert all(len(w) == PD.FLAT_WARPS for w in part)
+                    got = [k for r in part for w in r for t in w
+                           for k in _tiered_tile_keys(t, pos, W, table_row,
+                                                      block_k, max_len, tk)]
+                    assert len(got) == len(set(got))
+                    assert set(got) == want, (D, pos, dead, split)
+
+
+def _tiered_case(rng, B, W, max_len, Hkv, G, D, lengths, block_k,
+                 cold_scale=1.0):
+    """f32 q and hot ring, int8 cold pages with f32 scales, the identity
+    table of ``lengths``."""
+    q = torch.from_numpy(rng.standard_normal((B, Hkv, G, D))
+                         .astype(np.float32))
+    hk, hv = (torch.from_numpy(rng.standard_normal((B, W, Hkv, D))
+                               .astype(np.float32)) for _ in range(2))
+    ckq, cvq = (torch.from_numpy(rng.integers(-127, 128, (B, max_len, Hkv,
+                                                          D), np.int8))
+                for _ in range(2))
+    cks, cvs = (torch.from_numpy((0.004 + 0.008 * rng.random(
+        (B, max_len, Hkv, 1))).astype(np.float32)) for _ in range(2))
+    cks = cks * cold_scale
+    lengths = torch.tensor(lengths, dtype=torch.int32)
+    table = KT.cold_page_table(lengths, W, max_len, block_k).clone()
+    return [q, hk, hv, ckq, cks, cvq, cvs, lengths, table]
+
+
+def _warp_partial(args, b, keys, scale):
+    """Flash partial of one warp over its keys of slot b: hot rows at
+    full precision, cold int8 rows with their scales out of the dots."""
+    q, hk, hv, ckq, cks, cvq, cvs = args[:7]
+    hot = [r for (src, _, r) in keys if src == "hot"]
+    cold = [r for (src, _, r) in keys if src == "cold"]
+    one = torch.ones(1, len(hot), q.shape[1], 1)
+    k = torch.cat([hk[b:b + 1, hot], ckq[b:b + 1, cold].float()], 1)
+    v = torch.cat([hv[b:b + 1, hot], cvq[b:b + 1, cold].float()], 1)
+    ks = torch.cat([one, cks[b:b + 1, cold]], 1)
+    vs = torch.cat([one, cvs[b:b + 1, cold]], 1)
+    return PD._segment(q[b:b + 1].float(), k, v,
+                       torch.ones(1, len(keys), dtype=torch.bool), scale,
+                       ks, vs)
+
+
+@pytest.mark.parametrize("G", [1, 6])
+@pytest.mark.parametrize("block_k", [16, 32])
+def test_paged_decode_tiered_rank_order_merge_matches_plain(G, block_k):
+    """A plain-PyTorch model of the split kernel: per-(rank, warp)
+    partials over `_tiered_partition`'s keys (hot and cold in one warp's
+    list; an empty warp or rank gives (NEG_INF, 0, 0)), each rank's warps
+    combined at their common max, then the ranks (`_combine`), as the
+    kernel merges them, equals `paged_decode_tiered_plain` within 1e-6 in
+    f32 at
+    every split: lengths below W (no cold key live), at W, at a page edge
+    and at max_len - 1 (a ragged tail page), a dead page and a dead last
+    live page."""
+    rng = np.random.default_rng(16)
+    B, W, max_len, Hkv, D = 5, 16, 100, 2, 16
+    lengths = [3, W, W + 2 * block_k - 1, 99, 70]
+    args = _tiered_case(rng, B, W, max_len, Hkv, G, D, lengths, block_k)
+    table = args[8]
+    table[3, 1] = -1
+    table[4, (70 - W) // block_k] = -1        # the last live page
+    want = PD.paged_decode_tiered_plain(*args, block_k=block_k)
+    tk = PD.tiered_tile_keys(D, torch.float32)
+    n_pages, scale = table.shape[1], D ** -0.5
+    for split in range(1, PD.FLAT_MAX_SPLIT + 1):
+        got = torch.empty_like(want)
+        for b in range(B):
+            pos, row = lengths[b], table[b].tolist()
+            blocks = []
+            for ranks in _tiered_partition(pos, W, n_pages, block_k, tk,
+                                           split):
+                warps = []
+                for tiles in ranks:
+                    keys = [k for t in tiles for k in _tiered_tile_keys(
+                        t, pos, W, row, block_k, max_len, tk)]
+                    warps.append(_warp_partial(args, b, keys, scale) if keys
+                                 else _empty_state(Hkv, G, D))
+                blocks.append(_combine(warps))
+            m, d, acc = _combine(blocks)
+            got[b] = (acc / d.clamp_min(1e-30))[0]
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+def test_paged_decode_tiered_sparse_walk_matches_twin(monkeypatch):
+    """tau > 0: a plain model of the kernel's in-order walk (one block a
+    (slot, kv head); the hot ring's tiles over its 4 warps, then each live
+    page's tiles, the skip test applied at each page boundary to the
+    block-wide max of the warps' running maxima, in the kernel's log2
+    domain) makes the same skip decisions as the twin (recorded from its
+    merges) and gives its output within 1e-6; some pages are skipped,
+    some read. The planner never splits the sparse read."""
+    rng = np.random.default_rng(17)
+    B, W, max_len, Hkv, G, D, bk, tau = 4, 8, 64, 2, 2, 16, 16, 1e-3
+    lengths = [63, 40, 9, 4]
+    args = _tiered_case(rng, B, W, max_len, Hkv, G, D, lengths, bk,
+                        cold_scale=0.05)
+    q = args[0] * 2
+    args[0] = q
+    args[1] = q.mean(2)[:, None].repeat(1, W, 1, 1) * 2   # hot ~ q: large m
+    args[8][0, 1] = -1
+    taken = []
+    merge = PD._merge
+
+    def record(state, part, take=None):
+        if take is not None:
+            taken.append(take[:, :, 0, 0].clone())
+        return merge(state, part, take)
+    monkeypatch.setattr(PD, "_merge", record)
+    want = PD.paged_decode_tiered_plain(*args, block_k=bk, tau=tau)
+    monkeypatch.setattr(PD, "_merge", merge)
+    twin = torch.stack(taken)                  # (n_pages, B, Hkv)
+    assert PD.tiered_split(B, Hkv, 132, True) == 1
+
+    log2e = 1 / math.log(2)
+    scale, table = D ** -0.5, args[8]
+    n_pages = table.shape[1]
+    tk = PD.tiered_tile_keys(D, torch.float32)
+    got = torch.empty_like(want)
+    model = torch.zeros_like(twin)
+    tested = torch.zeros_like(twin)      # live pages the skip test ran on
+    for b in range(B):
+        pos, row = lengths[b], table[b].tolist()
+        n_hot, n_cold, tpp = _tiered_lists(pos, W, n_pages, bk, tk)
+        for h in range(Hkv):
+            q2 = q[b, h].float() * scale * log2e            # (G, D)
+            ql1 = q2.abs().sum(-1)
+            warp_m = torch.full((PD.FLAT_WARPS, G), PD.NEG_INF)
+            read = []
+
+            def take(lo, hi):
+                for t in range(lo, hi):
+                    keys = _tiered_tile_keys(
+                        _tiered_tile(t, n_hot, tpp, tk), pos, W, row, bk,
+                        max_len, tk)
+                    read.extend(keys)
+                    for (src, _, r) in keys:
+                        k = (args[1][b, r, h] if src == "hot"
+                             else args[3][b, r, h].float() * args[4][b, r, h])
+                        w = (t - lo) % PD.FLAT_WARPS
+                        warp_m[w] = torch.maximum(warp_m[w], q2 @ k)
+            take(0, n_hot)
+            for j in range(n_pages):
+                if row[j] < 0 or j * bk > pos - W:
+                    continue
+                rows = [row[j] * bk + i for i in range(bk)
+                        if j * bk + i <= pos - W and row[j] * bk + i < max_len]
+                mk = float(args[4][b, rows, h, 0].max()) if rows else 0.0
+                live = bool((127.0 * mk * ql1 >= warp_m.amax(0)
+                             + math.log(tau) * log2e).any())
+                model[j, b, h], tested[j, b, h] = live, True
+                if live:
+                    take(n_hot + j * tpp, min(n_hot + n_cold,
+                                              n_hot + (j + 1) * tpp))
+            part = _warp_partial([q[:, h:h + 1]] + [
+                t[:, :, h:h + 1] for t in args[1:7]], b, read, scale)
+            m, d, acc = part
+            got[b, h] = (acc / d.clamp_min(1e-30))[0, 0]
+    assert torch.equal(model, twin)
+    assert model[tested].any() and not model[tested].all()
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("kernel", ["paged_decode_tiered",
+                                    "paged_decode_flat"])
+def test_paged_decode_check_wants_aligned_q(kernel):
+    """The paged decodes' operand check (run here on CPU tensors): the
+    kernels load q 16 bytes at a time, so a q that does not start 16-byte
+    aligned raises, as a misaligned K/V store does."""
+    base = torch.zeros(1 + 4 * 2 * 2 * 16)
+    q = base[:-1].view(4, 2, 2, 16)
+    table = torch.zeros(4, 2, dtype=torch.int32)
+    expect = {"table": (table, (4, 2), torch.int32)}
+    PD._check(kernel, q, expect)
+    with pytest.raises(ValueError, match="q must be contiguous and start"):
+        PD._check(kernel, base[1:].view(4, 2, 2, 16), expect)
+
+
+@pytest.mark.parametrize("head_dim", PD.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_tiered_tiles_fit_shared_memory(head_dim, dtype):
+    """The tiered kernel's tiles (the Python mirror of the .cu constants,
+    which chip_smoke holds against the built library): a lane owns 8
+    features of a row in both sources; a hot tile's K and V rows fill one
+    ring stage in whole 16-byte chunks; a cold tile's int8 K and V rows
+    and their k and v scales fit one; a warp's partial (m, d and G x D
+    accumulators, G up to 16) fits its ring; the tensor-core scores'
+    warp scratch (bf16, G >= 2) follows the table. By shared memory at 4
+    pages (with the 1 KB a block is reserved and 1 KB for the static
+    merge arrays) every instance leaves an SM room for the planner's
+    FLAT_BLOCKS_PER_SM blocks, and head dims 64 and 128 (the served
+    models') for four; chip_smoke reads the blocks an SM holds, registers
+    included, from the library. A 32k-token table fits a block."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    tk = PD.tiered_tile_keys(head_dim, dtype)
+    lanes_a_key = head_dim // PD.TIERED_FEATURES
+    assert 1 <= lanes_a_key <= 32 and PD.TIERED_FEATURES * es % 16 == 0
+    assert tk % (32 // lanes_a_key) == 0
+    assert 2 * tk * head_dim * es == PD.FLAT_STAGE_BYTES
+    assert tk * (2 * head_dim + 2 * 4) <= PD.FLAT_STAGE_BYTES
+    ring = PD.FLAT_STAGES * PD.FLAT_STAGE_BYTES
+    assert 4 * (2 * PD.MAX_GROUP + PD.MAX_GROUP * head_dim) <= ring
+    sm_bytes = 233_472                     # shared memory of a Hopper SM
+    for G in range(1, PD.MAX_GROUP + 1):
+        gm = 1 << (G - 1).bit_length()
+        scratch = (gm * (tk + 3) if dtype == torch.bfloat16 and gm >= 2
+                   else 0)
+        b = PD.tiered_smem_bytes(4, head_dim, G, dtype)
+        assert b == PD.FLAT_WARPS * (ring + 4 * scratch) + 16 and b % 16 == 0
+        fit = sm_bytes // (b + 2048)
+        assert fit >= PD.FLAT_BLOCKS_PER_SM
+        assert fit >= 4 or head_dim < 64
+        assert PD.tiered_smem_bytes(-(-32768 // 16), head_dim, G,
+                                    dtype) <= PD.SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------
