@@ -70,7 +70,11 @@ source, all started together; seven kernels), then:
      decode in the Engine, the unfused store_read + softmax decode in
      `generate`) and on path B (tiered store, hot window 64, int8 FFN
      weights); a differing token passes only where `generate`'s top-2
-     logit margin at that step is below 1e-3 (a tie);
+     logit margin at that step is below 1e-3 (a tie); and path B
+     preempted: 2 slots, 2 verbatim spill lanes, 2 priority-0 VQA
+     requests, then after 3 steps a priority-1 text request that evicts
+     one; its tokens against the same requests on an unpressured Engine
+     (same tie rule);
   3. serving — three bf16 runs through the Engine at full width and
      depth, each the main path of its configuration: the kernels' launch
      counters are zeroed just before each run and read just after, and
@@ -85,15 +89,34 @@ source, all started together; seven kernels), then:
          128) with int8 FFN weights (ffn_act_int8);
      A and B serve 8 requests (4 VQA with 144 visual + 112 text tokens,
      4 text with 256) at concurrency 4, max_len 512, 64 new tokens each.
-     A decode-step profile and a whole-prompt prefill profile
-     (torch.profiler) follow each run; in each, every kernel's launches
-     in the profile are compared with its launch counter over the same
-     window (a mismatch is printed), and the run's paged decode is timed
-     alone on its last call's operands (profiler and CUDA events).
+     Each run is priced by chime_sim on the CHIME platform (and on the
+     M3D-DRAM-only one) from its served trace, after the timed window:
+     analytic tok/J and J with the per-domain split, not a measurement
+     of the card. A decode-step profile and a whole-prompt prefill
+     profile (torch.profiler) follow each run; in each, every kernel's
+     launches in the profile are compared with its launch counter over
+     the same window (a mismatch is printed), and the run's paged decode
+     is timed alone on its last call's operands (profiler and CUDA
+     events). Then path B under priority traffic, 4 slots and 4 RRAM
+     spill lanes, with a Telemetry hub: 8 priority-0 requests (as
+     above), 3 engine steps, then 4 priority-1 text requests (64-token
+     prompts, 16 new tokens) that preempt runners:
+       * B-preempt: verbatim lanes;
+       * B-offload: int8-compressed lanes and idle offload after 16
+         resident decode steps.
+     Each must finish every request with evictions (and idle offloads)
+     > 0 and every parked request restored, exact launch counts,
+     write-once on the cold tier, the lanes' RRAM counters equal to
+     `expected_spill_block_writes` over the eviction contexts, the
+     ledger equal to `simulated_efficiency` (==), and a valid Perfetto
+     trace and Prometheus exposition (written to chiprun_out/); it
+     prints lane bytes (verbatim and compressed) and one evict_slot and
+     one restore_slot's device time (CUDA events, median of 5) beside
+     the bound of their bytes.
 
 It prints the card (name, power limit), the kernel build time, the
 phases' results, then one JSON line {"kernels": [...]} (launches summed
-over the three serving runs; host_ms is call ms minus device ms) and,
+over the five serving runs; host_ms is call ms minus device ms) and,
 last, the device JSON line. It fails
 (non-zero exit, no result lines) without a card, outside the repository,
 or when any check fails. `--phases` selects a subset (e.g. `--phases
@@ -1221,7 +1244,84 @@ def parity_phase(dev: str = "cuda") -> dict:
              dict(kv_policy="tiered", kv_hot_window=64,
                   ffn_weight_store="int8"), {})):
         out[label] = _parity(label, arch, knobs, bknobs, dev)
+    out["B preempted"] = _parity_preempt(dev)
     return out
+
+
+def _parity_preempt(dev) -> dict:
+    """f32, path B (hot window 64, int8 FFN), 2 slots and 2 verbatim
+    spill lanes: 2 priority-0 VQA requests, then after 3 steps a
+    priority-1 text request that preempts one of them. The preempted
+    Engine's tokens against the same requests served by an unpressured
+    Engine (same backend, equal priorities: nobody is evicted); the
+    decode batch is the 2 slots in both, so a verbatim restore should
+    give the same tokens bit for bit. A differing token passes only at a
+    tie of `generate`'s logits (top-2 margin < 1e-3)."""
+    import copy
+
+    import torch
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.serving import Engine, LocalBackend
+
+    label = "B preempted"
+    cfg, model, params = _model("mobilevlm-3b", "float32", dev,
+                                kv_policy="tiered", kv_hot_window=64,
+                                ffn_weight_store="int8")
+    reqs = _requests(cfg, n_vqa=2, n_text=1, text_with_image=64,
+                     text_len=128, gen_len=16, seed=1)
+    calm_reqs = copy.deepcopy(reqs)
+    (text,) = [r for r in reqs if r.patches is None]
+    text.priority = 1
+    backend = LocalBackend(model, params, 2, 224, device=dev, n_spill=2,
+                           spill_compress=False)
+    engine = Engine(backend)
+    for r in reqs:
+        if r is not text:
+            engine.submit(r)
+    for _ in range(3):
+        engine.step()
+    engine.run([text])
+    st = engine.stats
+    require(st["evictions"] > 0 and st["restores"] == st["evictions"],
+            f"{label}: the priority-1 request preempted nothing: {st}")
+    calm = Engine(backend)
+    calm.run(calm_reqs)
+    require(calm.stats["evictions"] == 0, f"{label}: unpressured run "
+            f"evicted: {calm.stats}")
+    want = {r.rid: r.generated for r in calm.finished}
+    ties = 0
+    for r in sorted(engine.finished, key=lambda r: r.rid):
+        got, ref = r.generated, want[r.rid]
+        require(len(got) == len(ref) == r.max_new_tokens,
+                f"{label} request {r.rid}: token counts {len(got)}, "
+                f"{len(ref)}")
+        for t, (a, b) in enumerate(zip(got, ref)):
+            if a == b:
+                continue
+            batch = {"tokens": r.tokens[None]}
+            if r.patches is not None:
+                batch["patches"] = r.patches[None]
+            _, _, logits = generate(model, params, batch, r.prompt_len,
+                                    r.max_new_tokens, device=dev,
+                                    return_logits=True)
+            top2 = logits[0, t].float().topk(2).values
+            margin = float(top2[0] - top2[1])
+            require(margin < 1e-3,
+                    f"{label} request {r.rid} step {t}: preempted token "
+                    f"{a} != unpressured {b} with top-2 margin "
+                    f"{margin:.3e} (not a tie)")
+            ties += 1
+            break
+        print(f"[parity] {label}: request {r.rid} (priority {r.priority}, "
+              f"{r.n_evictions} evictions, prompt {r.prompt_len}): "
+              f"preempted == unpressured "
+              f"{'(tie-broken)' if got != ref else ''}: {got[:8]}...")
+    del engine, calm, backend, params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"requests": len(reqs), "tie_breaks": ties,
+            "evictions": st["evictions"]}
 
 
 def _parity(label, arch, knobs, bknobs, dev) -> dict:
@@ -1275,35 +1375,180 @@ def _parity(label, arch, knobs, bknobs, dev) -> dict:
     return {"requests": len(reqs), "tie_breaks": ties}
 
 
-def serving_phase(dev: str = "cuda") -> dict:
-    """The three bf16 serving runs of RUNS, each with its launch check."""
+def serving_phase(pk: dict, dev: str = "cuda") -> dict:
+    """The three bf16 serving runs of RUNS, each with its launch check
+    and its chime_sim price, then path B under preemption (PREEMPT_RUNS)."""
     import torch
     out = {}
     for run in RUNS:
         out[run[0]] = serve_run(*run, dev=dev)
         if dev == "cuda":
             torch.cuda.empty_cache()
+    a, b = (out[RUNS[i][0]] for i in (1, 2))
+    b_chime = b["sim"]["sim_tokens_per_j"]
+    print(f"[sim] chime_sim analytic, on the traces this card served: B "
+          f"(CHIME mapping) on CHIME {b_chime:.2f} tok/J vs A (flat "
+          f"store) on the M3D-DRAM-only platform "
+          f"{a['sim_dram_only']['sim_tokens_per_j']:.2f} tok/J (= "
+          f"{b_chime / a['sim_dram_only']['sim_tokens_per_j']:.3f}x) and "
+          f"on CHIME {a['sim']['sim_tokens_per_j']:.2f} tok/J")
+    _, arch, knobs, _, _, _ = RUNS[2]
+    built = _model(arch, "bfloat16", dev, **knobs)    # shared by both
+    for label, bknobs, eknobs in PREEMPT_RUNS:
+        out[label] = preempt_run(label, bknobs, eknobs, pk, built, dev=dev)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
     return out
 
 
-def serve_run(label, arch, knobs, bknobs, text_with_image, needs,
-              dev: str = "cuda") -> dict:
+# path B under priority traffic: (label, backend knobs, engine knobs)
+PREEMPT_RUNS = (
+    ("B-preempt", dict(spill_compress=False), {}),
+    ("B-offload", dict(spill_compress=True), dict(idle_offload_steps=16)),
+)
+
+
+def preempt_run(label, bknobs, eknobs, pk: dict, built,
+                dev: str = "cuda") -> dict:
+    """Path B at full width and depth, 4 slots and 4 RRAM spill lanes:
+    8 priority-0 requests (4 VQA, 4 text; 64 new tokens each), 3 engine
+    steps, then 4 priority-1 text requests (64-token prompts, 16 new
+    tokens) that preempt runners (the serve CLI's --priority-every
+    order). A Telemetry hub records the run; its ledger must reconcile
+    exactly with simulated_efficiency, its trace and exposition must
+    parse, and the spill lanes' RRAM counters must equal their oracle.
+    ``built``: path B's (cfg, Model, params) from `_model`."""
+    import json as _json
+
     import numpy as np
-    import torch
 
     from repro_torch import kernels
-    from repro_torch.serving import Engine, LocalBackend, aggregate_metrics
+    from repro_torch.core import kv_tiers as KT
+    from repro_torch.serving import (LocalBackend, Request, Telemetry,
+                                     parse_prometheus, slot_kv_bytes,
+                                     spill_lane_bytes,
+                                     validate_chrome_trace)
 
-    cfg, model, params = _model(arch, "bfloat16", dev, **knobs)
-    max_len, gen_len = 512, 64
-    reqs = _requests(cfg, n_vqa=4, n_text=4,
-                     text_with_image=text_with_image, text_len=256,
-                     gen_len=gen_len, seed=2)
-    backend = LocalBackend(model, params, 4, max_len, device=dev, **bknobs)
-    for k, v in bknobs.items():
-        require(getattr(backend, k) == v, f"{label}: backend {k} != {v}")
+    text_with_image, needs = RUNS[2][4:]
+    cfg, model, params = built
+    max_len = 512
+    low = _requests(cfg, n_vqa=4, n_text=4, text_with_image=text_with_image,
+                    text_len=256, gen_len=64, seed=2)
+    rng = np.random.default_rng(3)
+    high = [Request(rid=100 + i, priority=1, max_new_tokens=16,
+                    tokens=rng.integers(0, cfg.vocab_size, 64)
+                    .astype(np.int32)) for i in range(4)]
+    backend = LocalBackend(model, params, 4, max_len, device=dev, n_spill=4,
+                           **bknobs)
+    require(backend.spill_compress == bknobs["spill_compress"]
+            and backend.n_spill == 4, f"{label}: spill knobs not resolved")
+    tel = Telemetry()
+    engine, step_s, sync = timed_engine(backend, dev, telemetry=tel,
+                                        **eknobs)
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in low:
+        engine.submit(r)
+    for _ in range(3):
+        engine.step()
+    engine.run(high)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    done = engine.finished
+    res = check_run(label, cfg, model, engine, done, len(low) + len(high),
+                    counts, needs)
+    st = dict(engine.stats)
+    require(st["evictions"] > 0, f"{label}: nothing was preempted: {st}")
+    if eknobs.get("idle_offload_steps"):
+        require(st["idle_offloads"] > 0,
+                f"{label}: no idle offload happened: {st}")
+    require(st["restores"] == st["evictions"] + st["idle_offloads"]
+            and not engine._spilled
+            and all(len(r.evict_times) == len(r.restore_times)
+                    for r in done),
+            f"{label}: a parked request was not restored: {st}")
+    # the lanes' cumulative RRAM counters against their oracle
+    sw = engine.pool.state.spill_writes.cpu()
+    ctxs = [c for r in done for c in r.evict_ctx]
+    require(len(ctxs) == st["evictions"] + st["idle_offloads"]
+            and sw.sum(dim=0).tolist() == KT.expected_spill_block_writes(
+                sw.shape[1], ctxs).tolist(),
+            f"{label}: spill counters {sw.tolist()} != oracle over {ctxs}")
+    rep = engine.endurance_report()
+    require(rep["total_spill_writes"] == int(sw.sum()),
+            f"{label}: endurance report misses spill writes: {rep}")
+    timing(label, done, wall, step_s, max_len, res)
+    # the ledger, priced live, against the end-of-run price: the same
+    # floats (fsum over the same term multiset)
+    sim = sim_ledger(label, backend, done)
+    led = tel.ledger.totals()
+    for k in ("sim_energy_j", "sim_total_s", "sim_spill_energy_j",
+              "sim_spill_s", "sim_energy_split_j"):
+        require(led[k] == sim[k], f"{label}: ledger {k} {led[k]!r} != "
+                f"simulated_efficiency {sim[k]!r}")
+    OUT.mkdir(parents=True, exist_ok=True)
+    trace = tel.chrome_trace()
+    info = validate_chrome_trace(trace)
+    require({"evict", "restore", "decode"} <= set(info["phases"]),
+            f"{label}: trace phases {info['phases']}")
+    (OUT / f"trace_{label}.json").write_text(_json.dumps(trace))
+    prom = tel.prometheus()
+    samples = parse_prometheus(prom)
+    require(samples, f"{label}: empty Prometheus exposition")
+    (OUT / f"metrics_{label}.prom").write_text(prom)
+    print(f"[spill] {label}: {st['evictions']} preemptions, "
+          f"{st['idle_offloads']} idle offloads, {st['restores']} restores "
+          f"of {len(done)} requests; spill writes {int(sw.sum())} == "
+          f"oracle; write-once OK; ledger reconciles with "
+          f"simulated_efficiency: EXACT (dram "
+          f"{led['sim_energy_split_j'].get('dram', 0.0):.4g} J, rram "
+          f"{led['sim_energy_split_j'].get('rram', 0.0):.4g} J, spill "
+          f"{led['sim_spill_energy_j']:.4g} J); trace {info['spans']} "
+          f"spans / {info['counters']} counters valid, exposition "
+          f"{len(samples)} samples valid")
+    # one evict and one restore on the card, beside the least time their
+    # bytes need: the slot image read once and the lane written once
+    # (evict), the lane read once and the slot written once (restore)
+    verbatim = spill_lane_bytes(model, max_len, False)
+    compressed = spill_lane_bytes(model, max_len, True)
+    require(compressed < verbatim, f"{label}: compressed lane not smaller")
+    slot_b = sum(slot_kv_bytes(model, max_len))
+    lane_b = backend.spill_lane_bytes()
+    state = engine.pool.state
+    bound_ms = (slot_b + lane_b) / pk["bw"] * 1e3
+    if dev == "cuda":
+        ev_ms = event_ms(lambda: backend.evict_slot(state, 0, 0, max_len - 1),
+                         n=1, reps=5)
+        rs_ms = event_ms(lambda: backend.restore_slot(state, 0, 0),
+                         n=1, reps=5)
+    else:
+        ev_ms = rs_ms = float("nan")
+    print(f"[spill] {label}: lane bytes verbatim {verbatim} / compressed "
+          f"{compressed} (this run's lanes: {lane_b}); evict_slot "
+          f"{ev_ms:.4f} ms, restore_slot {rs_ms:.4f} ms device time "
+          f"(CUDA events, median of 5) beside a bound of {bound_ms:.4f} ms "
+          f"({slot_b} + {lane_b} bytes at {pk['bw'] / 1e12:.2f} TB/s)")
+    res.update({"stats": st, "sim": sim, "spill_writes": int(sw.sum()),
+                "lane_bytes_verbatim": verbatim,
+                "lane_bytes_compressed": compressed,
+                "evict_ms": ev_ms, "restore_ms": rs_ms,
+                "spill_bound_ms": bound_ms,
+                "trace": {k: info[k] for k in ("spans", "counters")},
+                "prometheus_samples": len(samples)})
+    return res
+
+
+def timed_engine(backend, dev: str, **engine_kw):
+    """(Engine over ``backend``, list of host-timed decode steps in s,
+    sync): each batched decode step timed from a synchronized start to
+    its host tokens."""
+    import torch
+
+    from repro_torch.serving import Engine
+
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
-    engine = Engine(backend)
     step_s = []
     decode = backend.decode_step
 
@@ -1315,21 +1560,22 @@ def serve_run(label, arch, knobs, bknobs, text_with_image, needs,
         return res
 
     backend.decode_step = timed_decode
-    sync()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    done = engine.run(reqs)
-    sync()
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    require(len(done) == len(reqs), f"{label}: not every request finished")
+    return Engine(backend, **engine_kw), step_s, sync
+
+
+def check_run(label, cfg, model, engine, done, n_reqs, counts,
+              needs) -> dict:
+    """Every request finished with all its tokens, in the vocabulary;
+    every layer of every model call launched each of the run's kernels
+    once (norms: two a layer and the final one) and nothing else
+    launched; on the tiered store a cold page was live and every cold
+    slot was written at most once."""
+    require(len(done) == n_reqs, f"{label}: not every request finished")
     for r in done:
-        require(r.n_generated == gen_len,
+        require(r.n_generated == r.max_new_tokens,
                 f"{label}: request {r.rid} made {r.n_generated} tokens")
         require(all(0 <= t < model.padded_vocab for t in r.generated),
                 f"{label}: request {r.rid}: token id out of range")
-    # every layer of every model call launches each of the run's kernels
-    # once (norms: two a layer and the final one); nothing else launches
     n_layers = cfg.num_layers
     ext, dec = engine.stats["extend_calls"], engine.stats["decode_steps"]
     want = {"fused_norm": (2 * n_layers + 1) * (ext + dec),
@@ -1348,12 +1594,20 @@ def serve_run(label, arch, knobs, bknobs, text_with_image, needs,
     res = {"requests": len(done), "max_context": ctx, "launches": counts,
            "extend_calls": ext, "decode_steps_engine": dec}
     if cfg.kv_policy == "tiered":
-        W = cfg.kv_hot_window
         rep = engine.endurance_report()
-        require(ctx > W and rep["total_cold_writes"] > 0,
+        require(ctx > cfg.kv_hot_window and rep["total_cold_writes"] > 0,
                 f"{label}: no cold page was live")
         require(rep["write_once_ok"], f"{label}: endurance violated: {rep}")
         res["cold_writes"] = rep["total_cold_writes"]
+    return res
+
+
+def timing(label, done, wall, step_s, max_len, res) -> None:
+    """Step p50/p95 and TTFT of a drained run, into ``res`` and printed."""
+    import numpy as np
+
+    from repro_torch.serving import aggregate_metrics
+
     m = aggregate_metrics(done, wall)
     dec_ms = 1e3 * np.asarray(step_s)
     res.update({"tokens": m["total_tokens"], "wall_s": wall,
@@ -1369,7 +1623,61 @@ def serve_run(label, arch, knobs, bknobs, text_with_image, needs,
           f"{res['ttft_p50_ms']:.1f} ms p95 {res['ttft_p95_ms']:.1f} ms; "
           f"decode step p50 {res['decode_step_p50_ms']:.2f} ms p95 "
           f"{res['decode_step_p95_ms']:.2f} ms over {res['decode_steps']} "
-          f"steps; context {ctx}; launches {counts}")
+          f"steps; context {res['max_context']}; launches "
+          f"{res['launches']}")
+
+
+def sim_ledger(label, backend, done, platform=None) -> dict:
+    """chime_sim's analytic price of the served trace on ``platform``
+    (default CHIME; host arithmetic after the run, nothing measured)."""
+    from repro_torch.serving import simulated_efficiency
+    from repro_torch.simulator import CHIME
+
+    cfg, comp = backend.sim_context()
+    sim = simulated_efficiency(cfg, done, platform or CHIME,
+                               spill_compressed=comp,
+                               fused_decode=backend.fused_decode,
+                               sparse_read_tau=backend.sparse_read_tau)
+    split = sim["sim_energy_split_j"]
+    print(f"[sim] {label}: chime_sim analytic figure for the "
+          f"{sim['platform']} platform (not measured on this card), "
+          f"priced on the served trace: {sim['sim_tokens_per_j']:.2f} "
+          f"tok/J, {sim['sim_energy_j']:.4f} J, "
+          f"{sim['sim_total_s']:.4f} s; split "
+          + ", ".join(f"{d} {v:.4g} J" for d, v in split.items())
+          + (f"; {sim['sim_spills']} spills, "
+             f"{sim['sim_spill_energy_j']:.4g} J" if sim["sim_spills"]
+             else ""))
+    return sim
+
+
+def serve_run(label, arch, knobs, bknobs, text_with_image, needs,
+              dev: str = "cuda") -> dict:
+    from repro_torch import kernels
+    from repro_torch.serving import LocalBackend
+    from repro_torch.simulator import DRAM_ONLY
+
+    cfg, model, params = _model(arch, "bfloat16", dev, **knobs)
+    max_len, gen_len = 512, 64
+    reqs = _requests(cfg, n_vqa=4, n_text=4,
+                     text_with_image=text_with_image, text_len=256,
+                     gen_len=gen_len, seed=2)
+    backend = LocalBackend(model, params, 4, max_len, device=dev, **bknobs)
+    for k, v in bknobs.items():
+        require(getattr(backend, k) == v, f"{label}: backend {k} != {v}")
+    engine, step_s, sync = timed_engine(backend, dev)
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = engine.run(reqs)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    res = check_run(label, cfg, model, engine, done, len(reqs), counts,
+                    needs)
+    timing(label, done, wall, step_s, max_len, res)
+    res["sim"] = sim_ledger(label, backend, done)
+    res["sim_dram_only"] = sim_ledger(label, backend, done, DRAM_ONLY)
     if dev == "cuda":
         res["profile"] = profile_decode(label, model, params, cfg,
                                         text_with_image, bknobs, dev)
@@ -1621,15 +1929,23 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line.lower():
                 print(f"[ptxas] {k}: {line.strip()}")
 
-    report = {"card": card, "build_s": build_s}
+    report = {"card": card, "build_s": build_s, "phase_s": {}}
     kern = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        report["phase_s"][name] = time.perf_counter() - t
+        print(f"[time] {name} phase: {report['phase_s'][name]:.1f} s")
+        return out
+
     if "kernels" in phases:
         report["sass"] = sass_check()
-        kern = kernel_phase(pk)
+        kern = timed("kernels", kernel_phase, pk)
     if "parity" in phases:
-        report["parity"] = parity_phase()
+        report["parity"] = timed("parity", parity_phase)
     if "serving" in phases:
-        report["serving"] = serving_phase()
+        report["serving"] = timed("serving", serving_phase, pk)
     launches = {k: sum(run["launches"].get(k, 0)
                        for run in report.get("serving", {}).values())
                 for k in REPLACES}

@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quant import dequantize_per_token, quantize_per_token
+from repro_torch.core.quant import (compress_spill_hot, decompress_spill_hot,
+                                    dequantize_per_token, quantize_per_token)
 
 ENDURANCE_BLOCK = 128  # tokens per endurance-accounting block
 
@@ -210,6 +211,96 @@ def store_read(store: dict, pos, dtype=torch.bfloat16
     p = p.to(device=flat.device, dtype=torch.long)
     valid = torch.arange(flat.shape[1], device=flat.device) <= p[..., None]
     return flat.to(dtype), valid
+
+
+# ---------------------------------------------------------------------------
+# RRAM spill store accounting (serving preemption).
+#
+# A preempted (or idle-offloaded) slot's cache is packed into an RRAM
+# spill lane. Like the one-shot `tiered_from_full` cold write, a spill is
+# one front-to-back pass over the packed image: it writes every
+# endurance block that holds a valid position exactly once. Lane
+# counters are CUMULATIVE across spill events (RRAM wear does not reset
+# when a lane is recycled).
+# ---------------------------------------------------------------------------
+def init_spill_writes(n_lanes: int, max_len: int,
+                      device="cpu") -> torch.Tensor:
+    """Per-(lane, block) RRAM write counters for a spill store."""
+    return torch.zeros((n_lanes, n_endurance_blocks(max_len)),
+                       dtype=torch.int32, device=device)
+
+
+def spill_block_writes(n_blocks: int, length, device="cpu") -> torch.Tensor:
+    """Per-block writes of ONE packed spill of a ``length``-token context:
+    blocks [0, ceil(length / ENDURANCE_BLOCK)) are each written once (a
+    partly filled tail block is still a physical block write)."""
+    touched = (int(length) + ENDURANCE_BLOCK - 1) // ENDURANCE_BLOCK
+    blk = torch.arange(n_blocks, device=device)
+    return (blk < touched).to(torch.int32)
+
+
+def bump_spill_writes(writes: torch.Tensor, lane, length) -> torch.Tensor:
+    """Record one spill of a ``length``-token context into ``lane``, in
+    place (the reference returns a new array); returns ``writes``."""
+    writes[int(lane)] += spill_block_writes(writes.shape[1], length,
+                                            writes.device)
+    return writes
+
+
+def expected_spill_block_writes(n_blocks: int, lengths) -> torch.Tensor:
+    """Expected cumulative per-block writes of ONE lane that absorbed a
+    sequence of spills with context lengths ``lengths`` (the oracle the
+    endurance tests hold `bump_spill_writes` to exactly)."""
+    out = torch.zeros((n_blocks,), dtype=torch.int32)
+    for ln in lengths:
+        out = out + spill_block_writes(n_blocks, ln)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# compressed spill lanes (opt-in, serving --spill-compress)
+#
+# A compressed lane stores the full-precision hot ring in the int8 codec
+# form (`core.quant.compress_spill_hot`): "hot" becomes "hot_q" (int8,
+# same shape) + "hot_scale" (f32, trailing axis 1). The cold tier, cold
+# scales, endurance counters and flat stores ride verbatim, so only the
+# hot window pays the bounded requantization error on restore.
+# ---------------------------------------------------------------------------
+def spill_store_compress(store: dict) -> dict:
+    """Pack one tiered store into compressed-lane form."""
+    out = {k: v for k, v in store.items() if k != "hot"}
+    out["hot_q"], out["hot_scale"] = compress_spill_hot(store["hot"])
+    return out
+
+
+def spill_store_decompress(store: dict, dtype=torch.bfloat16) -> dict:
+    """Restore a compressed-lane store to the cache layout."""
+    out = {k: v for k, v in store.items()
+           if k not in ("hot_q", "hot_scale")}
+    out["hot"] = decompress_spill_hot(store["hot_q"], store["hot_scale"],
+                                      dtype)
+    return out
+
+
+def spill_store_template(store: dict) -> dict:
+    """Zero compressed-lane tensors shaped after a full-precision store
+    (the lazy lane materialization)."""
+    out = {k: v for k, v in store.items() if k != "hot"}
+    hot = store["hot"]
+    out["hot_q"] = torch.zeros(hot.shape, dtype=torch.int8,
+                               device=hot.device)
+    out["hot_scale"] = torch.ones(hot.shape[:-1] + (1,),
+                                  dtype=torch.float32, device=hot.device)
+    return out
+
+
+def spill_store_meta(store: dict) -> dict:
+    """Mirror per-leaf metadata (slot-axis indices) onto the compressed
+    layout: the hot entry serves both hot_q and hot_scale."""
+    out = {k: v for k, v in store.items() if k != "hot"}
+    out["hot_q"] = store["hot"]
+    out["hot_scale"] = store["hot"]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Per-(token, head) symmetric int8 quantization — the KV cold-tier codec.
+"""Per-(token, head) symmetric int8 quantization: the KV cold-tier codec
+and the compressed spill-lane codec.
 
 Port of the reference's `quantize_per_token` / `dequantize_per_token`.
 The int8 payload and the f32 scale match the reference bit for bit: f32
@@ -25,3 +26,40 @@ def quantize_per_token(x: torch.Tensor, bits: int = 8
 def dequantize_per_token(q: torch.Tensor, scale: torch.Tensor,
                          dtype=torch.bfloat16) -> torch.Tensor:
     return (q.float() * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RRAM spill-lane hot-ring codec (serving: compressed spill lanes).
+#
+# A compressed spill lane re-quantizes the full-precision hot ring with
+# the SAME per-(token, head) symmetric int8 scheme as the cold tier, so
+# one codec and one error contract cover both. For each feature row r
+# (the trailing axis sharing one scale):
+#
+#     |x - decompress(compress(x))| <= max|r| / 254      elementwise
+#
+# (scale = max|r|/127, rounding error <= scale/2; an all-zero row comes
+# back exactly). `spill_codec_bound` materializes that bound.
+# ---------------------------------------------------------------------------
+SPILL_CODEC_QMAX = 127.0  # int8 symmetric levels per polarity
+
+
+def compress_spill_hot(hot: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Hot ring -> (int8, f32 scale[..., 1]) lane form."""
+    return quantize_per_token(hot)
+
+
+def decompress_spill_hot(q: torch.Tensor, scale: torch.Tensor,
+                         dtype=torch.bfloat16) -> torch.Tensor:
+    """Restore a compressed hot ring to the cache dtype; the error is
+    bounded by `spill_codec_bound`."""
+    return dequantize_per_token(q, scale, dtype)
+
+
+def spill_codec_bound(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise reconstruction-error bound of the spill codec for
+    input ``x``: max|feature row| / 254, broadcast over the row."""
+    xf = x.float()
+    return (xf.abs().amax(dim=-1, keepdim=True)
+            / (2.0 * SPILL_CODEC_QMAX)).expand_as(xf)

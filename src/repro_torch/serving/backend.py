@@ -14,12 +14,20 @@ the two step programs:
     kernel sees each slot's real length and block table. Inactive slots
     keep their cache verbatim (no phantom appends, no endurance drift).
 
+Preemption and idle offload park a slot in an RRAM spill lane
+(`evict_slot`) and bring it back into any free slot (`restore_slot`):
+plain strided copies per cache leaf on its slot axis, verbatim (restore
+bit-exact) or, under ``spill_compress``, with the hot ring in the int8
+spill codec. Unlike the reference's functional programs, both write in
+place — evict into the lane store, restore into the pool — so a spill
+moves the lane's bytes once instead of copying the whole pool; the
+engine always replaces its state with the one returned.
+
 Everything runs on ``device`` (default "cuda"; raises without a card —
-pass device="cpu" to run on the CPU). Preemption spill lanes, the paged
-prefix store, weight streaming and the sharded executor are not ported
-yet: their entry points raise NotImplementedError naming the ROADMAP
-item, and the engine reaches them only under priority traffic,
-oversubscription or paging.
+pass device="cpu" to run on the CPU). The paged prefix store, weight
+streaming and the sharded executor are not ported yet: their entry
+points raise NotImplementedError naming the ROADMAP item, and the
+engine reaches them only under paging.
 """
 
 from __future__ import annotations
@@ -36,12 +44,20 @@ from repro_torch.device import resolve_device
 from repro_torch.models import Model
 from repro_torch.models.counting import weight_stream_split
 from repro_torch.serving.kv_pool import (KVPoolState, TieredKVPool,
-                                         batch_axes, slot_insert,
-                                         slot_kv_bytes, slot_select,
-                                         spill_lane_bytes)
+                                         batch_axes, map_spill_stores,
+                                         slot_insert, slot_kv_bytes,
+                                         slot_select, spill_lane_bytes)
 from repro_torch.tree import tree_map
 
-_SPILL = "ROADMAP Queue 1 item 6 (preemption and spill lanes)"
+
+def _resolve_spill_compress(flag: bool | None) -> bool:
+    """Resolve the compressed-spill-lane knob: an explicit bool wins;
+    None consults ``REPRO_SERVE_SPILL_COMPRESS`` (unset/empty/"0" = off,
+    anything else = on)."""
+    if flag is not None:
+        return bool(flag)
+    return os.environ.get("REPRO_SERVE_SPILL_COMPRESS",
+                          "").strip() not in ("", "0")
 
 
 def _resolve_fused_decode(flag: bool | None) -> bool:
@@ -79,7 +95,8 @@ class InferenceBackend(Protocol):
     hot_window: int
     requires_exact_prefill: bool
     chunk_unit: int
-    n_spill: int
+    n_spill: int              # RRAM spill lanes (0 = no preemption)
+    spill_compress: bool      # int8 hot ring in the lanes (resolved)
     fused_decode: bool        # fused paged-decode attention (resolved)
     sparse_read_tau: float    # SLIM page skip inside it (0.0 = exact)
 
@@ -101,17 +118,29 @@ class InferenceBackend(Protocol):
 
     def decode_step(self, toks, state: KVPoolState, pos, active): ...
 
+    def evict_slot(self, state: KVPoolState, slot, lane, length
+                   ) -> KVPoolState: ...
+
+    def restore_slot(self, state: KVPoolState, lane, slot
+                     ) -> KVPoolState: ...
+
 
 class LocalBackend:
     """Single-device executor: every slot decodes in one batched call."""
 
     def __init__(self, model: Model, params: dict, num_slots: int,
                  max_len: int, *, device=None,
+                 n_spill: int | None = None,
+                 spill_compress: bool | None = None,
                  fused_decode: bool | None = None,
                  sparse_read: float | None = None):
         cfg = model.cfg
         if num_slots < 1:
             raise ValueError("backend needs at least one decode slot")
+        if n_spill is None:
+            n_spill = num_slots      # preemption available out of the box
+        if n_spill < 0:
+            raise ValueError("backend needs n_spill >= 0")
         if cfg.weight_stream_layers:
             raise NotImplementedError(
                 "weight streaming: ROADMAP Queue 1 item 6")
@@ -139,9 +168,7 @@ class LocalBackend:
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.num_slots = num_slots
         self.max_len = max_len
-        # spill lanes the scheduler may plan with, as the reference's
-        # default; evict_slot/restore_slot raise until spill is ported
-        self.n_spill = num_slots
+        self.n_spill = n_spill
         self.hot_window = min(cfg.kv_hot_window, max_len)
         self.requires_exact_prefill = False   # attention-only plans
         self.chunk_unit = 1
@@ -150,6 +177,14 @@ class LocalBackend:
         self.block_tokens = min(KT.ENDURANCE_BLOCK, max_len)
         self.prefix_blocks = num_slots * (-(-max_len // self.block_tokens))
         self._axes = batch_axes(model, model.cache_spec(num_slots, max_len))
+        # compressed lanes restructure the tiered stores (hot ->
+        # hot_q/hot_scale), so the lane tree has its own axis tree; a
+        # flat cache has no hot ring, so the flag resolves to off there
+        self.spill_compress = _resolve_spill_compress(spill_compress) \
+            and cfg.kv_policy == "tiered"
+        self._spill_axes = (map_spill_stores(self._axes,
+                                             KT.spill_store_meta)
+                            if self.spill_compress else self._axes)
         self._zero_slot = None
         self._zero_ext = None
 
@@ -160,14 +195,15 @@ class LocalBackend:
                              block_tokens=self.block_tokens)
 
     def spill_lane_bytes(self) -> int:
-        return spill_lane_bytes(self.model, self.max_len)
+        return spill_lane_bytes(self.model, self.max_len,
+                                self.spill_compress)
 
     def weight_bytes(self) -> tuple[int, int]:
         return weight_stream_split(self.model.cfg)
 
     def sim_context(self) -> tuple:
         """(config, spill lanes compressed) for a telemetry ledger."""
-        return self.model.cfg, False
+        return self.model.cfg, self.spill_compress
 
     # ---- pool --------------------------------------------------------
     def init_pool(self) -> KVPoolState:
@@ -228,13 +264,59 @@ class LocalBackend:
         cache = slot_select(new, state.cache, state.axes, active)
         return ntoks, dataclasses.replace(state, cache=cache)
 
+    # ---- spill lanes ---------------------------------------------------
+    def evict_slot(self, state: KVPoolState, slot, lane, length
+                   ) -> KVPoolState:
+        """Pack slot ``slot``'s cache into spill lane ``lane`` (verbatim,
+        or the hot ring int8-requantized under spill_compress) and bump
+        the lane's endurance counters for a ``length``-token context.
+        The lane store is written in place; the cache is only read."""
+        if self.n_spill == 0:
+            raise ValueError("backend was built with n_spill=0; nothing "
+                             "can be evicted")
+        if state.spill is None:           # first eviction: materialize
+            lanes = self.model.init_cache(self.n_spill, self.max_len,
+                                          self.device)
+            if self.spill_compress:
+                lanes = map_spill_stores(lanes, KT.spill_store_template)
+            state = dataclasses.replace(
+                state, spill=lanes,
+                spill_writes=KT.init_spill_writes(self.n_spill,
+                                                  self.max_len,
+                                                  self.device),
+                spill_axes=(self._spill_axes if self.spill_compress
+                            else None))
+        slot, lane = int(slot), int(lane)
+        img = tree_map(lambda c, a: c.narrow(a, slot, 1), state.cache,
+                       self._axes)
+        if self.spill_compress:
+            img = map_spill_stores(img, KT.spill_store_compress)
+        tree_map(lambda s, r, a: s.narrow(a, lane, 1).copy_(r),
+                 state.spill, img, self._spill_axes)
+        KT.bump_spill_writes(state.spill_writes, lane, length)
+        return state
+
+    def restore_slot(self, state: KVPoolState, lane, slot
+                     ) -> KVPoolState:
+        """Copy spill lane ``lane`` back into pool slot ``slot`` in place:
+        bit-exact from a verbatim lane; under spill_compress the hot ring
+        comes back within `core.quant.spill_codec_bound`. Every other
+        slot, and every lane counter, is left as it was."""
+        if state.spill is None:
+            raise ValueError("nothing has been spilled; there is no "
+                             "lane to restore from")
+        lane, slot = int(lane), int(slot)
+        img = tree_map(lambda s, a: s.narrow(a, lane, 1), state.spill,
+                       self._spill_axes)
+        if self.spill_compress:
+            cd = self.model.compute_dtype
+            img = map_spill_stores(
+                img, lambda st: KT.spill_store_decompress(st, cd))
+        tree_map(lambda c, r, a: c.narrow(a, slot, 1).copy_(r),
+                 state.cache, img, self._axes)
+        return state
+
     # ---- not on this slice -------------------------------------------
-    def evict_slot(self, state, slot, lane, length):
-        raise NotImplementedError(f"evict_slot: {_SPILL}")
-
-    def restore_slot(self, state, lane, slot):
-        raise NotImplementedError(f"restore_slot: {_SPILL}")
-
     def ensure_prefix(self, state):
         raise NotImplementedError(f"ensure_prefix: {_PREFIX}")
 
@@ -255,11 +337,14 @@ class LocalBackend:
 
 
 def make_backend(kind: str, model: Model, params, *, num_slots: int,
-                 max_len: int, device=None, fused_decode: bool | None = None,
+                 max_len: int, device=None, n_spill: int | None = None,
+                 spill_compress: bool | None = None,
+                 fused_decode: bool | None = None,
                  sparse_read: float | None = None) -> InferenceBackend:
     """CLI-facing factory; only ``kind='local'`` is ported."""
     if kind == "local":
         return LocalBackend(model, params, num_slots, max_len, device=device,
+                            n_spill=n_spill, spill_compress=spill_compress,
                             fused_decode=fused_decode,
                             sparse_read=sparse_read)
     if kind == "sharded":

@@ -10,7 +10,8 @@ Port of the reference's `serving/kv_pool.py`: `KVPoolState` is a plain
 dataclass (no pytree registration; the cache tree plus a matching tree
 of slot-axis indices), `TieredKVPool` is host-side slot bookkeeping, and
 the byte math shares `models.counting.kv_elems_per_token` with the rest
-of the stack. Spill lanes and the prefix store are not ported yet.
+of the stack. The RRAM spill lanes live beside the cache in the state;
+the paged prefix store is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,14 +30,35 @@ from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map
 class KVPoolState:
     """``cache``: the slot-batched cache tree. ``axes``: a matching tree
     of ints, each leaf's slot-axis index (1 for stacked units, whose
-    leading axis is the layer repeat)."""
+    leading axis is the layer repeat).
+
+    ``spill``: the RRAM spill store (preemption victims and idle
+    offloads), a tree like ``cache`` whose slot axis holds *spill
+    lanes*, or None until the first eviction materializes it (a pool
+    that never spills never pays for the copy) or when the backend has
+    no lanes. Compressed lanes store the hot ring in int8 codec form, so
+    their tree differs from the cache's: ``spill_axes`` then carries its
+    own axis tree (None: the lanes mirror ``cache`` and ``axes``
+    addresses both). ``spill_writes``: (n_lanes, n_endurance_blocks)
+    int32 cumulative RRAM write counters per lane, never reset.
+    """
 
     cache: dict
     axes: dict
+    spill: dict | None = None
+    spill_writes: torch.Tensor | None = None
+    spill_axes: dict | None = None
 
     @property
     def num_slots(self) -> int:
         return tree_leaves(self.cache)[0].shape[tree_leaves(self.axes)[0]]
+
+    @property
+    def num_spill_lanes(self) -> int:
+        if self.spill is None:
+            return 0
+        axes = self.axes if self.spill_axes is None else self.spill_axes
+        return tree_leaves(self.spill)[0].shape[tree_leaves(axes)[0]]
 
 
 def batch_axes(model, cache: dict) -> dict:
@@ -63,6 +85,19 @@ def slot_select(new: dict, old: dict, axes: dict,
         shape[a] = n.shape[a]
         return torch.where(active.view(shape), n, o)
     return tree_map(leaf, new, old, axes)
+
+
+def map_spill_stores(tree, fn):
+    """Rebuild a cache/spill tree with every TIERED store dict (one
+    carrying a hot ring: 'hot', or its compressed 'hot_q' form) passed
+    through ``fn``; flat stores are left in place. The structural
+    transform between a slot image and its compressed lane form, and
+    between their axis trees (with `kv_tiers.spill_store_meta`)."""
+    if isinstance(tree, dict):
+        if "hot" in tree or "hot_q" in tree:
+            return fn(tree)
+        return {k: map_spill_stores(v, fn) for k, v in tree.items()}
+    return tree
 
 
 # keys of the sequence-store leaves inside a block cache; anything else
@@ -108,14 +143,30 @@ def slot_kv_bytes(model, max_len: int, *, length: int | None = None,
     return int(hot), int(cold)
 
 
-def spill_lane_bytes(model, max_len: int, *, length: int | None = None,
+def spill_lane_bytes(model, max_len: int, compressed: bool = False, *,
+                     length: int | None = None,
                      block_tokens: int | None = None) -> int:
-    """RRAM bytes ONE occupied (verbatim) spill lane pins: the full slot
-    image, hot and cold halves (the compressed-lane codec is not ported
-    yet)."""
+    """RRAM bytes ONE occupied spill lane pins while a request is parked.
+
+    A verbatim lane holds the full slot image (hot and cold halves of
+    `slot_kv_bytes`). A compressed lane stores the hot ring as int8 plus
+    per-(token, head) f32 scales while the cold tier rides verbatim; a
+    flat cache has no hot ring, so compression changes nothing there.
+    ``length``/``block_tokens`` apply the live block-granular charge of
+    `slot_kv_bytes`."""
     hot, cold = slot_kv_bytes(model, max_len, length=length,
                               block_tokens=block_tokens)
-    return hot + cold
+    cfg = model.cfg
+    if not compressed or cfg.kv_policy != "tiered":
+        return hot + cold
+    cd = model.compute_dtype.itemsize
+    W = min(cfg.kv_hot_window,
+            _charged_len(max_len, length, block_tokens))
+    ring = kv_elems_per_token(cfg) * W * cd
+    ring_q = kv_elems_per_token(cfg) * W          # int8 payload
+    ring_scale = kv_scale_elems_per_token(cfg) * W \
+        * torch.float32.itemsize
+    return hot - ring + ring_q + ring_scale + cold
 
 
 class TieredKVPool:
@@ -197,7 +248,9 @@ class TieredKVPool:
     def endurance_report(self, prefill_lens, total_lens,
                          hot_window: int) -> dict:
         """Audit writes<=1-per-cold-slot for the current occupants, given
-        the prompt and total lengths of each slot's last occupant."""
+        the prompt and total lengths of each slot's last occupant. The
+        spill lanes' cumulative counters are reported beside it; their
+        keys are present (as zeros) before the lanes materialize."""
         worst = self.worst_case_writes()
         if worst is None:
             rep = {"tiered": False, "write_once_ok": True,
@@ -217,8 +270,11 @@ class TieredKVPool:
                 "max_writes_per_cold_slot": float(ratio.max()),
                 "total_cold_writes": int(worst.sum()),
             }
+        sw = self.state.spill_writes
         rep["spill_lanes"] = self.num_spill_lanes
-        rep["total_spill_writes"] = 0
-        rep["max_spill_writes_per_block"] = 0
-        rep["total_rram_writes"] = rep.get("total_cold_writes", 0)
+        rep["total_spill_writes"] = 0 if sw is None else int(sw.sum())
+        rep["max_spill_writes_per_block"] = \
+            0 if sw is None else int(sw.max())
+        rep["total_rram_writes"] = rep.get("total_cold_writes", 0) \
+            + rep["total_spill_writes"]
         return rep

@@ -9,6 +9,8 @@ identical.
 
 from __future__ import annotations
 
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -21,7 +23,9 @@ from repro.serving import Request as RefRequest
 from repro_torch.configs.base import Segment, get_config
 from repro_torch.launch.serve import generate, main
 from repro_torch.models import Model
-from repro_torch.serving import Engine, LocalBackend, Request
+from repro_torch.serving import (Engine, LocalBackend, Request,
+                                 make_backend, parse_prometheus,
+                                 validate_chrome_trace)
 from repro_torch.tree import tree_leaves, tree_leaves_with_path
 from test_torch_config import ARCHS, build_pair
 
@@ -69,7 +73,8 @@ def _record_plans(engine):
         plans.append((tuple((c.req.rid, c.admit, c.start, c.length,
                              c.commit) for c in p.chunks), p.decode,
                       tuple(r.rid for r in p.evictions),
-                      tuple(r.rid for r in p.restores)))
+                      tuple(r.rid for r in p.restores),
+                      tuple(r.rid for r in p.offloads)))
         return p
     engine.scheduler.plan = recording
     return plans
@@ -224,15 +229,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_unported_paths_raise_not_implemented():
+    """What is still to port raises, naming its ROADMAP item: other
+    mixers, the paged prefix store, weight streaming and the sharded
+    backend. (Spill lanes are ported: evict_slot works.)"""
     cfg = get_config("granite-3-2b", reduced=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(cfg.replace(segments=(Segment(("mamba2",), 2),)))
     _, _, _, _, model, params = build_pair("granite-3-2b")
     be = LocalBackend(model, params, 2, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        be.evict_slot(be.init_pool(), 0, 0, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         be.ensure_prefix(be.init_pool())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LocalBackend(Model(model.cfg.replace(weight_stream_layers=1)),
+                     params, 2, 16, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_backend("sharded", model, params, num_slots=2, max_len=16,
+                     device="cpu")
+    assert be.evict_slot(be.init_pool(), 0, 0, 4).num_spill_lanes == 2
 
 
 def test_serve_cli_on_cpu():
@@ -241,3 +254,24 @@ def test_serve_cli_on_cpu():
                  "12", "--gen", "4", "--image-every", "2", "--hot-window",
                  "4", "--dtype", "float32"])
     assert len(done) == 3 and all(r.n_generated == 4 for r in done)
+
+
+def test_serve_cli_preempts_with_telemetry_on_cpu(tmp_path, capsys):
+    """Priority traffic mid-run, int8 spill lanes, chunked prefill and
+    the telemetry exports: every request finishes, something was
+    preempted, and the ledger reconciles EXACTLY with
+    simulated_efficiency."""
+    trace, prom = tmp_path / "trace.json", tmp_path / "metrics.prom"
+    done = main(["--arch", "fastvlm-1.7b", "--reduced", "--device", "cpu",
+                 "--requests", "6", "--concurrency", "2", "--prompt-len",
+                 "12", "--gen", "6", "--image-every", "3", "--hot-window",
+                 "4", "--dtype", "float32", "--priority-every", "2",
+                 "--spill-compress", "--chunk-tokens", "8",
+                 "--metrics-out", str(prom), "--trace-out", str(trace)])
+    out = capsys.readouterr().out
+    assert len(done) == 6 and all(r.n_generated == 6 for r in done)
+    assert "int8-compressed lanes" in out and "preemptions" in out
+    assert "chunked prefill:" in out and "tok/J" in out
+    assert "(reconciles with simulated_efficiency: EXACT)" in out
+    validate_chrome_trace(json.loads(trace.read_text()))
+    assert parse_prometheus(prom.read_text())
