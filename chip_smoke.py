@@ -17,10 +17,12 @@ source, all started together; seven kernels), then:
      paged_decode_flat and paged_decode_tiered at B = 4 slots,
      attn_stream at S = L = 256; qkv_proj at M = 1, 3, 4 (the GEMV),
      5 (the first GEMM row count) and prefill, at both models (fastvlm
-     with bias); attn_stream also on an extend chunk (S = 64 at q_offset
-     256 over a strided slice of the (1, 512, Hkv, 128) workspace), at
+     with bias), and at M = 64 (a prefix hit's padded question tail;
+     fused_norm and ffn_act there too); attn_stream also on an extend
+     chunk (S = 64 at q_offset 256 over a strided slice of the
+     (1, 512, Hkv, 128) workspace: the hit tail's attention), at
      ragged S = L = 200 and at fastvlm-0.6b's Dh 64; fused_norm at M = 1,
-     4, 320 and D 1536, 2560, 1000 and 1001 (the scalar kernel),
+     4, 64, 320 and D 1536, 2560, 1000 and 1001 (the scalar kernel),
      LayerNorm with bias, a scale in the other type and strided rows
      (pitch 1544: vector kernel; pitch 1542 or a base one element in:
      scalar kernel); paged_decode_flat at lengths 0, 1, 127, 128, with a
@@ -74,7 +76,13 @@ source, all started together; seven kernels), then:
      preempted: 2 slots, 2 verbatim spill lanes, 2 priority-0 VQA
      requests, then after 3 steps a priority-1 text request that evicts
      one; its tokens against the same requests on an unpressured Engine
-     (same tie rule);
+     (same tie rule); and fastvlm-paged: fastvlm-1.7b, tiered (hot
+     window 64), 2 slots, max_len 512, paged + prefix cache, 4 VQA
+     requests on one image (64 patches) and one 192-token system prompt
+     (a 256-token head, 2 blocks of 128) with questions of 36-48 tokens
+     and 16 new tokens, the first committed before the rest are
+     submitted: its tokens against a slot-pool Engine's (same tie rule),
+     3 hits of 256 tokens;
   3. serving — three bf16 runs through the Engine at full width and
      depth, each the main path of its configuration: the kernels' launch
      counters are zeroed just before each run and read just after, and
@@ -112,11 +120,32 @@ source, all started together; seven kernels), then:
      trace and Prometheus exposition (written to chiprun_out/); it
      prints lane bytes (verbatim and compressed) and one evict_slot and
      one restore_slot's device time (CUDA events, median of 5) beside
-     the bound of their bytes.
+     the bound of their bytes. Before them, B-stream, on the host: B's
+     weights with RRAM weight streaming at W = 2. Streaming is
+     accounting only (the same loop over the same device-resident
+     weights, so nothing is served again): resident B charged for its
+     weights under the CHIME budget must be refused ("weight working
+     set"), the streamed engine, which charges its 632.5 MiB DRAM
+     working set by itself, must admit 4 slots, and chime_sim prices
+     B's served trace with a weight_stream term above B's resident
+     figure; it prints the DRAM / RRAM weight split and both tok/J. Last, fastvlm-prefix, many
+     questions about one camera frame: bf16 fastvlm-1.7b, tiered (hot
+     window 128), 4 slots, max_len 512, paged + prefix cache, a
+     Telemetry hub, 8 VQA requests with the 256-token head above,
+     48-token questions and 64 new tokens, the first committed before
+     the other 7 are submitted: 7 hits of 256 tokens, every block
+     written at most once, no refcount left after the drain, write-once
+     on the cold tier, exact launches with the uncommitted rerun of each
+     registering commit counted, the ledger equal to
+     simulated_efficiency; it prints the peak prefix bytes pinned by
+     live admissions (read as each hit is released), hit and cold TTFT
+     p50, one hit-tail extend's device ms
+     against the whole 304-token prefill's (profiler) and chime_sim's
+     tok/J.
 
 It prints the card (name, power limit), the kernel build time, the
 phases' results, then one JSON line {"kernels": [...]} (launches summed
-over the five serving runs; host_ms is call ms minus device ms) and,
+over the six serving runs; host_ms is call ms minus device ms) and,
 last, the device JSON line. It fails
 (non-zero exit, no result lines) without a card, outside the repository,
 or when any check fails. `--phases` selects a subset (e.g. `--phases
@@ -140,6 +169,10 @@ OUT = ROOT / "chiprun_out" / "chip_smoke"
 D_MODEL, D_FF, HEADS, KV_HEADS, HEAD_DIM = 1536, 8960, 12, 2, 128
 # mobilevlm-3b serving shapes (MHA: G = 1)
 D3, F3, H3 = 2560, 6912, 20
+# a prefix hit's tail prefill: 33-64 question tokens after a 256-token
+# shared head, padded to the 64-row admission bucket (attn_stream S = 64
+# at q_offset 256, the FFN, projections and norms at M = 64)
+HIT_TAIL = 64
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 REPLACES = {
@@ -645,7 +678,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         for D_ in (D_MODEL, D3, 1000, 1001):
             sc = (0.25 + 0.1 * torch.rand(D_, generator=gen,
                                           device=dev)).to(tdt)
-            for M in (1, 4, 320):
+            for M in (1, 4, HIT_TAIL, 320):
                 x = randn(M, D_, dtype=tdt)
                 out = FN.fused_norm(x, sc, None, "rms")
                 err = max_err(out, FN.fused_norm_plain(x, sc, None, "rms"))
@@ -692,12 +725,13 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                                  f"({got})", dt,
                    max_err(FN.fused_norm(x, sc, None, "rms"),
                            FN.fused_norm_plain(x, sc, None, "rms")))
-        # ---- ffn_act: decode M=4 (stream) and prefill M=320 (wgmma in
-        # bf16, the FMA tiles in f32), silu_gated; bf16 rows timed
+        # ---- ffn_act: decode M=4 (stream), a prefix hit's padded
+        # 64-row tail and prefill M=320 (wgmma in bf16, the FMA tiles in
+        # f32), silu_gated; bf16 rows timed
         w_up = randn(D_MODEL, D_FF, dtype=tdt, std=0.5 * D_MODEL ** -0.5)
         w_gate = randn(D_MODEL, D_FF, dtype=tdt, std=0.5 * D_MODEL ** -0.5)
         w_down = randn(D_FF, D_MODEL, dtype=tdt, std=D_FF ** -0.5)
-        for M in (4, 320):
+        for M in (4, HIT_TAIL, 320):
             x = randn(M, D_MODEL, dtype=tdt)
             row = None
             if dt == "bfloat16":
@@ -999,7 +1033,8 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         del kf, vf, fargs
         # ---- qkv_proj: mobilevlm-3b (MHA, no bias) and fastvlm-1.7b (GQA
         # with bias): decode M = 1, 3, 4 (the GEMV), M = 5 (the first
-        # GEMM row count) and prefill M = 256 / 320. In bf16 the kernel,
+        # GEMM row count), a prefix hit's padded 64-row tail and prefill
+        # M = 256 / 320. In bf16 the kernel,
         # its twin and torch.addmm over the concatenated weight are timed
         # at decode M = 4 and at prefill
         for (tag, D_, ns, bias, M_pre) in (
@@ -1013,7 +1048,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
             bcat = (torch.cat(bq3) if bias else
                     torch.zeros(wcat.shape[1], dtype=tdt, device=dev))
             N = sum(ns)
-            for M in (1, 3, 4, 5, M_pre):
+            for M in (1, 3, 4, 5, HIT_TAIL, M_pre):
                 x = randn(M, D_, dtype=tdt)
                 err = max(max_err(a, b) for a, b in zip(
                     QK.qkv_proj(x, *wq3, *bq3),
@@ -1245,7 +1280,83 @@ def parity_phase(dev: str = "cuda") -> dict:
                   ffn_weight_store="int8"), {})):
         out[label] = _parity(label, arch, knobs, bknobs, dev)
     out["B preempted"] = _parity_preempt(dev)
+    out["fastvlm-paged"] = _parity_paged(dev)
     return out
+
+
+def _require_tie(label, model, params, r, step: int, got: int, want: int,
+                 dev) -> None:
+    """A differing token passes only where `generate`'s top-2 logit
+    margin at that step is below 1e-3 (a tie)."""
+    from repro_torch.launch.serve import generate
+
+    batch = {"tokens": r.tokens[None]}
+    if r.patches is not None:
+        batch["patches"] = r.patches[None]
+    _, _, logits = generate(model, params, batch, r.prompt_len,
+                            r.max_new_tokens, device=dev, return_logits=True)
+    top2 = logits[0, step].float().topk(2).values
+    margin = float(top2[0] - top2[1])
+    require(margin < 1e-3, f"{label} request {r.rid} step {step}: token "
+            f"{got} != {want} with top-2 margin {margin:.3e} (not a tie)")
+
+
+def _parity_paged(dev) -> dict:
+    """fastvlm-paged: f32 fastvlm-1.7b at full width and depth, tiered
+    store (hot window 64), 2 slots, max_len 512, paged + prefix cache: 4
+    VQA requests on one image (64 patches) and one 192-token system
+    prompt (a 256-token head: 2 blocks of 128), questions of 40, 48, 36
+    and 44 tokens (each tail padded to the 64-row bucket), 16 new tokens;
+    the first commits before the rest are submitted. The tokens against
+    the same requests, submitted the same way, on a slot-pool Engine
+    (paged=False) over the same backend (tie rule as above); 3 hits of
+    256 tokens each."""
+    import torch
+
+    from repro_torch.serving import Engine, LocalBackend
+
+    label, head = "fastvlm-paged", 256
+    cfg, model, params = _model("fastvlm-1.7b", "float32", dev,
+                                kv_policy="tiered", kv_hot_window=64)
+    backend = LocalBackend(model, params, 2, 512, device=dev)
+    runs = {}
+    for paged in (True, False):
+        reqs = _shared_head_requests(cfg, [40, 48, 36, 44], gen_len=16,
+                                     seed=6)
+        engine = Engine(backend, paged=paged)
+        engine.submit(reqs[0])
+        _until_committed(engine, reqs[0])
+        engine.run(reqs[1:])
+        runs[paged] = engine, reqs
+    engine, reqs = runs[True]
+    st = engine.stats
+    require(st["prefix_hits"] == 3 and st["prefix_hit_tokens"] == 3 * head,
+            f"{label}: {st['prefix_hits']} hits of "
+            f"{st['prefix_hit_tokens']} tokens, expected 3 of {head}")
+    engine.block_pool.check_invariants()
+    require(engine.block_pool.total_refcount == 0,
+            f"{label}: refcounts leaked past the drain")
+    want = {r.rid: r.generated for r in runs[False][1]}
+    ties = 0
+    for r in reqs:
+        got, ref = r.generated, want[r.rid]
+        require(len(got) == len(ref) == r.max_new_tokens,
+                f"{label} request {r.rid}: token counts {len(got)}, "
+                f"{len(ref)}")
+        for t, (a, b) in enumerate(zip(got, ref)):
+            if a != b:
+                _require_tie(label, model, params, r, t, a, b, dev)
+                ties += 1
+                break
+        print(f"[parity] {label}: request {r.rid} (prompt {r.prompt_len}, "
+              f"prefix hit {r.prefix_hit}): paged == slot pool "
+              f"{'(tie-broken)' if got != ref else ''}: {got[:8]}...")
+    del runs, engine, backend, params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"requests": len(reqs), "tie_breaks": ties,
+            "prefix_hits": st["prefix_hits"],
+            "prefix_hit_tokens": st["prefix_hit_tokens"]}
 
 
 def _parity_preempt(dev) -> dict:
@@ -1261,7 +1372,6 @@ def _parity_preempt(dev) -> dict:
 
     import torch
 
-    from repro_torch.launch.serve import generate
     from repro_torch.serving import Engine, LocalBackend
 
     label = "B preempted"
@@ -1297,22 +1407,10 @@ def _parity_preempt(dev) -> dict:
                 f"{label} request {r.rid}: token counts {len(got)}, "
                 f"{len(ref)}")
         for t, (a, b) in enumerate(zip(got, ref)):
-            if a == b:
-                continue
-            batch = {"tokens": r.tokens[None]}
-            if r.patches is not None:
-                batch["patches"] = r.patches[None]
-            _, _, logits = generate(model, params, batch, r.prompt_len,
-                                    r.max_new_tokens, device=dev,
-                                    return_logits=True)
-            top2 = logits[0, t].float().topk(2).values
-            margin = float(top2[0] - top2[1])
-            require(margin < 1e-3,
-                    f"{label} request {r.rid} step {t}: preempted token "
-                    f"{a} != unpressured {b} with top-2 margin "
-                    f"{margin:.3e} (not a tie)")
-            ties += 1
-            break
+            if a != b:
+                _require_tie(label, model, params, r, t, a, b, dev)
+                ties += 1
+                break
         print(f"[parity] {label}: request {r.rid} (priority {r.priority}, "
               f"{r.n_evictions} evictions, prompt {r.prompt_len}): "
               f"preempted == unpressured "
@@ -1377,13 +1475,16 @@ def _parity(label, arch, knobs, bknobs, dev) -> dict:
 
 def serving_phase(pk: dict, dev: str = "cuda") -> dict:
     """The three bf16 serving runs of RUNS, each with its launch check
-    and its chime_sim price, then path B under preemption (PREEMPT_RUNS)."""
+    and its chime_sim price, then path B with its weights streamed
+    (B-stream) and under preemption (PREEMPT_RUNS), then fastvlm-1.7b
+    over the prefix cache (fastvlm-prefix)."""
     import torch
     out = {}
     for run in RUNS:
         out[run[0]] = serve_run(*run, dev=dev)
         if dev == "cuda":
             torch.cuda.empty_cache()
+    finished = {k: r.pop("finished") for k, r in out.items()}
     a, b = (out[RUNS[i][0]] for i in (1, 2))
     b_chime = b["sim"]["sim_tokens_per_j"]
     print(f"[sim] chime_sim analytic, on the traces this card served: B "
@@ -1393,12 +1494,291 @@ def serving_phase(pk: dict, dev: str = "cuda") -> dict:
           f"{b_chime / a['sim_dram_only']['sim_tokens_per_j']:.3f}x) and "
           f"on CHIME {a['sim']['sim_tokens_per_j']:.2f} tok/J")
     _, arch, knobs, _, _, _ = RUNS[2]
-    built = _model(arch, "bfloat16", dev, **knobs)    # shared by both
+    built = _model(arch, "bfloat16", dev, **knobs)    # B's weights again
+    out["B-stream"] = stream_run(built, b, finished[RUNS[2][0]], dev=dev)
     for label, bknobs, eknobs in PREEMPT_RUNS:
         out[label] = preempt_run(label, bknobs, eknobs, pk, built, dev=dev)
         if dev == "cuda":
             torch.cuda.empty_cache()
+    del built
+    out["fastvlm-prefix"] = prefix_run(dev=dev)
     return out
+
+
+def _shared_head_requests(cfg, tails, gen_len: int, seed: int,
+                          sys_len: int = 192):
+    """VQA requests about ONE image: the same patches and the same
+    ``sys_len``-token system prompt open every prompt (the shared head),
+    then a question of its own, ``tails[i]`` tokens long; the questions'
+    first tokens differ, so a hit is exactly the head's whole blocks."""
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    f = cfg.frontend
+    image = rng.standard_normal((f.num_tokens, f.frontend_dim)).astype(
+        np.float32)
+    system = rng.integers(0, cfg.vocab_size, sys_len)
+    firsts = rng.choice(cfg.vocab_size, len(tails), replace=False)
+    reqs = []
+    for i, n in enumerate(tails):
+        q = rng.integers(0, cfg.vocab_size, n)
+        q[0] = firsts[i]
+        reqs.append(Request(rid=i, patches=image, max_new_tokens=gen_len,
+                            tokens=np.concatenate([system, q]).astype(
+                                np.int32)))
+    return reqs
+
+
+def _until_committed(engine, req) -> None:
+    """Step ``engine`` until ``req`` has its first token: its prompt's
+    chain is then registered, so requests submitted after it can hit."""
+    while req.n_generated == 0:
+        engine.step()
+
+
+def prefix_run(dev: str = "cuda") -> dict:
+    """fastvlm-prefix: "many questions about one camera frame". bf16
+    fastvlm-1.7b at full width and depth, tiered store (hot window 128),
+    4 slots, max_len 512, paged + prefix cache, a Telemetry hub: 8 VQA
+    requests on one image (64 patches) and one 192-token system prompt
+    (a 256-token head: 2 blocks of 128), each with a 48-token question
+    of its own and 64 new tokens; the first commits before the other 7
+    are submitted. Every hit adopts the head and prefills only its tail
+    (attn_stream at q_offset 256)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serving import LocalBackend, Telemetry
+
+    label, needs, head = "fastvlm-prefix", RUNS[0][5], 256
+    cfg, model, params = _model("fastvlm-1.7b", "bfloat16", dev,
+                                kv_policy="tiered", kv_hot_window=128)
+    max_len = 512
+    reqs = _shared_head_requests(cfg, [48] * 8, gen_len=64, seed=5)
+    backend = LocalBackend(model, params, 4, max_len, device=dev)
+    require(backend.block_tokens == 128 and backend.prefix_blocks == 16,
+            f"{label}: block geometry {backend.block_tokens} x "
+            f"{backend.prefix_blocks}")
+    tel = Telemetry()
+    engine, step_s, sync = timed_engine(backend, dev, telemetry=tel,
+                                        prefix_cache=True)
+    bp, block_b = engine.block_pool, backend.prefix_block_bytes()
+    # every extend call the engine makes, the uncommitted rerun of a
+    # registering commit included
+    calls, extend = [0], backend.extend_step
+
+    def counted(*a):
+        calls[0] += 1
+        return extend(*a)
+    backend.extend_step = counted
+    # the blocks live admissions pin, read as a hit is released (a whole
+    # prompt admits and commits within one step)
+    pinned, release = 0, bp.release
+
+    def releasing(hit):
+        nonlocal pinned
+        pinned = max(pinned, bp.pinned_blocks)
+        return release(hit)
+    bp.release = releasing
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine.submit(reqs[0])
+    _until_committed(engine, reqs[0])
+    for r in reqs[1:]:
+        engine.submit(r)
+    while not engine.idle:
+        engine.step()
+    sync()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    backend.extend_step, bp.release = extend, release
+    done = engine.finished
+    st = dict(engine.stats)
+    reruns = len(done)             # one commit a request, each registering
+    require(calls[0] == st["extend_calls"] + reruns,
+            f"{label}: {calls[0]} extend calls, expected "
+            f"{st['extend_calls']} + {reruns} reruns")
+    res = check_run(label, cfg, model, engine, done, len(reqs), counts,
+                    needs, reruns=reruns)
+    hits = [r for r in done if r.prefix_hit]
+    require(st["prefix_hits"] == 7 and st["prefix_hit_tokens"] == 7 * head
+            and sorted(r.prefix_hit for r in hits) == [head] * 7,
+            f"{label}: {st['prefix_hits']} hits of "
+            f"{st['prefix_hit_tokens']} tokens, expected 7 of {head}")
+    bp.check_invariants()
+    writes = bp.block_writes.tolist()
+    require(bp.total_refcount == 0 and max(writes) <= 1 and pinned > 0,
+            f"{label}: refcount {bp.total_refcount} after the drain, "
+            f"block writes {writes}, peak pinned blocks {pinned}")
+    timing(label, done, wall, step_s, max_len, res)
+    sim = sim_ledger(label, backend, done)
+    led = tel.ledger.totals()
+    for k in ("sim_energy_j", "sim_total_s", "sim_energy_split_j"):
+        require(led[k] == sim[k], f"{label}: ledger {k} {led[k]!r} != "
+                f"simulated_efficiency {sim[k]!r}")
+    # TTFT (queueing included) and admission to first token, hit and cold
+    cold = [r for r in done if not r.prefix_hit]
+
+    def p50(rs, t0_of):
+        return 1e3 * float(np.percentile(
+            [r.first_token_s - t0_of(r) for r in rs], 50))
+    ttft = {k: p50(rs, lambda r: r.arrival_s) for k, rs in
+            (("hit", hits), ("cold", cold))}
+    admit = {k: p50(rs, lambda r: r.admit_s) for k, rs in
+             (("hit", hits), ("cold", cold))}
+    pinned *= block_b
+    print(f"[prefix] {label}: {st['prefix_hits']} hits of "
+          f"{st['prefix_hit_tokens'] // st['prefix_hits']} tokens, "
+          f"{bp.stats['blocks_registered']} blocks registered, writes per "
+          f"block {writes} (<= 1), refcount 0 after the drain; ledger == "
+          f"simulated_efficiency: EXACT (prefix adopt "
+          f"{led['prefix_adopt_bytes']:.4g} B); peak pinned prefix "
+          f"bytes {pinned} ({pinned // block_b} blocks of "
+          f"{block_b} B); store {backend.prefix_blocks * block_b} B for "
+          f"{backend.prefix_blocks} blocks, {bp.used_blocks} live after the "
+          f"drain ({bp.used_blocks * block_b} B)")
+    print(f"[prefix] {label}: TTFT p50 hit {ttft['hit']:.1f} ms vs cold "
+          f"{ttft['cold']:.1f} ms (queueing included); admission to first "
+          f"token p50 hit {admit['hit']:.1f} ms vs cold "
+          f"{admit['cold']:.1f} ms")
+    res.update({"stats": st, "sim": sim, "ttft_p50_ms_hit": ttft["hit"],
+                "ttft_p50_ms_cold": ttft["cold"],
+                "admit_to_first_p50_ms_hit": admit["hit"],
+                "admit_to_first_p50_ms_cold": admit["cold"],
+                "pinned_prefix_bytes_peak": pinned,
+                "prefix_block_bytes": block_b,
+                "block_writes": writes,
+                "blocks_registered": bp.stats["blocks_registered"]})
+    if dev == "cuda":
+        res.update(_hit_tail_ms(label, engine, hits[-1], head))
+    del engine, backend, params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def _prompt_rows(req, a: int, b: int, max_len: int) -> tuple[dict, int]:
+    """The batch for prompt positions [a, b) of ``req`` (patches when the
+    span is the image's, else tokens), right-padded to the admission
+    bucket as the engine pads a whole-prompt chunk."""
+    import numpy as np
+
+    from repro_torch.serving.engine import bucket_len
+
+    vis, valid = int(req.patches.shape[0]), b - a
+    rows = max(min(bucket_len(valid), max_len - a), valid)
+    if b <= vis:
+        part = np.asarray(req.patches[a:b], np.float32)
+        pad = np.zeros((rows - valid,) + part.shape[1:], np.float32)
+        return {"patches": np.concatenate([part, pad])[None]}, valid
+    part = np.asarray(req.tokens[a - vis:b - vis], np.int32)
+    pad = np.zeros((rows - valid,), np.int32)
+    return {"tokens": np.concatenate([part, pad])[None]}, valid
+
+
+def _hit_tail_ms(label, engine, req, head: int) -> dict:
+    """One hit's tail extend (the question's rows at q_offset ``head``
+    over a workspace seeded from the prefix store) against the whole
+    prompt's prefill (the image chunk, then the text chunk, committed):
+    device ms from the profiler (the mean of 5 calls; an extend
+    call reads its token back to the host, so CUDA events around it
+    would time the host too). Runs after the launch counts were read."""
+    from repro_torch.serving.block_pool import request_prefix_keys
+
+    be, state = engine.backend, engine.pool.state
+    # the shared head's whole blocks (``req`` registered its own tail
+    # too, which a lookup up to prompt_len - 1 would also match)
+    hit = engine.block_pool.lookup(request_prefix_keys(req), max_hit=head)
+    require(hit.length == head, f"{label}: lookup found {hit.length}")
+    seeded = be.fresh_extend()
+    for node in hit.nodes:
+        seeded = be.prefix_load_ws(state, seeded, node.bid, node.start)
+    vis, n = int(req.patches.shape[0]), req.prompt_len
+    tail, t_valid = _prompt_rows(req, head, n, be.max_len)
+    img, i_valid = _prompt_rows(req, 0, vis, be.max_len)
+    text, x_valid = _prompt_rows(req, vis, n, be.max_len)
+
+    def tail_call():
+        return be.extend_step(tail, state, seeded, 0, head, t_valid, True)
+    tok = tail_call()[0]
+    require(tok == req.generated[0], f"{label}: the seeded tail's first "
+            f"token {tok} != the served {req.generated[0]}")
+
+    def whole_call():
+        _, ext, _ = be.extend_step(img, state, be.fresh_extend(), 0, 0,
+                                   i_valid, False)
+        return be.extend_step(text, state, ext, 0, vis, x_valid, True)
+    out = {"hit_tail_tokens": t_valid,
+           "hit_tail_rows": int(tail["tokens"].shape[1]),
+           "hit_tail_device_ms": device_ms(tail_call, reps=5),
+           "whole_prefill_device_ms": device_ms(whole_call, reps=5)}
+    print(f"[prefix] {label}: one hit-tail extend ({t_valid} tokens padded "
+          f"to {out['hit_tail_rows']} rows at q_offset {head}) "
+          f"{out['hit_tail_device_ms']:.3f} ms on the device (profiler) vs "
+          f"the whole {n}-token prefill (2 extend calls) "
+          f"{out['whole_prefill_device_ms']:.3f} ms")
+    return out
+
+
+def stream_run(built, b_res: dict, b_done, dev: str = "cuda") -> dict:
+    """B-stream: path B (mobilevlm-3b, tiered, int8 FFN weights) with
+    RRAM weight streaming at W = 2, on B's weights. Streaming is
+    accounting only (the model runs the same loop over the same
+    device-resident weights, so B's tokens are the streamed run's), so
+    nothing is served again. On the host: resident B charged for its
+    weights under the default CHIME budget is refused at construction;
+    the streamed backend's DRAM working set, which the engine charges by
+    itself, still admits all 4 slots; chime_sim prices B's served trace
+    with the streamed layers' RRAM weight fetches."""
+    from repro_torch.serving import Engine, LocalBackend
+
+    label = "B-stream"
+    _, model, params = built
+    max_len = 512
+    resident = LocalBackend(model, params, 4, max_len, device=dev)
+    try:
+        Engine(resident, charge_weights=True)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    require(refused is not None and "weight working set" in refused,
+            f"{label}: resident B charged for its weights was admitted")
+    res_w = resident.weight_bytes()[0]
+    del resident
+    backend = LocalBackend(model, params, 4, max_len, device=dev,
+                           weight_stream=2)
+    require(backend.weight_stream == 2 and backend.model.streamed_units(),
+            f"{label}: weight streaming not resolved")
+    engine = Engine(backend)
+    require(engine.charge_weights and engine.scheduler.max_concurrent >= 4,
+            f"{label}: the streamed working set does not admit 4 slots")
+    sim = sim_ledger(label, backend, b_done)
+    dram_w, rram_w = backend.weight_bytes()
+    ws_j = sim["sim_energy_split_j"].get("weight_stream", 0.0)
+    require(sim["sim_weight_stream"] and ws_j > 0,
+            f"{label}: chime_sim priced no weight streaming")
+    b_sim = b_res["sim"]
+    require(sim["sim_energy_j"] > b_sim["sim_energy_j"],
+            f"{label}: streaming priced at or below resident B")
+    print(f"[stream] {label}: W=2, weights {dram_w / 2**20:.1f} MiB DRAM "
+          f"working set / {rram_w / 2**20:.1f} MiB streamed from RRAM "
+          f"(resident: {res_w / 2**20:.1f} MiB, refused under the CHIME "
+          f"budget); the streamed engine's budget admits "
+          f"{engine.scheduler.max_concurrent} slots (>= 4); chime_sim (CHIME, "
+          f"analytic) on B's served trace {sim['sim_tokens_per_j']:.2f} "
+          f"tok/J, {sim['sim_energy_j']:.4f} J of which weight_stream "
+          f"{ws_j:.4g} J, vs B resident {b_sim['sim_tokens_per_j']:.2f} "
+          f"tok/J, {b_sim['sim_energy_j']:.4f} J")
+    res = {"sim": sim, "weight_dram_bytes": dram_w,
+           "weight_rram_bytes": rram_w,
+           "admitted_slots": engine.scheduler.max_concurrent,
+           "resident_weight_bytes": res_w, "resident_refused": refused}
+    del engine, backend
+    return res
 
 
 # path B under priority traffic: (label, backend knobs, engine knobs)
@@ -1564,12 +1944,14 @@ def timed_engine(backend, dev: str, **engine_kw):
 
 
 def check_run(label, cfg, model, engine, done, n_reqs, counts,
-              needs) -> dict:
+              needs, reruns: int = 0) -> dict:
     """Every request finished with all its tokens, in the vocabulary;
     every layer of every model call launched each of the run's kernels
     once (norms: two a layer and the final one) and nothing else
     launched; on the tiered store a cold page was live and every cold
-    slot was written at most once."""
+    slot was written at most once. ``reruns``: extend calls the engine
+    made besides ``stats["extend_calls"]`` (with the prefix cache on, a
+    registering commit reruns its final chunk uncommitted first)."""
     require(len(done) == n_reqs, f"{label}: not every request finished")
     for r in done:
         require(r.n_generated == r.max_new_tokens,
@@ -1577,7 +1959,8 @@ def check_run(label, cfg, model, engine, done, n_reqs, counts,
         require(all(0 <= t < model.padded_vocab for t in r.generated),
                 f"{label}: request {r.rid}: token id out of range")
     n_layers = cfg.num_layers
-    ext, dec = engine.stats["extend_calls"], engine.stats["decode_steps"]
+    ext = engine.stats["extend_calls"] + reruns
+    dec = engine.stats["decode_steps"]
     want = {"fused_norm": (2 * n_layers + 1) * (ext + dec),
             "qkv_proj": n_layers * (ext + dec),
             "attn_stream": n_layers * ext,
@@ -1592,7 +1975,8 @@ def check_run(label, cfg, model, engine, done, n_reqs, counts,
                 f"expected {expect}")
     ctx = max(r.prompt_len + r.n_generated - 1 for r in done)
     res = {"requests": len(done), "max_context": ctx, "launches": counts,
-           "extend_calls": ext, "decode_steps_engine": dec}
+           "extend_calls": ext, "reruns": reruns,
+           "decode_steps_engine": dec}
     if cfg.kv_policy == "tiered":
         rep = engine.endurance_report()
         require(ctx > cfg.kv_hot_window and rep["total_cold_writes"] > 0,
@@ -1637,7 +2021,8 @@ def sim_ledger(label, backend, done, platform=None) -> dict:
     sim = simulated_efficiency(cfg, done, platform or CHIME,
                                spill_compressed=comp,
                                fused_decode=backend.fused_decode,
-                               sparse_read_tau=backend.sparse_read_tau)
+                               sparse_read_tau=backend.sparse_read_tau,
+                               weight_stream=bool(backend.weight_stream))
     split = sim["sim_energy_split_j"]
     print(f"[sim] {label}: chime_sim analytic figure for the "
           f"{sim['platform']} platform (not measured on this card), "
@@ -1676,6 +2061,7 @@ def serve_run(label, arch, knobs, bknobs, text_with_image, needs,
     res = check_run(label, cfg, model, engine, done, len(reqs), counts,
                     needs)
     timing(label, done, wall, step_s, max_len, res)
+    res["finished"] = done
     res["sim"] = sim_ledger(label, backend, done)
     res["sim_dram_only"] = sim_ledger(label, backend, done, DRAM_ONLY)
     if dev == "cuda":
@@ -1946,7 +2332,7 @@ def main(argv=None) -> int:
         report["parity"] = timed("parity", parity_phase)
     if "serving" in phases:
         report["serving"] = timed("serving", serving_phase, pk)
-    launches = {k: sum(run["launches"].get(k, 0)
+    launches = {k: sum(run.get("launches", {}).get(k, 0)
                        for run in report.get("serving", {}).values())
                 for k in REPLACES}
     rows = []

@@ -238,6 +238,6 @@ def _ensure_loaded():
     _LOADED = True
     import importlib
     # only the arch modules whose mixers the port runs so far (dense GQA
-    # attention); the other nine come with their mixers
-    for mod in ("granite_3_2b", "paper_models"):
+    # attention); the other eight come with their mixers
+    for mod in ("nemotron_4_340b", "granite_3_2b", "paper_models"):
         importlib.import_module(f"repro_torch.configs.{mod}")

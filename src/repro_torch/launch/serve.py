@@ -11,6 +11,12 @@ engine, on the card unless ``--device`` says otherwise.
         --spill-compress --chunk-tokens 8 --trace-out trace.json \
         --metrics-out metrics.prom
 
+    # many questions about one frame: a shared image + system prompt in
+    # the paged prefix pool, weights streamed from the (simulated) RRAM
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch fastvlm-1.7b \
+        --reduced --device cpu --requests 6 --image-every 1 \
+        --shared-prefix 8 --prefix-cache --weight-stream 1
+
 Weights are random, drawn from ``--seed`` at the config's published
 widths (``--reduced`` for the tiny test twins). `generate` below is the
 single-request oracle (prefill + greedy decode steps); the engine's
@@ -77,6 +83,11 @@ def main(argv=None):
                     help="KV pool length per slot (0 = prompt+gen)")
     ap.add_argument("--image-every", type=int, default=0,
                     help="every k-th request is a VQA request (0 = none)")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
+                    help="every request opens with the same N-token "
+                         "system prompt (VQA requests also share one "
+                         "image) — the stream shape --prefix-cache "
+                         "exists for (0 = fully distinct prompts)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; no CPU fallback)")
     ap.add_argument("--dtype", default=None,
@@ -95,6 +106,23 @@ def main(argv=None):
                          "whose score upper bound is < running-max + "
                          "log(TAU) (0 = exact; needs --fused-decode; "
                          "default: consult REPRO_SERVE_SPARSE_READ)")
+    ap.add_argument("--weight-stream", type=int, default=None,
+                    metavar="W",
+                    help="RRAM weight streaming (simulated): charge a "
+                         "W-repeat DRAM window per scanned unit and price "
+                         "the other per-layer slices as RRAM reads (0 = "
+                         "off even under REPRO_SERVE_WEIGHT_STREAM; "
+                         "default: consult the env knob)")
+    ap.add_argument("--paged", action="store_true", default=None,
+                    help="charge the admission gate per live KV block "
+                         "instead of per worst-case slot (default: "
+                         "consult REPRO_SERVE_PAGED; implies "
+                         "--prefix-cache)")
+    ap.add_argument("--prefix-cache", action="store_true", default=None,
+                    help="hash-indexed prefix reuse over the paged pool: "
+                         "admissions whose prompt head matches a cached "
+                         "block chain skip prefill for the hit blocks "
+                         "(default: on whenever paged)")
     ap.add_argument("--chunk-tokens", type=int, default=None,
                     help="chunked prefill: cap a prefill chunk at this "
                          "many tokens (0 = whole-prompt chunks, even if "
@@ -161,7 +189,8 @@ def main(argv=None):
                            device=dev, n_spill=args.spill_lanes,
                            spill_compress=args.spill_compress,
                            fused_decode=args.fused_decode,
-                           sparse_read=args.sparse_read)
+                           sparse_read=args.sparse_read,
+                           weight_stream=args.weight_stream)
     # telemetry is opt-in: any export flag (or --stats-every) turns the
     # hub on; otherwise the Engine installs the no-op NullTelemetry
     want_tel = (args.trace_out or args.metrics_out or args.snapshots_out
@@ -174,11 +203,13 @@ def main(argv=None):
                     token_budget=args.token_budget,
                     oversubscribe=args.oversubscribe,
                     idle_offload_steps=args.idle_offload_steps,
+                    paged=args.paged, prefix_cache=args.prefix_cache,
                     telemetry=tel)
     reqs = make_synthetic_requests(cfg, args.requests, args.prompt_len,
                                    args.gen, seed=args.seed,
                                    image_every=args.image_every,
-                                   priority_every=args.priority_every)
+                                   priority_every=args.priority_every,
+                                   shared_prefix=args.shared_prefix)
     t0 = time.time()
     if args.priority_every:
         # interactive traffic lands mid-run: batch work first, then the
@@ -218,6 +249,13 @@ def main(argv=None):
               f"{s['evictions']} preemptions / {s['idle_offloads']} idle "
               f"offloads / {s['restores']} restores (restore latency p95 "
               f"{m.get('restore_latency_p95_s', 0.0) * 1e3:.1f} ms)")
+    if engine.block_pool is not None:
+        bp = engine.block_pool
+        print(f"[serve] prefix cache: {m.get('prefix_hits', 0)} hits / "
+              f"{m.get('prefix_hit_tokens', 0)} tokens skipped "
+              f"(hit rate {m.get('prefix_hit_rate', 0.0):.2f}); "
+              f"{bp.stats['cow_copies']} CoW copies, "
+              f"{bp.used_blocks}/{bp.num_blocks} blocks live")
     if args.kv_policy == "tiered":
         rep = engine.endurance_report()
         print(f"[serve] endurance: max writes/cold-slot="
@@ -228,10 +266,17 @@ def main(argv=None):
     sim_cfg, spill_comp = backend.sim_context()
     sim = simulated_efficiency(sim_cfg, done, spill_compressed=spill_comp,
                                fused_decode=backend.fused_decode,
-                               sparse_read_tau=backend.sparse_read_tau)
+                               sparse_read_tau=backend.sparse_read_tau,
+                               weight_stream=bool(backend.weight_stream))
+    note = ""
+    if backend.weight_stream:
+        dram_w, rram_w = backend.weight_bytes()
+        note = (f" [weight stream W={backend.weight_stream}: "
+                f"{dram_w / 2**20:.1f} MiB DRAM working set, "
+                f"{rram_w / 2**20:.1f} MiB streamed from RRAM]")
     print(f"[serve] simulated on {sim['platform']}: "
           f"{sim['sim_tokens_per_j']:.1f} tok/J, "
-          f"{sim['sim_energy_j']:.3f} J total")
+          f"{sim['sim_energy_j']:.3f} J total{note}")
     if tel is not None:
         if args.trace_out:
             tel.write_chrome_trace(args.trace_out)

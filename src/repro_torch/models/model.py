@@ -30,6 +30,7 @@ from repro_torch.core import fusion, kv_tiers as KT
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import vision as V
+from repro_torch.models.counting import streamed_unit_indices
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -98,6 +99,16 @@ class Model:
         m = cfg.vocab_pad_multiple
         self.padded_vocab = ((cfg.vocab_size + m - 1) // m) * m
         self.compute_dtype = L.torch_dtype(cfg.compute_dtype)
+
+    def streamed_units(self) -> tuple[int, ...]:
+        """Plan-unit indices whose per-layer weight slices live in the
+        simulated RRAM tier under ``cfg.weight_stream_layers`` (W),
+        decided from the config alone by `counting.streamed_unit_indices`.
+        Streaming is accounting only (the DRAM weight charge, the ledger's
+        ``weight_stream`` domain): every unit runs the same loop, with its
+        weights on the device, so streamed and resident tokens are equal
+        by construction."""
+        return streamed_unit_indices(self.cfg)
 
     # ------------------------------------------------------------------
     # parameters

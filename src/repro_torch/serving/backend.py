@@ -23,11 +23,26 @@ place — evict into the lane store, restore into the pool — so a spill
 moves the lane's bytes once instead of copying the whole pool; the
 engine always replaces its state with the one returned.
 
+The paged prefix block store is a lazy tree of ``prefix_blocks`` x
+``block_tokens`` full-precision workspace K/V rows (`ensure_prefix`):
+`prefix_save_ws` writes one block's rows from a complete workspace into
+the store, in place (the store belongs to the pool state), and
+`prefix_load_ws` seeds them into an in-flight workspace and returns a
+NEW tree — the engine hands it the shared zero tree of `fresh_extend`,
+which must stay zero. Which block holds which prefix is host-side state
+in `serving.block_pool.BlockPool`.
+
+Weight streaming (``weight_stream``, W) resolves like the reference's
+knob and is written into the config the model runs with. It is
+accounting only: the RRAM tier is simulated, every unit runs the same
+loop over weights that stay on the device, and `weight_bytes` reports
+the DRAM / RRAM split (`Model.streamed_units` names the streamed units)
+that the scheduler charges and chime_sim prices.
+
 Everything runs on ``device`` (default "cuda"; raises without a card —
-pass device="cpu" to run on the CPU). The paged prefix store, weight
-streaming and the sharded executor are not ported yet: their entry
-points raise NotImplementedError naming the ROADMAP item, and the
-engine reaches them only under paging.
+pass device="cpu" to run on the CPU). The sharded executor is not
+ported yet: `make_backend("sharded", ...)` raises NotImplementedError
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -42,12 +57,13 @@ import torch
 from repro_torch.core import kv_tiers as KT
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
-from repro_torch.models.counting import weight_stream_split
+from repro_torch.models.counting import (streamed_unit_indices,
+                                         weight_stream_split)
 from repro_torch.serving.kv_pool import (KVPoolState, TieredKVPool,
                                          batch_axes, map_spill_stores,
                                          slot_insert, slot_kv_bytes,
                                          slot_select, spill_lane_bytes)
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map
 
 
 def _resolve_spill_compress(flag: bool | None) -> bool:
@@ -82,7 +98,22 @@ def _resolve_sparse_read(tau: float | None) -> float:
         return max(float(raw), 0.0)
     except ValueError:
         return 0.0
-_PREFIX = "ROADMAP Queue 1 item 6 (paged prefix pool)"
+
+
+def _resolve_weight_stream(layers: int | None) -> int:
+    """Resolve the RRAM weight-streaming window (W = DRAM window repeats
+    per streamed unit; 0 = off): an explicit value wins; None consults
+    ``REPRO_SERVE_WEIGHT_STREAM``. Unparsable or negative values resolve
+    to 0: an env var must never wedge startup."""
+    if layers is not None:
+        return max(int(layers), 0)
+    raw = os.environ.get("REPRO_SERVE_WEIGHT_STREAM", "").strip()
+    if not raw:
+        return 0
+    try:
+        return max(int(raw), 0)
+    except ValueError:
+        return 0
 
 
 @runtime_checkable
@@ -97,8 +128,12 @@ class InferenceBackend(Protocol):
     chunk_unit: int
     n_spill: int              # RRAM spill lanes (0 = no preemption)
     spill_compress: bool      # int8 hot ring in the lanes (resolved)
+    block_tokens: int         # prefix-page granularity (tokens a block)
+    prefix_blocks: int        # physical blocks in the prefix store
     fused_decode: bool        # fused paged-decode attention (resolved)
     sparse_read_tau: float    # SLIM page skip inside it (0.0 = exact)
+    weight_stream: int        # RRAM weight-streaming window W (0 = off;
+    #   0 too when nothing would stream)
 
     def weight_bytes(self) -> tuple[int, int]: ...
 
@@ -124,6 +159,16 @@ class InferenceBackend(Protocol):
     def restore_slot(self, state: KVPoolState, lane, slot
                      ) -> KVPoolState: ...
 
+    def ensure_prefix(self, state: KVPoolState) -> KVPoolState: ...
+
+    def prefix_block_bytes(self) -> int: ...
+
+    def prefix_save_ws(self, state: KVPoolState, ext: dict, bid, pos
+                       ) -> KVPoolState: ...
+
+    def prefix_load_ws(self, state: KVPoolState, ext: dict, bid, pos
+                       ) -> dict: ...
+
 
 class LocalBackend:
     """Single-device executor: every slot decodes in one batched call."""
@@ -132,8 +177,11 @@ class LocalBackend:
                  max_len: int, *, device=None,
                  n_spill: int | None = None,
                  spill_compress: bool | None = None,
+                 prefix_blocks: int | None = None,
+                 block_tokens: int | None = None,
                  fused_decode: bool | None = None,
-                 sparse_read: float | None = None):
+                 sparse_read: float | None = None,
+                 weight_stream: int | None = None):
         cfg = model.cfg
         if num_slots < 1:
             raise ValueError("backend needs at least one decode slot")
@@ -141,9 +189,6 @@ class LocalBackend:
             n_spill = num_slots      # preemption available out of the box
         if n_spill < 0:
             raise ValueError("backend needs n_spill >= 0")
-        if cfg.weight_stream_layers:
-            raise NotImplementedError(
-                "weight streaming: ROADMAP Queue 1 item 6")
         # fused paged decode (and the sparse read inside it): explicit arg
         # > cfg flag > env var, GQA-only, and the resolved values are
         # written back into the config the model runs with, as the
@@ -163,6 +208,19 @@ class LocalBackend:
             cfg = cfg.replace(fused_decode=self.fused_decode,
                               sparse_read_tau=self.sparse_read_tau)
             model = Model(cfg)
+        # weight streaming: the same precedence, and the window resolves
+        # to 0 when no unit would stream, so the scheduler's weight charge
+        # and chime_sim never price a transfer the model does not make
+        if weight_stream is None and cfg.weight_stream_layers:
+            weight_stream = cfg.weight_stream_layers
+        W = _resolve_weight_stream(weight_stream)
+        if W and not streamed_unit_indices(
+                cfg.replace(weight_stream_layers=W)):
+            W = 0
+        self.weight_stream = W
+        if W != cfg.weight_stream_layers:
+            cfg = cfg.replace(weight_stream_layers=W)
+            model = Model(cfg)
         self.device = resolve_device(device)
         self.model = model
         self.params = tree_map(lambda t: t.to(self.device), params)
@@ -172,11 +230,28 @@ class LocalBackend:
         self.hot_window = min(cfg.kv_hot_window, max_len)
         self.requires_exact_prefill = False   # attention-only plans
         self.chunk_unit = 1
-        # prefix-store geometry the engine's paging path reads before it
-        # reaches ensure_prefix (which raises until paging is ported)
-        self.block_tokens = min(KT.ENDURANCE_BLOCK, max_len)
-        self.prefix_blocks = num_slots * (-(-max_len // self.block_tokens))
+        # prefix-store geometry: a page is an RRAM endurance block clamped
+        # to the slot length (attention-only plans have no chunk grid to
+        # round to), and the store holds enough blocks to re-page every
+        # slot; its tensors are built on first use
+        bt = (block_tokens if block_tokens is not None
+              else min(KT.ENDURANCE_BLOCK, max_len))
+        if bt < 1:
+            raise ValueError(f"block_tokens must be >= 1, got {bt}")
+        self.block_tokens = min(bt, max_len)
+        if prefix_blocks is None:
+            prefix_blocks = num_slots * (-(-max_len // self.block_tokens))
+        if prefix_blocks < 1:
+            raise ValueError(f"prefix_blocks must be >= 1, got "
+                             f"{prefix_blocks}")
+        self.prefix_blocks = prefix_blocks
         self._axes = batch_axes(model, model.cache_spec(num_slots, max_len))
+        ext_spec = model.extend_spec(1, max_len)
+        self._ext_axes = batch_axes(model, ext_spec)
+        # workspace leaves (`*_ws`) hold per-position K/V rows; any other
+        # extend leaf would be a recurrent-state snapshot
+        self.has_prefix_ws = any(_is_ws(p[-1]) for p, _ in
+                                 tree_leaves_with_path(ext_spec))
         # compressed lanes restructure the tiered stores (hot ->
         # hot_q/hot_scale), so the lane tree has its own axis tree; a
         # flat cache has no hot ring, so the flag resolves to off there
@@ -220,7 +295,8 @@ class LocalBackend:
 
     def fresh_extend(self) -> dict:
         """Zero extend state for one in-flight prefill; built once and
-        shared — `Model.extend` never writes into its input."""
+        shared — neither `Model.extend` nor `prefix_load_ws` writes into
+        its input."""
         if self._zero_ext is None:
             self._zero_ext = self.model.init_extend_cache(1, self.max_len,
                                                           self.device)
@@ -316,37 +392,107 @@ class LocalBackend:
                  state.cache, img, self._axes)
         return state
 
-    # ---- not on this slice -------------------------------------------
-    def ensure_prefix(self, state):
-        raise NotImplementedError(f"ensure_prefix: {_PREFIX}")
+    # ---- paged prefix block store --------------------------------------
+    def ensure_prefix(self, state: KVPoolState) -> KVPoolState:
+        """Materialize the prefix block store on first use, on the
+        backend's device: a zero extend tree with the batch axis sized to
+        ``prefix_blocks`` and the sequence axis to ``block_tokens``."""
+        if state.prefix is not None:
+            return state
+        store = self.model.init_extend_cache(self.prefix_blocks,
+                                             self.block_tokens, self.device)
+        return dataclasses.replace(state, prefix=store,
+                                   prefix_axes=self._ext_axes)
 
     def prefix_block_bytes(self) -> int:
-        raise NotImplementedError(f"prefix_block_bytes: {_PREFIX}")
+        """Bytes ONE prefix block pins: what the scheduler charges the
+        shared store against the RRAM budget per pinned block."""
+        return sum(t.numel() * t.element_size() for t in tree_leaves(
+            self.model.extend_spec(1, self.block_tokens)))
 
-    def prefix_save_ws(self, state, ext, bid, pos):
-        raise NotImplementedError(f"prefix_save_ws: {_PREFIX}")
+    def _zip_ext(self, fn, ext: dict, store: dict) -> dict:
+        """``ext`` rebuilt with ``fn(is_ws, ext_leaf, store_leaf,
+        block_axis)`` at every leaf; workspace leaves (`*_ws`) hold
+        per-position K/V rows, any other leaf a recurrent state."""
+        def walk(e, s, a, key):
+            if isinstance(e, dict):
+                return {k: walk(e[k], s[k], a[k], k) for k in e}
+            return fn(_is_ws(key), e, s, a)
+        return walk(ext, store, self._ext_axes, None)
 
-    def prefix_load_ws(self, state, ext, bid, pos):
-        raise NotImplementedError(f"prefix_load_ws: {_PREFIX}")
+    def prefix_save_ws(self, state: KVPoolState, ext: dict, bid, pos
+                       ) -> KVPoolState:
+        """Write workspace rows [pos, pos + block_tokens) of ``ext`` into
+        block ``bid``, in place: the one physical write a shared block
+        ever takes."""
+        bid, pos, bt = int(bid), int(pos), self.block_tokens
 
-    def prefix_save_state(self, state, ext, bid):
-        raise NotImplementedError(f"prefix_save_state: {_PREFIX}")
+        def save(ws, e, s, a):
+            if ws:
+                s.narrow(a, bid, 1).copy_(e.narrow(a + 1, pos, bt))
+        self._zip_ext(save, ext, state.prefix)
+        return state
 
-    def prefix_load_state(self, state, ext, bid):
-        raise NotImplementedError(f"prefix_load_state: {_PREFIX}")
+    def prefix_load_ws(self, state: KVPoolState, ext: dict, bid, pos
+                       ) -> dict:
+        """A copy of ``ext`` with block ``bid``'s rows at position ``pos``
+        (the admission gather of one hit block). Never writes into
+        ``ext``: the engine passes the shared zero tree of
+        `fresh_extend`."""
+        bid, pos, bt = int(bid), int(pos), self.block_tokens
+
+        def load(ws, e, s, a):
+            if not ws:
+                return e
+            out = e.clone()
+            out.narrow(a + 1, pos, bt).copy_(s.narrow(a, bid, 1))
+            return out
+        return self._zip_ext(load, ext, state.prefix)
+
+    def prefix_save_state(self, state: KVPoolState, ext: dict, bid
+                          ) -> KVPoolState:
+        """Snapshot ``ext``'s recurrent-state leaves into block ``bid``, in
+        place. The engine calls it for exact-prefill (recurrent) plans
+        only; the port's attention-only plans have no such leaf."""
+        bid = int(bid)
+
+        def save(ws, e, s, a):
+            if not ws:
+                s.narrow(a, bid, 1).copy_(e)
+        self._zip_ext(save, ext, state.prefix)
+        return state
+
+    def prefix_load_state(self, state: KVPoolState, ext: dict, bid
+                          ) -> dict:
+        """A copy of ``ext`` with its recurrent-state leaves seeded from
+        block ``bid`` (recurrent plans only, as `prefix_save_state`)."""
+        bid = int(bid)
+        return self._zip_ext(
+            lambda ws, e, s, a: e if ws else s.narrow(a, bid, 1).to(
+                e.dtype, copy=True), ext, state.prefix)
+
+
+def _is_ws(key) -> bool:
+    return str(key).endswith("_ws")
 
 
 def make_backend(kind: str, model: Model, params, *, num_slots: int,
                  max_len: int, device=None, n_spill: int | None = None,
                  spill_compress: bool | None = None,
+                 prefix_blocks: int | None = None,
+                 block_tokens: int | None = None,
                  fused_decode: bool | None = None,
-                 sparse_read: float | None = None) -> InferenceBackend:
+                 sparse_read: float | None = None,
+                 weight_stream: int | None = None) -> InferenceBackend:
     """CLI-facing factory; only ``kind='local'`` is ported."""
     if kind == "local":
         return LocalBackend(model, params, num_slots, max_len, device=device,
                             n_spill=n_spill, spill_compress=spill_compress,
+                            prefix_blocks=prefix_blocks,
+                            block_tokens=block_tokens,
                             fused_decode=fused_decode,
-                            sparse_read=sparse_read)
+                            sparse_read=sparse_read,
+                            weight_stream=weight_stream)
     if kind == "sharded":
         raise NotImplementedError(
             "ShardedBackend: ROADMAP Queue 1 item 10 (multi-device)")

@@ -10,8 +10,8 @@ Port of the reference's `serving/kv_pool.py`: `KVPoolState` is a plain
 dataclass (no pytree registration; the cache tree plus a matching tree
 of slot-axis indices), `TieredKVPool` is host-side slot bookkeeping, and
 the byte math shares `models.counting.kv_elems_per_token` with the rest
-of the stack. The RRAM spill lanes live beside the cache in the state;
-the paged prefix store is not ported yet.
+of the stack. The RRAM spill lanes and the paged prefix block store live
+beside the cache in the state.
 """
 
 from __future__ import annotations
@@ -41,6 +41,15 @@ class KVPoolState:
     own axis tree (None: the lanes mirror ``cache`` and ``axes``
     addresses both). ``spill_writes``: (n_lanes, n_endurance_blocks)
     int32 cumulative RRAM write counters per lane, never reset.
+
+    ``prefix``: the paged prefix-sharing block store, a tree shaped like
+    the model's extend state with the batch axis read as *block ids* and
+    the sequence axis shrunk to ``block_tokens``: full-precision
+    workspace K/V rows per block. None until the first prefix
+    registration or adoption materializes it (an engine with paging off
+    never pays for it). ``prefix_axes``: its block-axis index tree.
+    Which block holds which prefix is host-side state in
+    `serving.block_pool.BlockPool`.
     """
 
     cache: dict
@@ -48,6 +57,8 @@ class KVPoolState:
     spill: dict | None = None
     spill_writes: torch.Tensor | None = None
     spill_axes: dict | None = None
+    prefix: dict | None = None
+    prefix_axes: dict | None = None
 
     @property
     def num_slots(self) -> int:

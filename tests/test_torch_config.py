@@ -127,7 +127,7 @@ def test_nothing_builds_at_import():
 # config parity
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ["fastvlm-1.7b", "mobilevlm-1.7b",
-                                  "granite-3-2b"])
+                                  "granite-3-2b", "nemotron-4-340b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_configs_equal_field_by_field(arch, reduced):
     assert as_dict(get_config(arch, reduced=reduced)) == as_dict(
@@ -140,7 +140,8 @@ def test_registry_constants_match():
     assert [dataclasses.astuple(s) for s in PB.LM_SHAPES] == \
         [dataclasses.astuple(s) for s in RB.LM_SHAPES]
     # the port registers only the arch modules whose mixers it runs
-    assert set(PB.list_archs()) == {"granite-3-2b", *PB.PAPER_MODELS}
+    assert set(PB.list_archs()) == {"granite-3-2b", "nemotron-4-340b",
+                                    *PB.PAPER_MODELS}
     for arch in PB.list_archs():
         assert get_config(arch).param_count() == \
             ref_get_config(arch).param_count()

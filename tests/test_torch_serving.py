@@ -83,7 +83,7 @@ def _record_plans(engine):
 # ---------------------------------------------------------------------------
 # model entry points
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("nemotron-4-340b",))
 def test_prefill_logits_match_reference(arch):
     rc, rmodel, rparams, pc, model, params = build_pair(arch)
     toks, patches, _ = _stream(pc, seed=1)[0]
@@ -230,22 +230,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_unported_paths_raise_not_implemented():
     """What is still to port raises, naming its ROADMAP item: other
-    mixers, the paged prefix store, weight streaming and the sharded
-    backend. (Spill lanes are ported: evict_slot works.)"""
+    mixers and the sharded backend. (Spill lanes, the paged prefix store
+    and weight streaming are ported: they work.)"""
     cfg = get_config("granite-3-2b", reduced=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(cfg.replace(segments=(Segment(("mamba2",), 2),)))
     _, _, _, _, model, params = build_pair("granite-3-2b")
     be = LocalBackend(model, params, 2, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        be.ensure_prefix(be.init_pool())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LocalBackend(Model(model.cfg.replace(weight_stream_layers=1)),
-                     params, 2, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_backend("sharded", model, params, num_slots=2, max_len=16,
                      device="cpu")
     assert be.evict_slot(be.init_pool(), 0, 0, 4).num_spill_lanes == 2
+    assert be.ensure_prefix(be.init_pool()).prefix is not None
+    streamed = LocalBackend(Model(model.cfg.replace(weight_stream_layers=1)),
+                            params, 2, 16, device="cpu")
+    assert streamed.weight_stream == 1
 
 
 def test_serve_cli_on_cpu():
@@ -275,3 +274,22 @@ def test_serve_cli_preempts_with_telemetry_on_cpu(tmp_path, capsys):
     assert "(reconciles with simulated_efficiency: EXACT)" in out
     validate_chrome_trace(json.loads(trace.read_text()))
     assert parse_prometheus(prom.read_text())
+
+
+def test_serve_cli_shared_prefix_and_weight_stream_on_cpu(tmp_path, capsys):
+    """A shared image + system prompt through the prefix cache, with the
+    weights streamed: the prefix-cache line, the weight-stream note and
+    a ledger that reconciles EXACTLY with simulated_efficiency."""
+    prom = tmp_path / "metrics.prom"
+    done = main(["--arch", "fastvlm-1.7b", "--reduced", "--device", "cpu",
+                 "--requests", "5", "--concurrency", "2", "--prompt-len",
+                 "12", "--gen", "4", "--image-every", "1", "--hot-window",
+                 "4", "--dtype", "float32", "--shared-prefix", "8",
+                 "--prefix-cache", "--weight-stream", "1",
+                 "--metrics-out", str(prom)])
+    out = capsys.readouterr().out
+    assert len(done) == 5 and all(r.n_generated == 4 for r in done)
+    assert "[serve] prefix cache:" in out and "CoW copies" in out
+    assert any(r.prefix_hit > 0 for r in done)
+    assert "[weight stream W=1:" in out and "streamed from RRAM]" in out
+    assert "(reconciles with simulated_efficiency: EXACT)" in out
