@@ -65,7 +65,12 @@ source, all started together; seven kernels), then:
      profiler's kernel time a call, for the kernels and for the library
      call beside them (SDPA; torch.addmm at decode and prefill;
      F.rms_norm; SDPA with a boolean length mask beside the flat decode),
-     with the device kernels each library call launches;
+     with the device kernels each library call launches; and
+     deepseek-v2-lite's dense first layer: ffn_act at D 2048, F 10944
+     (85.5 slices of 128: a ragged last one) at M 4 (stream) and 256
+     (wgmma), f32 and bf16, the bf16 ones timed beside their bound and
+     the cuBLAS chain, and fused_norm at D 2048, M 4 and 256 (bf16 timed
+     beside F.rms_norm);
   2. parity — f32 at full width and depth, the serving Engine's tokens
      against `generate` on 2 VQA + 2 text requests, for fastvlm-1.7b over
      the tiered store, for mobilevlm-3b on path A (flat store, fused
@@ -82,7 +87,10 @@ source, all started together; seven kernels), then:
      (a 256-token head, 2 blocks of 128) with questions of 36-48 tokens
      and 16 new tokens, the first committed before the rest are
      submitted: its tokens against a slot-pool Engine's (same tie rule),
-     3 hits of 256 tokens;
+     3 hits of 256 tokens; and deepseek-parity: deepseek-v2-lite in f32
+     at full width with the depth cut to 6 layers (1 dense + 5 MoE; the
+     cut is printed), tiered latent store (hot window 64), 2 slots, 4
+     text requests of 128 tokens, 16 new: Engine == generate (tie rule);
   3. serving — three bf16 runs through the Engine at full width and
      depth, each the main path of its configuration: the kernels' launch
      counters are zeroed just before each run and read just after, and
@@ -141,20 +149,33 @@ source, all started together; seven kernels), then:
      live admissions (read as each hit is released), hit and cold TTFT
      p50, one hit-tail extend's device ms
      against the whole 304-token prefill's (profiler) and chime_sim's
-     tok/J.
+     tok/J. Then deepseek, MLA and the dropless MoE: bf16
+     deepseek-v2-lite at full width and depth (31.4 GB of weights built
+     on the card), tiered latent store (hot window 128), 4 slots,
+     max_len 512, a Telemetry hub, 8 text requests of 256 tokens with 64
+     new: exact launches (fused_norm 55 and ffn_act 1 a model call, no
+     other kernel), write-once on the cold latent tier, the ledger equal
+     to simulated_efficiency, chime_sim on CHIME and M3D-DRAM-only, the
+     timing and both profiles (each with the top torch ops by device
+     time: the experts' aten::bmm, MLA's einsums), the peak device
+     memory after init and after the run; last, `apply_moe` and
+     `apply_mla_decode` run again on one decode step's inputs with the
+     device's sync debug mode at "error" (a host sync fails the run).
 
 It prints the card (name, power limit), the kernel build time, the
 phases' results, then one JSON line {"kernels": [...]} (launches summed
-over the six serving runs; host_ms is call ms minus device ms) and,
+over the seven serving runs; host_ms is call ms minus device ms) and,
 last, the device JSON line. It fails
 (non-zero exit, no result lines) without a card, outside the repository,
 or when any check fails. `--phases` selects a subset (e.g. `--phases
-kernels` for a quick compile check).
+kernels` for a quick compile check; `--phases kernels,deepseek` for the
+kernels and only the deepseek-v2-lite parity and serving runs).
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import pathlib
 import statistics
@@ -173,6 +194,11 @@ D3, F3, H3 = 2560, 6912, 20
 # shared head, padded to the 64-row admission bucket (attn_stream S = 64
 # at q_offset 256, the FFN, projections and norms at M = 64)
 HIT_TAIL = 64
+# deepseek-v2-lite: d_model and its dense first layer's d_ff (F / 128 =
+# 85.5: the stream form's last slice is ragged); the f32 parity run cuts
+# the depth to 1 dense + 5 MoE layers (full depth in f32 is 62.8 GB of
+# weights alone)
+DS_D, DS_F, DS_PARITY_LAYERS = 2048, 10944, 6
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 REPLACES = {
@@ -1116,6 +1142,36 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                    max_err(FN.fused_norm(x, sc3, None, "rms"),
                            FN.fused_norm_plain(x, sc3, None, "rms")))
         del w3
+        # ---- ffn_act and fused_norm at deepseek-v2-lite: layer 0's dense
+        # FFN (D 2048, F 10944) at decode M = 4 (the stream form) and
+        # prefill M = 256; its 55 norms a model call at D 2048. In bf16
+        # both FFN shapes and both norm shapes are timed
+        wds = (randn(DS_D, DS_F, dtype=tdt, std=0.5 * DS_D ** -0.5),
+               randn(DS_D, DS_F, dtype=tdt, std=0.5 * DS_D ** -0.5),
+               randn(DS_F, DS_D, dtype=tdt, std=DS_F ** -0.5))
+        scd = (0.25 + 0.1 * torch.rand(DS_D, generator=gen,
+                                       device=dev)).to(tdt)
+        for M in (4, 256):
+            x = randn(M, DS_D, dtype=tdt)
+            row = None
+            if dt == "bfloat16":
+                row = (3 * DS_D * DS_F * es, chain_of(x, *wds))
+            ffn_case("ffn_act", x, wds, "silu_gated", dt,
+                     f"deepseek silu_gated M={M}", ffn_form(M, dt), row)
+            record("fused_norm", f"deepseek rms M={M} D={DS_D}", dt,
+                   max_err(FN.fused_norm(x, scd, None, "rms"),
+                           FN.fused_norm_plain(x, scd, None, "rms")))
+            if dt == "bfloat16":
+                nr = norm_row(x, scd, es)
+                results["extra_rows"].append(dict(
+                    nr, name="fused_norm", event_ms=None,
+                    shape=f"deepseek {nr['shape']}"))
+                print(f"[kernels]   fused_norm deepseek x ({M}, {DS_D}): "
+                      f"{1e3 * nr['device_ms']:.2f} us device, "
+                      f"{nr['ms']:.4f} ms call; bound "
+                      f"{1e3 * nr['bound_ms']:.2f} us ({nr['bound_by']}); "
+                      f"F.rms_norm {nr['library_device_ms']} ms device")
+        del wds
         # ---- attn_stream at mobilevlm-3b: G = 1, S = L = 256 ------------
         q = randn(1, H3, 256, HEAD_DIM, dtype=tdt)
         k = randn(1, H3, 256, HEAD_DIM, dtype=tdt)
@@ -1250,7 +1306,7 @@ def _requests(cfg, n_vqa: int, n_text: int, text_with_image: int,
     from repro_torch.serving import Request
 
     rng = np.random.default_rng(seed)
-    f = cfg.frontend
+    f = cfg.frontend              # None on a text-only model: n_vqa = 0
     reqs = []
     for i in range(n_vqa + n_text):
         vqa = i % 2 == 0 and i // 2 < n_vqa
@@ -1268,7 +1324,8 @@ def parity_phase(dev: str = "cuda") -> dict:
     store (hot window 64), mobilevlm-3b on path A (flat store, fused
     decode through the backend knob; `generate` runs the unfused model)
     and on path B (tiered store, hot window 64, int8 FFN weights: the
-    tiered decode at G = 1 and `ffn_act_int8` in f32)."""
+    tiered decode at G = 1 and `ffn_act_int8` in f32); then B
+    preempted, fastvlm-paged and deepseek-parity."""
     out = {}
     for label, arch, knobs, bknobs in (
             ("fastvlm-1.7b tiered", "fastvlm-1.7b",
@@ -1281,7 +1338,30 @@ def parity_phase(dev: str = "cuda") -> dict:
         out[label] = _parity(label, arch, knobs, bknobs, dev)
     out["B preempted"] = _parity_preempt(dev)
     out["fastvlm-paged"] = _parity_paged(dev)
+    out["deepseek-parity"] = _parity_deepseek(dev)
     return out
+
+
+def _parity_deepseek(dev) -> dict:
+    """deepseek-parity: f32 deepseek-v2-lite at full width, depth cut to
+    DS_PARITY_LAYERS (1 dense + 5 MoE), tiered latent store (hot window
+    64), 2 slots, 4 text requests (128-token prompts, 16 new tokens):
+    the Engine's tokens against `generate`'s, tie rule as above."""
+    from repro_torch.configs.base import Segment, get_config
+
+    n = DS_PARITY_LAYERS
+    knobs = dict(kv_policy="tiered", kv_hot_window=64, num_layers=n,
+                 segments=(Segment(("mla",), n),))
+    full = get_config("deepseek-v2-lite")
+    cut = full.replace(param_dtype="float32", **knobs)
+    print(f"[parity] deepseek-parity: f32, full width (d_model "
+          f"{cut.d_model}, {cut.moe.num_experts} experts top-"
+          f"{cut.moe.top_k}, kv_lora_rank {cut.mla.kv_lora_rank}), depth "
+          f"cut from {full.num_layers} to {n} layers (1 dense + {n - 1} "
+          f"MoE): {cut.param_count():,} parameters, "
+          f"{4 * cut.param_count() / 1e9:.1f} GB in f32")
+    return _parity("deepseek-parity", "deepseek-v2-lite", knobs, {}, dev,
+                   n_vqa=0, slots=2)
 
 
 def _require_tie(label, model, params, r, step: int, got: int, want: int,
@@ -1422,16 +1502,17 @@ def _parity_preempt(dev) -> dict:
             "evictions": st["evictions"]}
 
 
-def _parity(label, arch, knobs, bknobs, dev) -> dict:
+def _parity(label, arch, knobs, bknobs, dev, n_vqa: int = 2,
+            slots: int = 4) -> dict:
     import torch
 
     from repro_torch.launch.serve import generate
     from repro_torch.serving import Engine, LocalBackend
 
     cfg, model, params = _model(arch, "float32", dev, **knobs)
-    reqs = _requests(cfg, n_vqa=2, n_text=2, text_with_image=64,
+    reqs = _requests(cfg, n_vqa=n_vqa, n_text=4 - n_vqa, text_with_image=64,
                      text_len=128, gen_len=16, seed=1)
-    backend = LocalBackend(model, params, 4, 224, device=dev, **bknobs)
+    backend = LocalBackend(model, params, slots, 224, device=dev, **bknobs)
     for k, v in bknobs.items():
         require(getattr(backend, k) == v, f"{label}: backend {k} != {v}")
     engine = Engine(backend)
@@ -1477,7 +1558,8 @@ def serving_phase(pk: dict, dev: str = "cuda") -> dict:
     """The three bf16 serving runs of RUNS, each with its launch check
     and its chime_sim price, then path B with its weights streamed
     (B-stream) and under preemption (PREEMPT_RUNS), then fastvlm-1.7b
-    over the prefix cache (fastvlm-prefix)."""
+    over the prefix cache (fastvlm-prefix), then deepseek-v2-lite
+    (deepseek: MLA and the dropless MoE)."""
     import torch
     out = {}
     for run in RUNS:
@@ -1502,6 +1584,135 @@ def serving_phase(pk: dict, dev: str = "cuda") -> dict:
             torch.cuda.empty_cache()
     del built
     out["fastvlm-prefix"] = prefix_run(dev=dev)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out["deepseek"] = deepseek_run(pk, dev=dev)
+    return out
+
+
+def deepseek_run(pk: dict, dev: str = "cuda") -> dict:
+    """deepseek: bf16 deepseek-v2-lite at full width and depth (27 MLA
+    layers, the dense first one and 26 of 64 routed experts top-6 plus 2
+    shared; 31.4 GB of weights, built on the card) over the tiered
+    latent store (hot window 128), max_len 512, 4 slots, 8 text requests
+    of 256 tokens with 64 new each, a Telemetry hub riding along: exact
+    launches (fused_norm 55 and ffn_act 1 a model call, nothing else),
+    write-once on the cold latent tier, the ledger == simulated_efficiency,
+    chime_sim on CHIME and M3D-DRAM-only, the profiles with their top
+    ops, the peak device memory after init and after the run, and
+    `apply_moe` and `apply_mla_decode` run once more on one decode
+    step's inputs under ``torch.cuda.set_sync_debug_mode("error")``."""
+    import torch
+
+    from repro_torch.serving import Telemetry
+    from repro_torch.tree import tree_leaves
+
+    label = "deepseek"
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    # an earlier run's backend lives on in a reference cycle (its timed
+    # decode_step closes over the bound method) until the collector runs
+    gc.collect()
+    mem_before = 0
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    built = _model("deepseek-v2-lite", "bfloat16", dev, kv_policy="tiered",
+                   kv_hot_window=128)
+    sync()
+    init_s = time.perf_counter() - t0
+    cfg, model, params = built
+    mem_init = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[serving] {label}: {n_params:,} parameters ({cfg.param_count():,}"
+          f" counted by the config, norm scales aside; "
+          f"{2 * n_params / 1e9:.2f} GB bf16) built on the card in "
+          f"{init_s:.1f} s; peak device memory after init "
+          f"{mem_init / 1e9:.2f} GB ({mem_before / 1e9:.2f} GB allocated "
+          f"before it)")
+    res = serve_run(label, "deepseek-v2-lite", None, {}, 0,
+                    ("fused_norm", "ffn_act"), dev=dev, built=built,
+                    n_vqa=0, telemetry=Telemetry())
+    ext = res["extend_calls"]
+    dec = res["decode_steps_engine"]
+    per_call = {k: n / (ext + dec) for k, n in res["launches"].items()}
+    # 2 norms a layer and the final one (55 at full depth); the FFN kernel
+    # in the dense first layer only
+    require(per_call["fused_norm"] == 2 * cfg.num_layers + 1
+            and per_call["ffn_act"] == cfg.moe.first_dense_layers,
+            f"{label}: launches a model call {per_call}")
+    print(f"[serving] {label}: launches a model call over {ext} extends "
+          f"and {dec} decode steps: {per_call}")
+    mem_run = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    print(f"[serving] {label}: peak device memory after the run "
+          f"{mem_run / 1e9:.2f} GB")
+    res.update({"params": n_params, "init_s": init_s,
+                "memory_allocated_before_init": mem_before,
+                "max_memory_allocated_init": mem_init,
+                "max_memory_allocated_run": mem_run,
+                "sync_free": sync_free_check(label, model, params, dev)})
+    res.pop("finished")
+    return res
+
+
+def sync_free_check(label, model, params, dev: str = "cuda") -> dict:
+    """Capture `fusion.apply_mla_decode`'s and `layers.apply_moe`'s first
+    call of one batched decode step (4 slots), then run each again on
+    those inputs with the device's sync debug mode at "error": a host
+    synchronisation inside either raises."""
+    import torch
+
+    from repro_torch.core import fusion
+    from repro_torch.models import layers as L
+    from repro_torch.serving import Engine, LocalBackend
+
+    reqs = _requests(model.cfg, n_vqa=0, n_text=4, text_with_image=0,
+                     text_len=64, gen_len=8, seed=5)
+    engine = Engine(LocalBackend(model, params, 4, 512, device=dev))
+    for r in reqs:
+        engine.submit(r)
+    while engine._inflight is not None or engine.scheduler.pending \
+            or int(engine._active.sum()) < len(reqs):
+        engine.step()
+    fns = {"apply_mla_decode": (fusion, fusion.apply_mla_decode),
+           "apply_moe": (L, L.apply_moe)}
+    seen = {}
+
+    def capture(name, fn):
+        def wrapped(*a, **kw):
+            seen.setdefault(name, (a, kw))
+            return fn(*a, **kw)
+        return wrapped
+    for name, (mod, fn) in fns.items():
+        setattr(mod, name, capture(name, fn))
+    try:
+        engine.step()                       # one decode step of 4 slots
+    finally:
+        for name, (mod, fn) in fns.items():
+            setattr(mod, name, fn)
+    require(set(seen) == set(fns), f"{label}: the decode step called "
+            f"{sorted(seen)}")
+    out = {}
+    with torch.no_grad():
+        for name, (_, fn) in fns.items():
+            a, kw = seen[name]
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn(*a, **kw)
+            except RuntimeError as e:
+                require(False, f"{label}: {name} synchronizes with the "
+                               f"host: {e}")
+            finally:
+                if dev == "cuda":
+                    torch.cuda.set_sync_debug_mode("default")
+                    torch.cuda.synchronize()
+            out[name] = {"input": tuple(a[2].shape)}
+            print(f"[serving] {label}: {name} on a decode step's input "
+                  f"{tuple(a[2].shape)} ran under sync debug mode \"error\""
+                  f": no host synchronisation")
     return out
 
 
@@ -1959,15 +2170,21 @@ def check_run(label, cfg, model, engine, done, n_reqs, counts,
         require(all(0 <= t < model.padded_vocab for t in r.generated),
                 f"{label}: request {r.rid}: token id out of range")
     n_layers = cfg.num_layers
+    # GQA layers run the projection and attention kernels, layers with a
+    # dense FFN (every layer of a dense model, a MoE model's dense first
+    # ones) the FFN kernel; MLA and routed experts run none
+    n_gqa = sum(u.repeats for u in model.plan if u.block.mixer == "attn")
+    n_ffn = sum(u.repeats for u in model.plan
+                if u.block.mlp not in (None, "moe"))
     ext = engine.stats["extend_calls"] + reruns
     dec = engine.stats["decode_steps"]
     want = {"fused_norm": (2 * n_layers + 1) * (ext + dec),
-            "qkv_proj": n_layers * (ext + dec),
-            "attn_stream": n_layers * ext,
-            "ffn_act": n_layers * (ext + dec),
-            "ffn_act_int8": n_layers * (ext + dec),
-            "paged_decode_tiered": n_layers * dec,
-            "paged_decode_flat": n_layers * dec}
+            "qkv_proj": n_gqa * (ext + dec),
+            "attn_stream": n_gqa * ext,
+            "ffn_act": n_ffn * (ext + dec),
+            "ffn_act_int8": n_ffn * (ext + dec),
+            "paged_decode_tiered": n_gqa * dec,
+            "paged_decode_flat": n_gqa * dec}
     for k, n in counts.items():
         expect = want[k] if k in needs else 0
         require(n == expect and (k not in needs or n > 0),
@@ -2037,20 +2254,25 @@ def sim_ledger(label, backend, done, platform=None) -> dict:
 
 
 def serve_run(label, arch, knobs, bknobs, text_with_image, needs,
-              dev: str = "cuda") -> dict:
+              dev: str = "cuda", built=None, n_vqa: int = 4,
+              telemetry=None) -> dict:
+    """One bf16 serving run of 8 requests (``n_vqa`` of them VQA) at
+    concurrency 4, max_len 512, 64 new tokens each, with its launch
+    check, timing, chime_sim price and profiles; ``built`` is the
+    run's (cfg, Model, params) where the caller made them."""
     from repro_torch import kernels
     from repro_torch.serving import LocalBackend
     from repro_torch.simulator import DRAM_ONLY
 
-    cfg, model, params = _model(arch, "bfloat16", dev, **knobs)
+    cfg, model, params = built or _model(arch, "bfloat16", dev, **knobs)
     max_len, gen_len = 512, 64
-    reqs = _requests(cfg, n_vqa=4, n_text=4,
+    reqs = _requests(cfg, n_vqa=n_vqa, n_text=8 - n_vqa,
                      text_with_image=text_with_image, text_len=256,
                      gen_len=gen_len, seed=2)
     backend = LocalBackend(model, params, 4, max_len, device=dev, **bknobs)
     for k, v in bknobs.items():
         require(getattr(backend, k) == v, f"{label}: backend {k} != {v}")
-    engine, step_s, sync = timed_engine(backend, dev)
+    engine, step_s, sync = timed_engine(backend, dev, telemetry=telemetry)
     sync()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2064,6 +2286,14 @@ def serve_run(label, arch, knobs, bknobs, text_with_image, needs,
     res["finished"] = done
     res["sim"] = sim_ledger(label, backend, done)
     res["sim_dram_only"] = sim_ledger(label, backend, done, DRAM_ONLY)
+    if telemetry is not None:
+        # the ledger, priced live, against the end-of-run price
+        led = telemetry.ledger.totals()
+        for k in ("sim_energy_j", "sim_total_s", "sim_energy_split_j"):
+            require(led[k] == res["sim"][k], f"{label}: ledger {k} "
+                    f"{led[k]!r} != simulated_efficiency {res['sim'][k]!r}")
+        print(f"[sim] {label}: the Telemetry ledger reconciles with "
+              f"simulated_efficiency: EXACT")
     if dev == "cuda":
         res["profile"] = profile_decode(label, model, params, cfg,
                                         text_with_image, bknobs, dev)
@@ -2144,7 +2374,8 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
     from repro_torch.kernels import paged_decode as PD
     from repro_torch.serving import Engine, LocalBackend
 
-    reqs = _requests(cfg, n_vqa=2, n_text=2,
+    n_vqa = 2 if cfg.frontend is not None else 0
+    reqs = _requests(cfg, n_vqa=n_vqa, n_text=4 - n_vqa,
                      text_with_image=text_with_image, text_len=256,
                      gen_len=4 * n_steps, seed=3)
     engine = Engine(LocalBackend(model, params, 4, 512, device=dev,
@@ -2160,17 +2391,21 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
     # the run's paged decode: its last call at the ops layer (the model
     # layout's adapter, which counts nothing; the kernel's wrapper is left
     # as it is) is kept, to time the kernel alone at this decode shape
-    # after the window
-    kern_name = ("paged_decode_tiered" if cfg.kv_policy == "tiered"
-                 else "paged_decode_flat")
-    adapter, seen = getattr(ops, kern_name), {}
+    # after the window. MLA decodes without one (fused decode is
+    # GQA-only), so an MLA model has none to keep
+    gqa = any(u.block.mixer == "attn" for u in model.plan)
+    kern_name = (None if not gqa else "paged_decode_tiered"
+                 if cfg.kv_policy == "tiered" else "paged_decode_flat")
+    adapter = getattr(ops, kern_name) if kern_name else None
+    seen = {}
 
     def keep(q, k_store, v_store, pos, **kw):
         seen["call"] = (q, k_store, v_store,
                         pos.clone() if torch.is_tensor(pos) else pos, kw)
         return adapter(q, k_store, v_store, pos, **kw)
     kernels.reset_launch_counts()
-    setattr(ops, kern_name, keep)
+    if kern_name:
+        setattr(ops, kern_name, keep)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2181,26 +2416,30 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
     finally:
-        setattr(ops, kern_name, adapter)
+        if kern_name:
+            setattr(ops, kern_name, adapter)
     counts = kernels.launch_counts()
     rows = device_rows(prof)
     dev_ms = sum(r[2] for r in rows)
     launch_check = profile_launch_check(label, "decode", rows, counts)
-    q, k_store, v_store, pos, kw = seen["call"]
-    a, kw = getattr(ops, f"{kern_name}_operands")(q, k_store, v_store, pos,
-                                                  **kw)
-    kern = getattr(PD, kern_name)
-    hits = [(c, t) for k, c, t in rows if f"{kern_name}_kernel" in k]
-    alone = {"kernel": kern_name,
-             "shape": f"q {tuple(a[0].shape)}, lengths {a[-2].tolist()}",
-             "profile_us_per_launch": 1e3 * sum(t for _, t in hits)
-             / max(sum(c for c, _ in hits), 1),
-             "device_us": 1e3 * device_ms(lambda: kern(*a, **kw)),
-             "event_us": 1e3 * event_ms(lambda: kern(*a, **kw))}
-    print(f"[profile] {label}: {kern_name} at the decode shape "
-          f"({alone['shape']}): {alone['profile_us_per_launch']:.2f} us a "
-          f"launch in the profile; alone {alone['device_us']:.2f} us "
-          f"(profiler), {alone['event_us']:.2f} us (CUDA events)")
+    alone = None
+    if kern_name:
+        q, k_store, v_store, pos, kw = seen["call"]
+        a, kw = getattr(ops, f"{kern_name}_operands")(q, k_store, v_store,
+                                                      pos, **kw)
+        kern = getattr(PD, kern_name)
+        hits = [(c, t) for k, c, t in rows if f"{kern_name}_kernel" in k]
+        alone = {"kernel": kern_name,
+                 "shape": f"q {tuple(a[0].shape)}, lengths "
+                          f"{a[-2].tolist()}",
+                 "profile_us_per_launch": 1e3 * sum(t for _, t in hits)
+                 / max(sum(c for c, _ in hits), 1),
+                 "device_us": 1e3 * device_ms(lambda: kern(*a, **kw)),
+                 "event_us": 1e3 * event_ms(lambda: kern(*a, **kw))}
+        print(f"[profile] {label}: {kern_name} at the decode shape "
+              f"({alone['shape']}): {alone['profile_us_per_launch']:.2f} "
+              f"us a launch in the profile; alone {alone['device_us']:.2f} "
+              f"us (profiler), {alone['event_us']:.2f} us (CUDA events)")
     name = label.split(":")[0].replace(" ", "_")
     (OUT / f"decode_profile_{name}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total",
@@ -2220,7 +2459,30 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
     for r in out["top"]:
         print(f"[profile]   {r['ms_per_step']:8.3f} ms/step "
               f"{r['launches_per_step']:6.1f} launches/step  {r['kernel']}")
+    out["top_ops"] = top_ops(prof, n_steps)
+    print(f"[profile] {label}: decode step's top torch ops by the device "
+          f"time of what they launch (inclusive; nested ops count again):")
+    for r in out["top_ops"]:
+        print(f"[profile]   {r['ms_per_step']:8.3f} ms/step "
+              f"{r['calls_per_step']:6.1f} calls/step  {r['op']}")
     return out
+
+
+def top_ops(prof, n_steps: int, n: int = 12) -> list:
+    """The torch ops (aten::bmm, aten::einsum, aten::index_add_, ...)
+    that launched the most device time in a profiled window, per step:
+    each op's device time includes the ops it calls, so MoE's products
+    and MLA's einsums show by name."""
+    from torch.autograd import DeviceType
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0)
+    rows = [(e.key, e.count, dev_us(e) / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
+            and dev_us(e) > 0]
+    rows.sort(key=lambda r: -r[2])
+    return [{"op": k, "calls_per_step": c / n_steps,
+             "ms_per_step": t / n_steps} for k, c, t in rows[:n]]
 
 
 def profile_prefill(label, model, params, cfg, bknobs, dev: str = "cuda",
@@ -2276,6 +2538,12 @@ def profile_prefill(label, model, params, cfg, bknobs, dev: str = "cuda",
     for r in out["top"]:
         print(f"[profile]   {r['ms']:8.3f} ms {r['launches']:5d} launches  "
               f"{r['kernel']}")
+    out["top_ops"] = top_ops(prof, 1)
+    print(f"[profile] {label}: prefill's top torch ops by the device time "
+          f"of what they launch (inclusive):")
+    for r in out["top_ops"]:
+        print(f"[profile]   {r['ms_per_step']:8.3f} ms "
+              f"{r['calls_per_step']:6.0f} calls  {r['op']}")
     return out
 
 
@@ -2332,6 +2600,11 @@ def main(argv=None) -> int:
         report["parity"] = timed("parity", parity_phase)
     if "serving" in phases:
         report["serving"] = timed("serving", serving_phase, pk)
+    if "deepseek" in phases and not {"parity", "serving"} & phases:
+        report["parity"] = {"deepseek-parity": timed(
+            "deepseek-parity", _parity_deepseek, "cuda")}
+        report["serving"] = {"deepseek": timed("deepseek", deepseek_run,
+                                               pk)}
     launches = {k: sum(run.get("launches", {}).get(k, 0)
                        for run in report.get("serving", {}).values())
                 for k in REPLACES}

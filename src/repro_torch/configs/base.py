@@ -237,7 +237,8 @@ def _ensure_loaded():
         return
     _LOADED = True
     import importlib
-    # only the arch modules whose mixers the port runs so far (dense GQA
-    # attention); the other eight come with their mixers
-    for mod in ("nemotron_4_340b", "granite_3_2b", "paper_models"):
+    # only the arch modules whose mixers the port runs so far (GQA
+    # attention, MLA with MoE); the other seven come with their mixers
+    for mod in ("nemotron_4_340b", "granite_3_2b", "deepseek_v2_lite",
+                "paper_models"):
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -22,8 +22,12 @@ runs `paged_decode_tiered`, exact (tau = 0) unless fused decode is on —
 the reference's unfused two-segment merge is exact too.
 
 Where the kernels do not apply the plain path runs on either device: an
-FFN with biases (`apply_mlp`, as the reference) and flat-store decode
-without fused decode (`store_read` + softmax, the reference default).
+FFN with biases (`apply_mlp`, as the reference), flat-store decode
+without fused decode (`store_read` + softmax, the reference default),
+MLA (projections, attention and tiered decode are plain torch in the
+reference too; fused decode is GQA-only) and the MoE experts (batched
+matmuls, as the reference's einsums). A dense-first MoE layer's FFN is a
+plain gated FFN and runs `ffn_act`.
 """
 
 from __future__ import annotations
@@ -71,6 +75,10 @@ def apply_norm(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor,
               mlp_type: str | None = None) -> torch.Tensor:
     kind = mlp_type or cfg.mlp_type
+    if kind == "moe":
+        # serving routes dropless: capacity competition would couple the
+        # tokens of a batch and make chunked prefill depend on the chunking
+        return L.apply_moe(p, cfg, x, dropless=True)
     if kind not in FFN_KINDS:
         raise NotImplementedError(
             f"mlp {kind!r}: ROADMAP Queue 1 item 7 (remaining mixers)")
@@ -160,3 +168,80 @@ def apply_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
         o = A.gqa_scores_softmax_pv(
             q, kv, vv, mask, scores_dtype=L.torch_dtype(cfg.attn_scores_dtype))
     return A.attn_out(p, cfg, o), {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# MLA: the latent stores {"c_kv", "k_rope"} (flat or tiered, the same
+# store functions as K/V, at inner shapes (R,) and (rope,))
+# ---------------------------------------------------------------------------
+def apply_mla_seq(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, max_len: int, length=None
+                  ) -> tuple[torch.Tensor, dict]:
+    """Causal whole-prompt MLA (prefill, ``cfg.mla_absorbed`` picks the
+    form); the latents are absorbed into flat or tiered stores of
+    ``max_len`` positions, the first ``length`` (default S) valid."""
+    S = x.shape[1]
+    c_kv, k_rope = A.mla_latents(p, cfg, x, positions)
+    q_nope, q_rope = A.mla_queries(p, cfg, x, positions)
+    out = A.mla_attention(p, cfg, q_nope, q_rope, c_kv, k_rope,
+                          A.causal_mask(S, S, device=x.device),
+                          absorbed=cfg.mla_absorbed)
+    ln = S if length is None else length
+    return out, {n: KT.store_from_full(t, cfg.kv_policy, cfg.kv_hot_window,
+                                       ln, max_len)
+                 for n, t in (("c_kv", c_kv), ("k_rope", k_rope))}
+
+
+def apply_mla_extend(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                     positions: torch.Tensor, cache: dict, pos: int,
+                     length, commit: bool) -> tuple[torch.Tensor, dict]:
+    """Chunk-resumable MLA prefill: the workspace {"c_kv_ws",
+    "k_rope_ws"} of full-precision (B, max_len, .) latents takes the
+    chunk's rows at pos..pos+C-1, and the chunk's queries attend the
+    workspace causally (query i sees row j iff j <= pos + i: the exact
+    rows of `apply_mla_seq`). ``commit`` (the final chunk) folds the
+    workspace into the flat/tiered latent stores with `store_from_full`."""
+    pos = int(pos)
+    C = x.shape[1]
+    c_kv, k_rope = A.mla_latents(p, cfg, x, positions)
+    q_nope, q_rope = A.mla_queries(p, cfg, x, positions)
+    cf = cache["c_kv_ws"].clone()
+    rf = cache["k_rope_ws"].clone()
+    cf[:, pos:pos + C] = c_kv.to(cf.dtype)
+    rf[:, pos:pos + C] = k_rope.to(rf.dtype)
+    mask = A.causal_mask(C, cf.shape[1], offset=pos, device=x.device)
+    out = A.mla_attention(p, cfg, q_nope, q_rope, cf, rf, mask,
+                          absorbed=cfg.mla_absorbed)
+    if commit:
+        ln = pos + (C if length is None else int(length))
+        max_len = cf.shape[1]
+        return out, {
+            n: KT.store_from_full(t, cfg.kv_policy, cfg.kv_hot_window, ln,
+                                  max_len)
+            for n, t in (("c_kv", cf), ("k_rope", rf))}
+    return out, {"c_kv_ws": cf, "k_rope_ws": rf}
+
+
+def apply_mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                     cache: dict, pos) -> tuple[torch.Tensor, dict]:
+    """One-token MLA decode over the latent stores; ``pos`` is an int or
+    a (B,) tensor of per-row positions. Fused decode is GQA-only (MLA's
+    two-latent score sum does not fit the paged kernels), so MLA stays
+    on this path whatever ``cfg.fused_decode`` says: tiered stores
+    through `mla_attend_tiered` (absorbed), flat ones through
+    `store_read` + `mla_attention` in the configured form."""
+    B = x.shape[0]
+    positions = KT.pos_rows(pos, B, x.device)[:, None]
+    c_new, r_new = A.mla_latents(p, cfg, x, positions)
+    q_nope, q_rope = A.mla_queries(p, cfg, x, positions)
+    cc = KT.store_append(cache["c_kv"], c_new, pos)
+    cr = KT.store_append(cache["k_rope"], r_new, pos)
+    if "hot" in cc:
+        out = A.mla_attend_tiered(p, cfg, q_nope, q_rope, cc, cr, pos)
+    else:
+        cd = L.torch_dtype(cfg.compute_dtype)
+        c_all, valid = KT.store_read(cc, pos, cd)
+        r_all, _ = KT.store_read(cr, pos, cd)
+        out = A.mla_attention(p, cfg, q_nope, q_rope, c_all, r_all,
+                              A._valid4(valid), absorbed=cfg.mla_absorbed)
+    return out, {"c_kv": cc, "k_rope": cr}

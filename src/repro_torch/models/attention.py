@@ -1,11 +1,14 @@
-"""GQA attention: projections, the plain softmax attention, flat-cache
-decode and the two-segment (hot ring + int8 cold tier) decode merge.
+"""Attention mixers: GQA (projections, the plain softmax attention,
+flat-cache decode and the two-segment hot ring + int8 cold tier decode
+merge) and DeepSeek-V2's MLA over its compressed latent cache.
 
-Port of the GQA half of the reference's `models/attention.py`. These
-plain functions are the CPU path and the twins the kernels in
-`repro_torch.kernels` are held against; `qkv_proj` goes through the
-`qkv_proj` wrapper, whose plain twin is its CPU path. Masks fill with
-``NEG_INF = -2**20`` (not -inf), as the reference does.
+Port of the reference's `models/attention.py`. The GQA functions are the
+CPU path and the twins the kernels in `repro_torch.kernels` are held
+against; `qkv_proj` goes through the `qkv_proj` wrapper, whose plain twin
+is its CPU path. MLA runs no kernel, as in the reference: its
+projections, kv-norm and attention are plain torch on either device,
+scores in f32. Masks fill with ``NEG_INF = -2**20`` (not -inf), as the
+reference does.
 """
 
 from __future__ import annotations
@@ -195,3 +198,151 @@ def attend_tiered(cfg, q: torch.Tensor, k_store: dict, v_store: dict,
     p_hot = partial_attention(q, k_store["hot"], v_store["hot"], hot_valid,
                               scale, sdt=sdt)
     return merge_partials([p_cold, p_hot], q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): the cache holds the kv_lora_rank latent c_kv and the
+# shared RoPE key k_rope, one row per token (stores of inner shape (R,)
+# and (rope,)); the CHIME tiers stack on that latent
+# ---------------------------------------------------------------------------
+def init_mla(b: ParamInit, cfg: ModelConfig) -> dict:
+    m = cfg.mla
+    H = cfg.num_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    p = {}
+    if m.q_lora_rank:
+        p["wq_a"] = b.normal((cfg.d_model, m.q_lora_rank))
+        p["q_norm_scale"] = b.ones((m.q_lora_rank,))
+        p["wq_b"] = b.normal((m.q_lora_rank, H, qk_dim))
+    else:
+        p["wq"] = b.normal((cfg.d_model, H, qk_dim))
+    p["wkv_a"] = b.normal((cfg.d_model, m.kv_lora_rank))
+    p["kv_norm_scale"] = b.ones((m.kv_lora_rank,))
+    p["wk_rope"] = b.normal((cfg.d_model, m.qk_rope_head_dim))
+    p["wk_b"] = b.normal((m.kv_lora_rank, H, m.qk_nope_head_dim))
+    p["wv_b"] = b.normal((m.kv_lora_rank, H, m.v_head_dim))
+    p["wo"] = b.normal((H, m.v_head_dim, cfg.d_model))
+    return p
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor,
+         eps: float = 1e-6) -> torch.Tensor:
+    """The latent RMSNorm, in f32 (the reference's plain `_rms`, not the
+    fused_norm kernel)."""
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+            * scale.float()).to(x.dtype)
+
+
+def mla_latents(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The compressed KV latent c_kv (B,S,R) and the shared post-RoPE key
+    k_rope (B,S,rope): what the (tierable) MLA cache stores."""
+    cd = torch_dtype(cfg.compute_dtype)
+    c_kv = _rms(torch.einsum("bsd,dr->bsr", x, p["wkv_a"].to(cd)),
+                p["kv_norm_scale"])
+    k_rope = torch.einsum("bsd,dr->bsr", x, p["wk_rope"].to(cd))
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_queries(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope) after RoPE), through the
+    low-rank wq_a / wq_b pair when ``q_lora_rank`` is set, else wq."""
+    m = cfg.mla
+    cd = torch_dtype(cfg.compute_dtype)
+    if m.q_lora_rank:
+        cq = _rms(torch.einsum("bsd,dr->bsr", x, p["wq_a"].to(cd)),
+                  p["q_norm_scale"])
+        q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"].to(cd))
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+
+
+def mla_attention(p: dict, cfg: ModelConfig, q_nope: torch.Tensor,
+                  q_rope: torch.Tensor, c_kv: torch.Tensor,
+                  k_rope: torch.Tensor, mask: torch.Tensor,
+                  absorbed: bool) -> torch.Tensor:
+    """MLA attention from latents, scores in f32; ``mask`` (bool)
+    broadcastable to (B,H,S,L). Two forms of one function:
+
+    * expanded: per-head K_nope and V materialized from the latent, then
+      plain multi-head attention;
+    * absorbed: W_uk folded into the query and W_uv into the output, so
+      scores and PV run in the kv_lora_rank latent space and no
+      (B,L,H,128) key is built.
+
+    Returns the output projection (B,S,D)."""
+    cd = torch_dtype(cfg.compute_dtype)
+    scores = torch.einsum("bshr,blr->bhsl", q_rope.float(), k_rope.float())
+    if absorbed:
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"].to(cd))
+        scores = scores + torch.einsum("bshr,blr->bhsl", q_lat.float(),
+                                       c_kv.float())
+    else:
+        k_nope = torch.einsum("blr,rhk->blhk", c_kv, p["wk_b"].to(cd))
+        scores = scores + torch.einsum("bshk,blhk->bhsl", q_nope.float(),
+                                       k_nope.float())
+    scores = (scores * _mla_scale(cfg)).masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    if absorbed:
+        o_lat = torch.einsum("bhsl,blr->bshr", probs, c_kv.float()).to(cd)
+        o = torch.einsum("bshr,rhv->bshv", o_lat, p["wv_b"].to(cd))
+    else:
+        v = torch.einsum("blr,rhv->blhv", c_kv, p["wv_b"].to(cd))
+        o = torch.einsum("bhsl,blhv->bshv", probs, v.float()).to(cd)
+    return torch.einsum("bshv,hvd->bsd", o, p["wo"].to(cd))
+
+
+def mla_attend_tiered(p: dict, cfg: ModelConfig, q_nope: torch.Tensor,
+                      q_rope: torch.Tensor, c_store: dict, r_store: dict,
+                      pos) -> torch.Tensor:
+    """Tiered MLA decode, always in the absorbed (latent-space) form: the
+    cold latent tier stays int8, its per-token scales factored out of
+    both score dots and the PV dot; the cold and hot segments merge by
+    softmax stitching (`merge_partials`). ``pos`` may be a (B,) tensor:
+    each row's cold and hot validity is its own (`tiered_valid`).
+    Returns the output projection (B,S,D)."""
+    cd = torch_dtype(cfg.compute_dtype)
+    scale = _mla_scale(cfg)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope,
+                         p["wk_b"].to(cd)).float()          # (B,S,H,R)
+    qr = q_rope.float()
+    W = KT.hot_window_of(c_store)
+    cold_valid, hot_valid = tiered_valid(pos, W, c_store["cold_q"].shape[1],
+                                         q_nope.device)
+
+    def seg(c, c_scale, r, r_scale, valid):
+        cf = c.float()
+        nope = torch.einsum("bshr,blr->bhsl", q_lat, cf)
+        rope = torch.einsum("bshr,blr->bhsl", qr, r.float())
+        if c_scale is not None:
+            nope = nope * c_scale[..., 0][:, None, None, :]
+            rope = rope * r_scale[..., 0][:, None, None, :]
+        scores = ((nope + rope) * scale).masked_fill(~_valid4(valid),
+                                                     NEG_INF)
+        mx = scores.amax(dim=-1, keepdim=True)
+        pr = torch.exp(scores - mx)
+        den = pr.sum(dim=-1, keepdim=True)
+        if c_scale is not None:
+            pr = pr * c_scale[..., 0][:, None, None, :]
+        return mx, den, torch.einsum("bhsl,blr->bhsr", pr, cf)
+
+    parts = [seg(c_store["cold_q"], c_store["cold_scale"],
+                 r_store["cold_q"], r_store["cold_scale"], cold_valid),
+             seg(c_store["hot"], None, r_store["hot"], None, hot_valid)]
+    o_lat = merge_partials(parts, cd)                       # (B,S,H,R)
+    o = torch.einsum("bshr,rhv->bshv", o_lat, p["wv_b"].to(cd))
+    return torch.einsum("bshv,hvd->bsd", o, p["wo"].to(cd))

@@ -1,6 +1,7 @@
-"""Shared layers: parameter init helpers, norms, rotary, dense MLP.
+"""Shared layers: parameter init helpers, norms, rotary, dense MLP and
+the dropless mixture of experts.
 
-Port of the reference's `models/layers.py` for the dense path. Parameter
+Port of the reference's `models/layers.py` for the serving path. Parameter
 shapes and init scales follow the reference (normal with std
 fan_in**-0.5 unless a scale is given; norm scales ones, biases zeros),
 drawn from an explicit `torch.Generator`. The reference's `jax.random`
@@ -177,3 +178,92 @@ def apply_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if "b_down" in p:
         out = out + p["b_down"].to(out.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts: top-k routing, sort-based dispatch, dropless (the
+# serving form); the capacity-dropping path and the load-balancing loss
+# belong to training
+# ---------------------------------------------------------------------------
+TRAINING_ITEM = "ROADMAP Queue 1 item 9 (training)"
+
+
+def init_moe(b: ParamInit, cfg: ModelConfig) -> dict:
+    """Router, the experts stacked on a leading (E,) axis, and the shared
+    experts as one gated MLP under ``shared`` (the reference's leaves)."""
+    m = cfg.moe
+    p = {"router": b.normal((cfg.d_model, m.num_experts),
+                            scale=cfg.d_model ** -0.5),
+         "w_up": b.normal((m.num_experts, cfg.d_model, m.d_ff_expert)),
+         "w_gate": b.normal((m.num_experts, cfg.d_model, m.d_ff_expert)),
+         "w_down": b.normal((m.num_experts, m.d_ff_expert, cfg.d_model))}
+    if m.num_shared_experts > 0:
+        p["shared"] = init_mlp(b, cfg, d_ff=m.d_ff_shared,
+                               mlp_type="silu_gated")
+    return p
+
+
+def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              dropless: bool = True) -> torch.Tensor:
+    """Top-k routed experts plus the shared experts, x (B,S,D) -> (B,S,D).
+
+    The reference's function step by step: an f32 router softmax, top-k
+    gates renormalised, the (token, expert) pairs stably sorted by expert
+    and scattered into an (E, cap, D) buffer, the three expert products
+    as batched matmuls over every expert, the rows gathered back, scaled
+    by their gates and scatter-added per token. Dropless: cap = T, the
+    worst case, so no token is dropped and routing is independent per
+    token (chunked prefill equals whole-prompt prefill). The step never
+    waits on the host: counts come from ``scatter_add_``, no ``.item()``,
+    ``bincount`` or ``nonzero``. The shared experts are the plain
+    `apply_mlp`, as in the reference."""
+    if not dropless:
+        raise NotImplementedError(
+            f"capacity-dropping MoE: {TRAINING_ITEM}; serving is dropless")
+    m = cfg.moe
+    cd = torch_dtype(cfg.compute_dtype)
+    B, S, D = x.shape
+    T, k, E = B * S, m.top_k, m.num_experts
+    xf = x.reshape(T, D)
+    probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)
+    gate_w, gate_idx = torch.topk(probs, k, dim=-1)            # (T,k)
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    flat_expert = gate_idx.reshape(-1)                          # (T*k,)
+    flat_token = torch.arange(T * k, device=x.device) // k     # (T*k,)
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_expert = flat_expert[order]
+    sorted_token = flat_token[order]
+    sorted_w = gate_w.reshape(-1)[order]
+
+    # position of each routed row within its expert: its rank in the
+    # sorted order less the rows of the experts before it
+    counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+        0, sorted_expert, torch.ones_like(sorted_expert))
+    offsets = torch.cumsum(counts, 0) - counts
+    pos_in_expert = (torch.arange(T * k, device=x.device)
+                     - offsets[sorted_expert])
+    # the top-k experts of a token are distinct, so an expert holds at
+    # most T rows: with cap = T every row keeps its place
+    cap = T
+    slot = sorted_expert * cap + pos_in_expert
+    buf = xf.new_zeros((E * cap, D))
+    buf[slot] = xf[sorted_token]
+    buf = buf.view(E, cap, D)
+
+    h = torch.bmm(buf, p["w_up"].to(cd))
+    h = F.silu(h) * torch.bmm(buf, p["w_gate"].to(cd))
+    out_buf = torch.bmm(h, p["w_down"].to(cd)).view(E * cap, D)
+
+    contrib = out_buf[slot] * sorted_w[:, None].to(out_buf.dtype)
+    out = x.new_zeros((T, D)).index_add_(0, sorted_token,
+                                         contrib.to(x.dtype))
+    out = out.view(B, S, D)
+    if m.num_shared_experts > 0:
+        out = out + apply_mlp(p["shared"], cfg, x, mlp_type="silu_gated")
+    return out
+
+
+def moe_aux_loss(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """The Switch-style load-balancing loss is a training term."""
+    raise NotImplementedError(f"moe_aux_loss: {TRAINING_ITEM}")

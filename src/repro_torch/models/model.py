@@ -1,7 +1,9 @@
 """Config-driven decoder for attention-mixer plans, PyTorch port.
 
-Port of the reference's `models/model.py` for dense GQA models (the
-paper's FastVLM/MobileVLM backbones and granite-3-2b). Parameters are a
+Port of the reference's `models/model.py` for GQA models (the paper's
+FastVLM/MobileVLM backbones, granite-3-2b) and MLA + MoE models
+(deepseek-v2-lite: a dense first layer, then routed and shared experts,
+over a compressed latent cache). Parameters are a
 nested dict with the reference's leaf paths, so `bridge.params_from_jax`
 maps one tree onto the other; layers of a repeated unit stay stacked on
 a leading ``repeats`` axis and run in a Python loop where the reference
@@ -14,8 +16,8 @@ scans. Modes:
   * decode  — one token per row; ``pos`` may be a (B,) tensor, so the
               serving backend decodes every slot in one call
 
-Mixers other than ``attn``, encoder-only configs and learned position
-embeddings raise NotImplementedError (ROADMAP Queue 1 item 7).
+Mixers other than ``attn`` and ``mla``, encoder-only configs and learned
+position embeddings raise NotImplementedError (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -88,7 +90,7 @@ class Model:
         self.cfg = cfg
         self.plan = build_plan(cfg)
         for u in self.plan:
-            if u.block.mixer != "attn":
+            if u.block.mixer not in ("attn", "mla"):
                 raise NotImplementedError(
                     f"mixer {u.block.mixer!r}: ROADMAP Queue 1 item 7 "
                     f"(remaining mixers)")
@@ -115,15 +117,26 @@ class Model:
     # ------------------------------------------------------------------
     def _init_block(self, b: L.ParamInit, spec: BlockSpec) -> dict:
         cfg = self.cfg
-        p = {"ln1": L.init_norm(b, cfg), "mixer": A.init_attn(b, cfg)}
+        p = {"ln1": L.init_norm(b, cfg),
+             "mixer": (A.init_mla(b, cfg) if spec.mixer == "mla"
+                       else A.init_attn(b, cfg))}
         if spec.mlp is not None:
             p["ln2"] = L.init_norm(b, cfg)
-            p["mlp"] = L.init_mlp(b, cfg, mlp_type=spec.mlp)
+            if spec.mlp == "moe":
+                p["mlp"] = L.init_moe(b, cfg)
+            elif spec.mlp == "dense_first":
+                p["mlp"] = L.init_mlp(b, cfg, d_ff=cfg.moe.d_ff_dense,
+                                      mlp_type="silu_gated")
+            else:
+                p["mlp"] = L.init_mlp(b, cfg, mlp_type=spec.mlp)
         return p
 
     def init(self, generator: torch.Generator | None = None,
              device="cpu") -> dict:
-        """Random parameters in the reference's shapes and scales."""
+        """Random parameters in the reference's shapes and scales. A
+        repeated unit's leaves are allocated stacked once and filled
+        layer by layer, in the generator order of drawing each layer in
+        turn, so the peak is the stacked tree plus one layer."""
         cfg = self.cfg
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
@@ -137,11 +150,16 @@ class Model:
             if unit.repeats == 1:
                 units[f"u{ui}"] = self._init_block(b, unit.block)
             else:
-                layers = [self._init_block(b, unit.block)
-                          for _ in range(unit.repeats)]
-                units[f"u{ui}"] = tree_map(lambda *a: torch.stack(a),
-                                           *layers)
-                del layers
+                layer = self._init_block(b, unit.block)
+                stacked = tree_map(lambda a: a.new_empty(
+                    (unit.repeats,) + a.shape), layer)
+                for r in range(unit.repeats):
+                    if r:
+                        del layer          # one layer alive at a time
+                        layer = self._init_block(b, unit.block)
+                    tree_map(lambda s, a: s[r].copy_(a), stacked, layer)
+                del layer
+                units[f"u{ui}"] = stacked
         params["units"] = units
         params["final_norm"] = L.init_norm(b, cfg)
         if not cfg.tie_embeddings:
@@ -153,42 +171,57 @@ class Model:
     # caches
     # ------------------------------------------------------------------
     def _stacked(self, make) -> dict:
+        """``make(spec)`` -> one block's tree, stacked per unit."""
         cache = {}
         for ui, unit in enumerate(self.plan):
-            shp = make()
+            shp = make(unit.block)
             if unit.repeats > 1:
                 shp = tree_map(lambda a: a[None].expand(
                     (unit.repeats,) + a.shape).clone(), shp)
             cache[f"u{ui}"] = shp
         return cache
 
-    def _block_cache(self, batch: int, max_len: int, device) -> dict:
+    def _cache_inner(self, spec: BlockSpec) -> dict:
+        """Per-token shape of each cached tensor of one block: K and V
+        (Hkv, Dh) for attention, the latent (R,) and the RoPE key (rope,)
+        for MLA."""
         cfg = self.cfg
+        if spec.mixer == "mla":
+            return {"c_kv": (cfg.mla.kv_lora_rank,),
+                    "k_rope": (cfg.mla.qk_rope_head_dim,)}
         inner = (cfg.num_kv_heads, cfg.head_dim)
+        return {"k": inner, "v": inner}
+
+    def _block_cache(self, spec: BlockSpec, batch: int, max_len: int,
+                     device) -> dict:
+        cfg = self.cfg
         return {k: KT.store_init(batch, max_len, inner, cfg.kv_policy,
                                  cfg.kv_hot_window, self.compute_dtype,
                                  device)
-                for k in ("k", "v")}
+                for k, inner in self._cache_inner(spec).items()}
 
     def init_cache(self, batch: int, max_len: int, device="cpu") -> dict:
-        return self._stacked(lambda: self._block_cache(batch, max_len,
-                                                       device))
+        return self._stacked(lambda spec: self._block_cache(
+            spec, batch, max_len, device))
 
     def cache_spec(self, batch: int, max_len: int) -> dict:
         """The decode cache as shape-and-dtype-only (meta) tensors."""
         return self.init_cache(batch, max_len, device="meta")
 
-    def _block_extend(self, batch: int, max_len: int, device) -> dict:
-        cfg = self.cfg
-        shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-        return {k: torch.zeros(shape, dtype=self.compute_dtype,
-                               device=device) for k in ("k_ws", "v_ws")}
+    def _block_extend(self, spec: BlockSpec, batch: int, max_len: int,
+                      device) -> dict:
+        """The full-precision workspace of one block: {"k_ws", "v_ws"}
+        or, for MLA, {"c_kv_ws", "k_rope_ws"}."""
+        return {f"{k}_ws": torch.zeros((batch, max_len) + inner,
+                                       dtype=self.compute_dtype,
+                                       device=device)
+                for k, inner in self._cache_inner(spec).items()}
 
     def init_extend_cache(self, batch: int, max_len: int,
                           device="cpu") -> dict:
         """Fresh (zero) chunk-resumable prefill state for `extend`."""
-        return self._stacked(lambda: self._block_extend(batch, max_len,
-                                                        device))
+        return self._stacked(lambda spec: self._block_extend(
+            spec, batch, max_len, device))
 
     def extend_spec(self, batch: int, max_len: int) -> dict:
         return self.init_extend_cache(batch, max_len, device="meta")
@@ -228,22 +261,31 @@ class Model:
                    plen=None, commit: bool = False
                    ) -> tuple[torch.Tensor, dict]:
         cfg = self.cfg
+        mla = spec.mixer == "mla"
+        first = next(iter(self._cache_inner(spec)))    # "k" or "c_kv"
         h = fusion.apply_norm(bp["ln1"], cfg, x)
         if mode == "prefill":
-            st = bcache["k"]
+            st = bcache[first]
             ml = st["flat"].shape[1] if "flat" in st else st["cold_q"].shape[1]
-            out, new_cache = fusion.apply_attention_seq(
-                bp["mixer"], cfg, h, positions, ml, length=plen)
-        elif "k_ws" in bcache:      # workspace form: chunked prefill
-            out, new_cache = fusion.apply_attention_extend(
-                bp["mixer"], cfg, h, positions, bcache, pos, plen, commit)
-        else:                       # committed stores: decode
-            out, new_cache = fusion.apply_attention_decode(
-                bp["mixer"], cfg, h, bcache, pos)
+            seq = fusion.apply_mla_seq if mla else fusion.apply_attention_seq
+            out, new_cache = seq(bp["mixer"], cfg, h, positions, ml,
+                                 length=plen)
+        elif f"{first}_ws" in bcache:   # workspace form: chunked prefill
+            ext = (fusion.apply_mla_extend if mla
+                   else fusion.apply_attention_extend)
+            out, new_cache = ext(bp["mixer"], cfg, h, positions, bcache, pos,
+                                 plen, commit)
+        else:                           # committed stores: decode
+            dec = (fusion.apply_mla_decode if mla
+                   else fusion.apply_attention_decode)
+            out, new_cache = dec(bp["mixer"], cfg, h, bcache, pos)
         x = x + out
         if spec.mlp is not None:
             h2 = fusion.apply_norm(bp["ln2"], cfg, x)
-            x = x + fusion.apply_ffn(bp["mlp"], cfg, h2, mlp_type=spec.mlp)
+            # a MoE model's dense first layers are gated FFNs of width
+            # moe.d_ff_dense (their leaves say so), run by ffn_act
+            kind = "silu_gated" if spec.mlp == "dense_first" else spec.mlp
+            x = x + fusion.apply_ffn(bp["mlp"], cfg, h2, mlp_type=kind)
         return x, new_cache
 
     def _run_unit(self, ui: int, unit: UnitSpec, params: dict,

@@ -127,7 +127,8 @@ def test_nothing_builds_at_import():
 # config parity
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ["fastvlm-1.7b", "mobilevlm-1.7b",
-                                  "granite-3-2b", "nemotron-4-340b"])
+                                  "granite-3-2b", "nemotron-4-340b",
+                                  "deepseek-v2-lite"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_configs_equal_field_by_field(arch, reduced):
     assert as_dict(get_config(arch, reduced=reduced)) == as_dict(
@@ -141,7 +142,7 @@ def test_registry_constants_match():
         [dataclasses.astuple(s) for s in RB.LM_SHAPES]
     # the port registers only the arch modules whose mixers it runs
     assert set(PB.list_archs()) == {"granite-3-2b", "nemotron-4-340b",
-                                    *PB.PAPER_MODELS}
+                                    "deepseek-v2-lite", *PB.PAPER_MODELS}
     for arch in PB.list_archs():
         assert get_config(arch).param_count() == \
             ref_get_config(arch).param_count()
@@ -167,7 +168,7 @@ def test_small_mobilevlm_is_mha_without_bias_with_untied_head():
 # ---------------------------------------------------------------------------
 # bridge
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("deepseek-v2-lite",))
 def test_bridge_maps_every_leaf_exactly(arch):
     _, rmodel, rparams, _, model, params = build_pair(arch)
     flat_ref = {jax.tree_util.keystr(p): np.asarray(v) for p, v in

@@ -133,6 +133,17 @@ def test_paged_matches_reference_and_slot_pool(chunk):
     assert tokens(reqs) == slot_tokens(_shared_head, chunk)
 
 
+@pytest.mark.parametrize("chunk", [None, CHUNK], ids=["whole", "chunked"])
+def test_paged_matches_reference_and_slot_pool_mla(chunk):
+    """deepseek-v2-lite (the reference's MLA case, granite's geometry):
+    the prefix blocks hold the latent workspaces."""
+    mla = dict(arch="deepseek-v2-lite")
+    eng, reqs = twin(_shared_head, chunk, **mla)
+    check_paged(eng, len(TAILS) - 1, HEAD)
+    assert tokens(reqs) == slot_tokens(_shared_head, chunk, **mla)
+    assert set(eng.pool.state.prefix["u1"]) == {"c_kv_ws", "k_rope_ws"}
+
+
 def _shared_image(s, paged=True):
     """Many questions about ONE image: the visual span plus an 8-token
     text head are shared; tails of 4, 2 and 4 tokens."""

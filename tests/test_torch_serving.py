@@ -1,6 +1,7 @@
 """PyTorch port: the serving slice end to end on the CPU, against the JAX
 reference — reduced granite-3-2b and the bias/tied-head fastvlm-1.7b
-twin, f32, tiered store with hot window 8.
+twin, f32, tiered store with hot window 8; and deepseek-v2-lite (MLA +
+MoE, reduced), the reference's `local` MLA cases.
 
 Tolerances: logits 1e-4 max-abs (f32 reassociation over two layers);
 greedy tokens identical; scheduler plans and endurance reports
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from repro.launch.serve import generate as ref_generate
+from repro.serving import slot_kv_bytes as ref_slot_kv_bytes
 from repro.serving import Engine as RefEngine
 from repro.serving import LocalBackend as RefBackend
 from repro.serving import Request as RefRequest
@@ -25,7 +27,7 @@ from repro_torch.launch.serve import generate, main
 from repro_torch.models import Model
 from repro_torch.serving import (Engine, LocalBackend, Request,
                                  make_backend, parse_prometheus,
-                                 validate_chrome_trace)
+                                 slot_kv_bytes, validate_chrome_trace)
 from repro_torch.tree import tree_leaves, tree_leaves_with_path
 from test_torch_config import ARCHS, build_pair
 
@@ -245,6 +247,126 @@ def test_unported_paths_raise_not_implemented():
     streamed = LocalBackend(Model(model.cfg.replace(weight_stream_layers=1)),
                             params, 2, 16, device="cpu")
     assert streamed.weight_stream == 1
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v2-lite (MLA latent cache + dropless MoE): the reference's local
+# MLA cases (test_serving.py, test_serving_chunked.py, test_serving_fused.py)
+# ---------------------------------------------------------------------------
+MLA = "deepseek-v2-lite"
+
+
+def _text_requests(cls, cfg, specs, seed):
+    """`tests/conftest.py::make_requests` on either side's Request."""
+    rng = np.random.default_rng(seed)
+    return [cls(rid=i, tokens=rng.integers(0, cfg.vocab_size, n)
+                .astype(np.int32), max_new_tokens=g)
+            for i, (n, g) in enumerate(specs)]
+
+
+@pytest.mark.parametrize("kv_policy", ["tiered", "flat"])
+def test_slot_kv_bytes_matches_cache_walk_mla(kv_policy):
+    """slot_kv_bytes of the latent cache equals a byte walk of the real
+    cache (the int8 cold tier and its scales are RRAM, the rest DRAM,
+    endurance counters bookkeeping) and the reference's figure."""
+    rc, rmodel, _, pc, model, _ = build_pair(MLA, kv_policy)
+    max_len, hot, cold = 24, 0, 0
+    for path, leaf in tree_leaves_with_path(model.cache_spec(1, max_len)):
+        if path[-1] == "writes":
+            continue
+        n = leaf.numel() * leaf.element_size()
+        if path[-1] in ("cold_q", "cold_scale"):
+            cold += n
+        else:
+            hot += n
+    assert slot_kv_bytes(model, max_len) == (hot, cold) == \
+        ref_slot_kv_bytes(rmodel, max_len)
+    if kv_policy == "flat":
+        m = pc.mla
+        assert hot == 4 * pc.num_layers * max_len * (m.kv_lora_rank
+                                                     + m.qk_rope_head_dim)
+
+
+@pytest.mark.parametrize("chunk_tokens", [None, 5])
+def test_engine_matches_generate_and_reference_engine_mla(chunk_tokens):
+    """Whole-prompt (3 x 16-token prompts, as the reference's MLA case)
+    and chunked prefill (16, 13 and 8 tokens in chunks of 5): the port's
+    engine gives the reference engine's plans, tokens, stats and
+    endurance report, and each request's tokens equal `generate`."""
+    _, rmodel, rparams, pc, model, params = build_pair(MLA)
+    specs = ([(16, 6)] * 3 if chunk_tokens is None
+             else [(16, 6), (13, 6), (8, 6)])
+    seed = 5 if chunk_tokens is None else 3
+    eng = Engine(LocalBackend(model, params, 2, 24, device="cpu"),
+                 chunk_tokens=chunk_tokens)
+    reng = RefEngine(RefBackend(rmodel, rparams, 2, 24),
+                     chunk_tokens=chunk_tokens)
+    plans, rplans = _record_plans(eng), _record_plans(reng)
+    done = eng.run(_text_requests(Request, pc, specs, seed))
+    rdone = reng.run(_text_requests(RefRequest, pc, specs, seed))
+    assert plans == rplans
+    got = [r.generated for r in sorted(done, key=lambda r: r.rid)]
+    assert got == [r.generated for r in sorted(rdone, key=lambda r: r.rid)]
+    assert eng.stats == reng.stats
+    assert eng.endurance_report() == reng.endurance_report()
+    assert eng.endurance_report()["write_once_ok"]
+    for r in sorted(done, key=lambda r: r.rid):
+        mine, _ = generate(model, params, {"tokens": r.tokens[None]},
+                           r.prompt_len, r.max_new_tokens, device="cpu")
+        assert r.generated == mine[0].tolist(), r.rid
+    if chunk_tokens:
+        assert eng.stats["prefill_chunks"] > len(specs)
+
+
+def test_extend_chunks_equal_prefill_logits_mla():
+    """Chunks (5, 5, 5, 1) of a 16-token prompt through the MLA
+    workspace give whole-prompt prefill's logits and the reference's."""
+    _, rmodel, rparams, pc, model, params = build_pair(MLA)
+    toks = np.random.default_rng(3).integers(0, pc.vocab_size, 16).astype(
+        np.int32)
+    whole, _ = model.prefill(params, {"tokens": toks[None]}, 24)
+    rwhole, _ = rmodel.prefill(rparams, {"tokens": toks[None]}, 24)
+    ext, pos = model.init_extend_cache(1, 24), 0
+    assert set(ext["u0"]) == {"c_kv_ws", "k_rope_ws"}
+    for i, n in enumerate((5, 5, 5, 1)):
+        logits, ext = model.extend(params, {"tokens": toks[None, pos:pos + n]},
+                                   ext, pos, n, commit=i == 3)
+        pos += n
+    np.testing.assert_allclose(logits.numpy(), whole.numpy(), rtol=0,
+                               atol=LOGIT_TOL)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(rwhole), rtol=0,
+                               atol=LOGIT_TOL)
+
+
+def test_mla_backend_resolves_fused_knob_off_and_serves_identically():
+    """Fused decode is GQA-only: asked for on an MLA model it resolves
+    off (and the sparse read with it), and the tokens equal the default
+    backend's. Only recurrent states change the prefill rules, so MLA
+    keeps ``requires_exact_prefill`` False and ``chunk_unit`` 1; its
+    workspace leaves (`*_ws`) are the latent workspaces."""
+    _, _, _, pc, model, params = build_pair(MLA)
+    be = LocalBackend(model, params, 2, 24, device="cpu", fused_decode=True,
+                      sparse_read=0.1)
+    assert not be.fused_decode and be.sparse_read_tau == 0.0
+    assert not be.requires_exact_prefill and be.chunk_unit == 1
+    assert be.has_prefix_ws
+    assert {p[-1] for p, _ in tree_leaves_with_path(
+        model.extend_spec(1, 24))} == {"c_kv_ws", "k_rope_ws"}
+    runs = []
+    for backend in (be, LocalBackend(model, params, 2, 24, device="cpu")):
+        done = Engine(backend).run(
+            _text_requests(Request, pc, [(16, 8), (5, 8), (13, 4)], 3))
+        runs.append([r.generated for r in sorted(done, key=lambda r: r.rid)])
+    assert runs[0] == runs[1]
+
+
+def test_serve_cli_mla_on_cpu(capsys):
+    done = main(["--arch", MLA, "--reduced", "--device", "cpu",
+                 "--requests", "3", "--concurrency", "2", "--prompt-len",
+                 "12", "--gen", "4", "--hot-window", "4", "--dtype",
+                 "float32", "--chunk-tokens", "5"])
+    assert len(done) == 3 and all(r.n_generated == 4 for r in done)
+    assert "tok/J" in capsys.readouterr().out
 
 
 def test_serve_cli_on_cpu():

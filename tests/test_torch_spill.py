@@ -13,7 +13,8 @@ every other leaf bit-exactly.
 The scenarios are the `local` cases of the reference's
 `test_serving_preempt.py` and `test_serving_spill.py`, and the flat,
 VLM-boundary and interleaving cases of `test_serving_chunked.py`, on the
-architectures the port serves (granite-3-2b and mobilevlm-1.7b, reduced).
+architectures the port serves (granite-3-2b, mobilevlm-1.7b and
+deepseek-v2-lite's MLA latent cache, reduced).
 """
 
 from __future__ import annotations
@@ -125,16 +126,15 @@ def twin(scenario, *args, **side_kw):
 # ---------------------------------------------------------------------------
 # preemption (reference test_serving_preempt.py, local cases)
 # ---------------------------------------------------------------------------
-def _preempted(s, chunk):
+def _preempted(s, chunk, max_len=32, specs=((12, 10), (12, 10), (8, 4))):
     """Two priority-0 victims decoding in both slots (a DRAM budget of
     exactly two residents) when a priority-1 intruder lands."""
-    backend = s.backend(2, 32)
+    backend = s.backend(2, max_len)
     hot_b, cold_b = backend.slot_kv_bytes()
     sched = s.FCFSScheduler(s.CapacityBudget(2 * hot_b, 1e15), hot_b,
                             cold_b, oversubscribe=1.0)
     eng = s.Engine(backend, scheduler=sched, chunk_tokens=chunk)
-    reqs = make_requests(s, [(12, 10), (12, 10), (8, 4)], seed=3,
-                         priorities=[0, 0, 1])
+    reqs = make_requests(s, list(specs), seed=3, priorities=[0, 0, 1])
     for r in reqs[:2]:
         eng.submit(r)
     guard = 0
@@ -157,6 +157,22 @@ def test_preempted_restore_matches_reference(chunk):
     victims = [r for r in reqs if r.n_evictions]
     assert victims and all(r.priority == 0 for r in victims)
     assert eng.endurance_report()["write_once_ok"]
+
+
+# deepseek-v2-lite's cases in the reference suites: the latent stores
+# spill, restore and offload like K/V stores
+MLA = dict(arch="deepseek-v2-lite")
+
+
+@pytest.mark.parametrize("chunk", [0, 5])
+def test_preempted_restore_matches_reference_mla(chunk):
+    (eng, reqs), _ = twin(_preempted, chunk, 24, ((12, 8), (12, 8), (8, 4)),
+                          **MLA)
+    assert eng.stats["evictions"] >= 1
+    assert eng.stats["restores"] == eng.stats["evictions"]
+    assert len(eng.finished) == 3
+    assert eng.endurance_report()["write_once_ok"]
+    assert set(eng.pool.state.spill["u1"]) == {"c_kv", "k_rope"}
 
 
 def _vqa_evictions(s):
@@ -368,6 +384,19 @@ def test_idle_offload_matches_reference(chunk):
     assert eng.stats["idle_offloads"] >= 1 and eng.stats["evictions"] == 0
     assert eng.stats["restores"] == eng.stats["idle_offloads"]
     assert len(eng.finished) == 3
+    assert eng.endurance_report()["write_once_ok"]
+
+
+@pytest.mark.parametrize("chunk,compress", [(0, False), (5, False),
+                                            (0, True)])
+def test_idle_offload_matches_reference_mla(chunk, compress):
+    (eng, reqs), _ = twin(_offloaded, chunk, compress, 24,
+                          ((12, 8), (12, 8), (8, 5)), **MLA)
+    assert eng.stats["idle_offloads"] >= 1 and eng.stats["evictions"] == 0
+    assert eng.stats["restores"] == eng.stats["idle_offloads"]
+    assert len(eng.finished) == 3
+    lane = eng.pool.state.spill["u0"]["c_kv"]
+    assert ("hot_q" in lane) == compress
     assert eng.endurance_report()["write_once_ok"]
 
 

@@ -84,6 +84,34 @@ def test_streamed_matches_resident_and_reference(arch, chunk):
     assert eng.plans == resident.plans
 
 
+@pytest.mark.parametrize("chunk", [None, CHUNK], ids=["whole", "chunked"])
+def test_streamed_matches_resident_and_reference_mla(chunk):
+    """deepseek-v2-lite: the dense first layer is a unit of one and stays
+    resident; the two MoE layers stream at W = 1. The streamed engine
+    equals the reference's and the resident one, and its ledger equals
+    simulated_efficiency and the reference's."""
+    arch = "deepseek-v2-lite"
+    s = side(True, arch=arch)
+    eng, reqs = _served(s, 1, chunk, telemetry=Telemetry())
+    be = eng.backend
+    assert be.weight_stream == 1 and be.model.streamed_units() == (1,)
+    assert_twins(eng, reqs, *_ref_served(arch, 1, chunk))
+    resident, rreqs = _served(s, 0, chunk)
+    assert resident.backend.model.streamed_units() == ()
+    assert tokens(reqs) == tokens(rreqs)
+    assert eng.plans == resident.plans
+    led = eng.telemetry.ledger.totals()
+    sim = simulated_efficiency(be.sim_context()[0], eng.finished,
+                               weight_stream=True)
+    for k in ("sim_energy_j", "sim_total_s", "sim_energy_split_j"):
+        assert led[k] == sim[k], k
+    rbe = _ref_served(arch, 1, chunk)[0].backend
+    assert sim == ref_sim_eff(rbe.sim_context()[0],
+                              _ref_served(arch, 1, chunk)[0].finished,
+                              weight_stream=True)
+    assert sim["sim_energy_split_j"].get("weight_stream", 0.0) > 0.0
+
+
 def test_streamed_logits_bit_identical_to_resident():
     """A model whose config streams runs the resident loop: prefill,
     chunked extend and decode logits are equal bit for bit."""
@@ -165,10 +193,13 @@ def test_split_and_streamed_units_match_reference(arch):
                 units = Model(pc).streamed_units()
                 assert units == RefModel(rc).streamed_units() == \
                     PC.streamed_unit_indices(pc), (reduced, scan, W)
-                # full depth streams at every W >= 1; a 2-3 layer twin
-                # only below its depth
-                assert bool(units) == (W > 0 and scan and (
-                    not reduced or pc.num_layers > W)), (reduced, scan, W)
+                # a unit streams where it repeats more than W times:
+                # full depth at every W >= 1, a 2-3 layer twin only below
+                # its deepest unit (deepseek's dense first layer is a
+                # unit of one)
+                deepest = max(u.repeats for u in Model(pc).plan)
+                assert bool(units) == (W > 0 and scan and deepest > W), (
+                    reduced, scan, W)
 
 
 def test_weight_stream_split_hand_math():
