@@ -70,7 +70,21 @@ source, all started together; seven kernels), then:
      (85.5 slices of 128: a ragged last one) at M 4 (stream) and 256
      (wgmma), f32 and bf16, the bf16 ones timed beside their bound and
      the cuBLAS chain, and fused_norm at D 2048, M 4 and 256 (bf16 timed
-     beside F.rms_norm);
+     beside F.rms_norm); and the dense archs' widths (stablelm-12b,
+     starcoder2-7b, paligemma-3b): fused_norm LayerNorm + bias at D 5120
+     / 4608 and rms at 2048; qkv_proj at D 5120 (N 5120 / 1280 / 1280),
+     D 4608 with bias (4608 / 512 / 512) and D 2048 (2048 / 256 / 256) at
+     M 1, 4, 5 and prefill; attn_stream at Dh 160 (H 32, Hkv 8), Dh 128
+     G 9 (36 / 4) and Dh 256 (8 / 1), prefill S = L, an extend chunk and
+     a ragged one; paged_decode_tiered at Dh 160 G 4 and Dh 256 G 8 at
+     the decode shape (timed), around the window and pages, dead pages,
+     G 1 and 9, tau = 1e-3, B * Hkv = 160; paged_decode_flat at Dh 128 G
+     9 (starcoder2, timed beside masked SDPA), Dh 160 and 256, page
+     edges, a dead page, a ragged tail page; ffn_act at D 5120 F 13824
+     silu_gated and D 2048 F 16384 gelu_gated at M 4 and prefill (the
+     bf16 ones timed beside the cuBLAS chain) and ffn_act_int8 at D 5120
+     in every form; the bf16 rows beside their bound and the library
+     call (F.layer_norm / F.rms_norm, torch.addmm, SDPA);
   2. parity — f32 at full width and depth, the serving Engine's tokens
      against `generate` on 2 VQA + 2 text requests, for fastvlm-1.7b over
      the tiered store, for mobilevlm-3b on path A (flat store, fused
@@ -161,15 +175,33 @@ source, all started together; seven kernels), then:
      memory after init and after the run; last, `apply_moe` and
      `apply_mla_decode` run again on one decode step's inputs with the
      device's sync debug mode at "error" (a host sync fails the run).
+  4. stablelm, starcoder2, paligemma — the dense attention archs, each
+     an f32 parity run at full width (<arch>-parity: Engine == generate,
+     tie rule; stablelm-12b and starcoder2-7b cut to 8 layers, 13.0 / 8.8
+     GB, paligemma-3b at its 18; 2 VQA + 2 text requests on paligemma)
+     and a bf16 run at full width and depth, weights built on the card,
+     4 slots, max_len 512, 8 requests of 256 tokens with 64 new
+     (paligemma: 4 of them VQA, 256 image + 64 text tokens) and a
+     Telemetry hub: stablelm-12b over the tiered store (hot window 128),
+     starcoder2-7b over the flat store with fused decode
+     (paged_decode_flat at G 9; its biased FFN is plain, as in the
+     reference), paligemma-3b tiered. Each: exact launches a model call
+     (fused_norm 81 / 65 / 37, qkv_proj 40 / 32 / 18, ffn_act 40 / 0 /
+     18, attn_stream a layer an extend, the paged decode a layer a
+     decode step), write-once, the ledger == simulated_efficiency,
+     chime_sim on CHIME and M3D-DRAM-only, the timing and both profiles,
+     the peak device memory after init and after the run.
 
 It prints the card (name, power limit), the kernel build time, the
 phases' results, then one JSON line {"kernels": [...]} (launches summed
-over the seven serving runs; host_ms is call ms minus device ms) and,
+over every serving run; host_ms is call ms minus device ms) and,
 last, the device JSON line. It fails
 (non-zero exit, no result lines) without a card, outside the repository,
 or when any check fails. `--phases` selects a subset (e.g. `--phases
 kernels` for a quick compile check; `--phases kernels,deepseek` for the
-kernels and only the deepseek-v2-lite parity and serving runs).
+kernels and only the deepseek-v2-lite parity and serving runs;
+`--phases kernels,stablelm,starcoder2,paligemma` for the kernels and
+the dense archs' runs).
 """
 
 from __future__ import annotations
@@ -199,6 +231,8 @@ HIT_TAIL = 64
 # the depth to 1 dense + 5 MoE layers (full depth in f32 is 62.8 GB of
 # weights alone)
 DS_D, DS_F, DS_PARITY_LAYERS = 2048, 10944, 6
+# stablelm-12b's d_model: the widest the FFN kernels take on this path
+DENSE_D = 5120
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 REPLACES = {
@@ -260,22 +294,44 @@ def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
     return statistics.median(ts)
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, tries: int = 3):
     """Device time of one call: the summed time of the device events
     (kernels, copies) that ``reps`` calls launch, per call, from
-    torch.profiler — the wrapper's host time excluded."""
+    torch.profiler — the wrapper's host time excluded. A window that
+    recorded no device event besides the lead-in is read again, up to
+    ``tries`` windows; after that the time is None (not measured), never
+    0."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 / reps
+    for _ in range(tries):
+        # the window opens with the profiles' spin kernel (`lead_in`, left
+        # out of the sum): a window of a few short launches alone recorded
+        # no device events at all now and then
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lead_in()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count
+               and "spin_kernel" not in e.key]
+        if evs:
+            return sum(e.self_device_time_total for e in evs) / 1e3 / reps
+    print(f"[time] the profiler recorded no device event of {fn} in "
+          f"{tries} windows: its device time is not measured")
+    return None
+
+
+def us(ms, digits: int = 2, unit: str = "us") -> str:
+    """A device time in ms, printed in ``unit`` (us or ms), or "not
+    measured" where it is None."""
+    if ms is None:
+        return "not measured"
+    return f"{(1e3 if unit == 'us' else 1) * ms:.{digits}f} {unit}"
 
 
 def event_ms(fn, n: int = 20, reps: int = 5) -> float:
@@ -309,12 +365,15 @@ def device_kernels(fn, reps: int = 10) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lead_in()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     return {e.key[:90]: e.count / reps for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.count}
+            if e.device_type == DeviceType.CUDA and e.count
+            and "spin_kernel" not in e.key}
 
 
 def require(cond, msg) -> None:
@@ -407,19 +466,20 @@ def tile_banner(dev: str = "cuda") -> dict:
     # the FFN's mirrors: the stream form at its row counts, both models'
     # widths and every D split; the GEMM phases at both warpgroup counts,
     # per weight size (2: bf16, 1: int8)
-    stream_at = [(m, d, ds) for m in (1, 4, 8) for d in (D_MODEL, D3)
-                 for ds in (1, 2, 4, 8)]
+    stream_at = [(m, d, ds) for m in (1, 4, 8)
+                 for d in (D_MODEL, D3, DENSE_D) for ds in (1, 2, 4, 8)]
     ffn_stream = {f"w{es} M{m} D{d} ds{ds}":
                   FF.stream_smem_bytes(m, d, ds, es == 1)
                   for es in (2, 1) for (m, d, ds) in stream_at}
     ffn_tc = {f"w{es} phase{ph} wgs{w}": FF.wgmma_smem_bytes(ph, es, w)
               for es in (2, 1) for ph in (1, 2) for w in (1, 2)}
     # the tiered decode's instances (table entries, dtype code, head dim,
-    # G): every dtype, head dim and G form at 4 pages, 1 and 5 pages at
-    # fastvlm-1.7b's (bf16, 128, G 6 -> 8)
+    # G): every dtype, head dim and G form (up to 8 at Dh 256) at 4 pages,
+    # 1 and 5 pages at fastvlm-1.7b's (bf16, 128, G 6 -> 8)
     tiered_at = {f"{n}p {dt} D{hd} G{g}": (n, code, hd, g)
                  for (code, dt) in ((0, "float32"), (1, "bfloat16"))
                  for hd in PD.HEAD_DIMS for g in (1, 2, 4, 8, 16)
+                 if g <= PD.max_group(hd)
                  for n in ((1, 4, 5) if (dt, hd, g) == ("bfloat16", 128, 8)
                            else (4,))}
     tiles = {"ffn_act": {
@@ -456,16 +516,20 @@ def tile_banner(dev: str = "cuda") -> dict:
                  "warps": PD.FLAT_WARPS, "stages": PD.FLAT_STAGES,
                  "stage_bytes": PD.FLAT_STAGE_BYTES,
                  "max_split": PD.FLAT_MAX_SPLIT,
-                 "tile_keys_bf16_d128": PD.flat_tile_keys(128,
-                                                          torch.bfloat16),
+                 "tile_keys (bf16, f32) by Dh": {
+                     hd: [PD.flat_tile_keys(hd, t) for t in
+                          (torch.bfloat16, torch.float32)]
+                     for hd in PD.HEAD_DIMS},
                  "smem": {n: PD.flat_smem_bytes(n) for n in (1, 4, 5)},
                  "splits (B, Hkv)": {f"{b} {h}": PD.flat_split(b, h, 132)
                                      for (b, h) in ((4, 20), (8, 20))}},
              "paged_decode_tiered": {
                  "features_a_lane": PD.TIERED_FEATURES,
-                 "tile_keys_d128 (bf16, f32)": [
-                     PD.tiered_tile_keys(128, torch.bfloat16),
-                     PD.tiered_tile_keys(128, torch.float32)],
+                 "tile_keys (bf16 G 1, bf16 G >= 2, f32) by Dh": {
+                     hd: [PD.tiered_tile_keys(hd, torch.bfloat16),
+                          PD.tiered_tile_keys(hd, torch.bfloat16, 2),
+                          PD.tiered_tile_keys(hd, torch.float32)]
+                     for hd in PD.HEAD_DIMS},
                  "smem": {k: PD.tiered_smem_bytes(
                      n, hd, g, torch.float32 if code == 0 else torch.bfloat16)
                      for k, (n, code, hd, g) in tiered_at.items()},
@@ -671,13 +735,13 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                     "chain_ms": c_ms, "chain_device_ms": c_dms,
                     "chain_kernels": c_k,
                     "chain": f"cuBLAS chain of {round(sum(c_k.values()))} "
-                             f"kernels (mm, mm, silu * mul, mm), not one "
+                             f"kernels (mm, mm, act * mul, mm), not one "
                              f"call", "bound_ms": b_ms, "bound_by": b_by}
             results["ffn_rows"].append(dict(main, name=name,
                                             max_abs_err=err, **(extra or {})))
             print(f"[kernels]   {name} {main['shape']} ({got}): "
-                  f"{1e3 * dms:.2f} us device, {ms:.4f} ms call; "
-                  f"{main['chain']} {1e3 * c_dms:.2f} us device; bound "
+                  f"{us(dms)} device, {ms:.4f} ms call; "
+                  f"{main['chain']} {us(c_dms)} device; bound "
                   f"{1e3 * b_ms:.2f} us ({b_by})")
         record(name, f"{label} ({got})", dt, err, main if is_main else None,
                extra)
@@ -688,10 +752,266 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
             return "fma"
         return "stream" if M <= FF.STREAM_MAX_M else "wgmma"
 
-    def chain_of(x, wu, wg, wd):
+    def chain_of(x, wu, wg, wd, kind="silu_gated"):
         def call():
-            return (F.silu(x @ wu) * (x @ wg)) @ wd
+            return (FF.activation(x @ wu, kind) * (x @ wg)) @ wd
         return call
+
+    def int8_ffn(D, F_, gated):
+        def q8(*shape):
+            return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                 dtype=torch.int8)
+        su = (0.5 + torch.rand(F_, generator=gen, device=dev)) / (
+            127 * D ** 0.5)
+        sd = (0.5 + torch.rand(D, generator=gen, device=dev)) / (
+            127 * F_ ** 0.5)
+        return (q8(D, F_), su, q8(D, F_) if gated else None,
+                su.flip(0).contiguous() if gated else None, q8(F_, D), sd)
+
+    def sdpa_of(q, k, v, mask=None):
+        """SDPA over grouped K/V (causal, or under a boolean ``mask``): the
+        library yardstick beside attn_stream and the flat decode."""
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+
+    def extra_row(name, shape, fn, plain, lib, nbytes, flops, dt,
+                  ev=False):
+        """A timed bf16 row at one of the dense archs' shapes: the
+        kernel's call and device time (and CUDA-event device time where
+        ``ev``), its twin's, the library call's (``lib``, or None) and
+        the bound of ``nbytes`` / ``flops``."""
+        ms, dms = timed(fn)
+        b_ms, b_by = bound(pk, nbytes, flops, dt)
+        lib_ms = lib_dev = lib_k = None
+        if lib is not None:
+            lib_ms, lib_dev = timed(lib)
+            lib_k = lib_kernels(lib)
+        row = {"name": name, "shape": shape, "ms": ms, "device_ms": dms,
+               "event_ms": ev_timer(fn) if ev else None,
+               "plain_ms": time_ms(plain), "library_ms": lib_ms,
+               "library_device_ms": lib_dev, "library_kernels": lib_k,
+               "bound_ms": b_ms, "bound_by": b_by}
+        results["extra_rows"].append(row)
+        print(f"[kernels]   {name} {shape}: {us(dms)} device, "
+              f"{ms:.4f} ms call; plain {row['plain_ms']:.3f} ms; library "
+              f"{'-' if lib is None else us(lib_dev)} "
+              f"device; bound {1e3 * b_ms:.2f} us ({b_by})")
+        return row
+
+    def dense_widths(dt):
+        """Every kernel of the stablelm-12b, starcoder2-7b and
+        paligemma-3b paths at their serving shapes (4 slots, 256-token
+        prompts; paligemma's VQA prompt 256 image + 64 text), in ``dt``
+        against its plain twin, the form that ran asserted; bf16 rows
+        timed beside their bound and the library call. The widened
+        kernels: attn_stream at Dh 160 / 256, the paged decodes at Dh
+        160 / 256 and G 4 / 8 / 9, ffn_act at d_model 5120; fused_norm
+        and qkv_proj held at the new widths."""
+        tdt = getattr(torch, dt)
+        es = torch.tensor([], dtype=tdt).element_size()
+        bf = dt == "bfloat16"
+        # ---- fused_norm: LayerNorm + bias at 5120 / 4608, rms at 2048
+        for (arch, D_, kind) in (("stablelm", 5120, "layer"),
+                                 ("starcoder2", 4608, "layer"),
+                                 ("paligemma", 2048, "rms")):
+            sc = (0.25 + 0.1 * torch.rand(D_, generator=gen,
+                                          device=dev)).to(tdt)
+            bi = randn(D_, dtype=tdt, std=0.3) if kind == "layer" else None
+            for M in (1, 4, 256):
+                x = randn(M, D_, dtype=tdt)
+                record("fused_norm", f"{arch} {kind} M={M} D={D_}", dt,
+                       max_err(FN.fused_norm(x, sc, bi, kind),
+                               FN.fused_norm_plain(x, sc, bi, kind)))
+                if bf and M in (4, 256):
+                    lib = ((lambda: F.layer_norm(x, (D_,), sc, bi, 1e-5))
+                           if kind == "layer" else
+                           (lambda: F.rms_norm(x, (D_,), sc, 1e-6))
+                           if hasattr(F, "rms_norm") else None)
+                    extra_row("fused_norm", f"{arch} x ({M}, {D_}) {kind}",
+                              lambda: FN.fused_norm(x, sc, bi, kind),
+                              lambda: FN.fused_norm_plain(x, sc, bi, kind),
+                              lib, (2 * M * D_ + 2 * D_) * es, 0, dt)
+        # ---- qkv_proj: decode (the GEMV) and prefill (the GEMM) --------
+        for (arch, D_, ns, bias, M_pre) in (
+                ("stablelm", 5120, (5120, 1280, 1280), False, 256),
+                ("starcoder2", 4608, (4608, 512, 512), True, 256),
+                ("paligemma", 2048, (2048, 256, 256), False, 320)):
+            ws = [randn(D_, n, dtype=tdt, std=0.5 * D_ ** -0.5) for n in ns]
+            bs = ([randn(n, dtype=tdt, std=0.1) for n in ns] if bias
+                  else [None] * 3)
+            wcat = torch.cat(ws, 1)
+            bcat = (torch.cat(bs) if bias else
+                    torch.zeros(wcat.shape[1], dtype=tdt, device=dev))
+            N = sum(ns)
+            for M in (1, 4, 5, M_pre):
+                x = randn(M, D_, dtype=tdt)
+                want_v = QK.kernel_variant(M, tdt)
+                require(want_v == ("gemv" if M <= 4 else
+                                   "wgmma" if bf else "fma"),
+                        f"qkv_proj {arch} M={M}: form {want_v}")
+                record("qkv_proj", f"{arch}{' bias' if bias else ''} M={M} "
+                                   f"({want_v})", dt,
+                       max(max_err(a, b) for a, b in zip(
+                           QK.qkv_proj(x, *ws, *bs),
+                           QK.qkv_proj_plain(x, *ws, *bs))))
+                if bf and M in (4, M_pre):
+                    extra_row(
+                        "qkv_proj", f"{arch} x ({M}, {D_}), N {ns}"
+                        f"{' bias' if bias else ''} ({want_v})",
+                        lambda: QK.qkv_proj(x, *ws, *bs),
+                        lambda: QK.qkv_proj_plain(x, *ws, *bs),
+                        lambda: torch.addmm(bcat, x, wcat),
+                        (M * D_ + D_ * N + M * N + (N if bias else 0)) * es,
+                        2 * M * D_ * N, dt)
+            del ws, wcat
+        # ---- attn_stream: each arch's prefill (causal S = L), an extend
+        # chunk (S 64 at q_offset 256) and a ragged one, at Dh 160 / 256
+        # (widened) and starcoder2's G 9 at Dh 128
+        for (arch, H_, Hk_, Dh, S_) in (("stablelm", 32, 8, 160, 256),
+                                        ("starcoder2", 36, 4, 128, 256),
+                                        ("paligemma", 8, 1, 256, 320)):
+            require(AS.kernel_variant(tdt, Dh) == ("wgmma" if bf else "fma"),
+                    f"attn_stream Dh {Dh} {dt}: form")
+            form = "wgmma" if bf else "fma"
+            for (S, L) in ((S_, S_), (64, 320), (77, 200)):
+                q = randn(1, H_, S, Dh, dtype=tdt)
+                k = randn(1, Hk_, L, Dh, dtype=tdt)
+                v = randn(1, Hk_, L, Dh, dtype=tdt, std=0.4)
+                record("attn_stream", f"{arch} H={H_} Hkv={Hk_} Dh={Dh} "
+                                      f"S={S} L={L} ({form})", dt,
+                       max_err(AS.attn_stream(q, k, v, causal=True),
+                               AS.attn_stream_plain(q, k, v, True)))
+                if bf and S == L:
+                    pairs = S * (S + 1) // 2
+                    extra_row(
+                        "attn_stream", f"{arch} q (1, {H_}, {S}, {Dh}), kv "
+                        f"heads {Hk_}, causal, split "
+                        f"{AS.kv_split(1, H_, S, L, sms)}",
+                        lambda: AS.attn_stream(q, k, v, causal=True),
+                        lambda: AS.attn_stream_plain(q, k, v, True),
+                        sdpa_of(q, k, v),
+                        (2 * H_ * S + 2 * Hk_ * L) * Dh * es,
+                        4 * H_ * Dh * pairs, dt)
+            del q, k, v
+        # ---- paged_decode_tiered: stablelm (Hkv 8, G 4, Dh 160) and
+        # paligemma (Hkv 1, G 8, Dh 256) at their decode shape (timed),
+        # then lengths around the window and the pages, dead pages, G 1
+        # at both head dims (the CUDA-core scores), G 9 (rounded up to
+        # 16 rows), the sparse read
+        for (arch, hkv, g, Dt) in (("stablelm", 8, 4, 160),
+                                   ("paligemma", 1, 8, 256)):
+            targs = tiered_args(B, hkv, g, Dt, (318, 300, 257, 290))
+            err, rel = decode_errs(PD.paged_decode_tiered(*targs),
+                                   PD.paged_decode_tiered_plain(*targs))
+            record("paged_decode_tiered", f"{arch} Hkv={hkv} G={g} D={Dt} "
+                                          f"ctx~300", dt, err, rel=rel)
+            if bf:
+                results["extra_rows"].append(dict(
+                    tiered_row(targs, f"{arch} B {B}, Hkv {hkv}, G {g}, "
+                                      f"Dh {Dt}, W {W}, max_len {ML}, ctx "
+                                      f"[318, 300, 257, 290]"),
+                    name="paged_decode_tiered"))
+            del targs
+        for (label, Bt, hkv, g, Dt, lens, dead, tau) in (
+                ("D=160 G=4 lengths 0,1,W-1,W", 4, 8, 4, 160,
+                 (0, 1, W - 1, W), (), 0.0),
+                ("D=160 G=4 W+1,max_len-1, dead pages", 4, 8, 4, 160,
+                 (W + 1, ML - 1, 255, 256), ((1, 0), (1, 2), (2, 0)), 0.0),
+                ("D=160 G=9", 2, 2, 9, 160, (ML - 1, 130), ((0, 3),), 0.0),
+                ("D=160 G=1", 4, 8, 1, 160, (318, 0, 127, 511), (), 0.0),
+                ("D=160 G=4, tau=1e-3", 4, 8, 4, 160, (ML - 1, 300, 129, 20),
+                 ((0, 1),), 1e-3),
+                ("D=256 G=8 lengths 0,1,W-1,W", 4, 1, 8, 256,
+                 (0, 1, W - 1, W), (), 0.0),
+                ("D=256 G=8 W+1,max_len-1, dead pages", 4, 1, 8, 256,
+                 (W + 1, ML - 1, 255, 256), ((1, 0), (1, 2), (2, 0)), 0.0),
+                ("D=256 G=1", 4, 4, 1, 256, (318, 0, 127, 511), (), 0.0),
+                ("D=256 G=8, tau=1e-3", 4, 1, 8, 256, (ML - 1, 300, 129, 20),
+                 ((0, 1),), 1e-3),
+                ("D=128 G=9", 4, 4, 9, 128, (318, 300, 257, 290), (), 0.0),
+                ("B=8 Hkv=20 D=256 G=1 (B*Hkv=160)", 8, 20, 1, 256,
+                 (318, 300, 257, 290, 511, 0, 128, 200), (), 0.0)):
+            targs = tiered_args(Bt, hkv, g, Dt, lens, dead)
+            err, rel = decode_errs(PD.paged_decode_tiered(*targs, tau=tau),
+                                   PD.paged_decode_tiered_plain(*targs,
+                                                                tau=tau))
+            record("paged_decode_tiered", f"{label}, split "
+                   f"{PD.tiered_split(Bt, hkv, sms, tau > 0)}", dt, err,
+                   rel=rel)
+            del targs
+        # ---- paged_decode_flat: starcoder2 (Hkv 4, G 9, Dh 128) at its
+        # decode shape (timed beside masked SDPA), then Dh 160 / 256 (f32:
+        # two 16-byte chunks a lane) around page edges, a dead page, a
+        # ragged tail page and B * Hkv >= 132
+        for (label, Bf, hkv, g, Df, MLf, lens, dead) in (
+                ("starcoder2 Hkv=4 G=9 D=128 ctx~300", 4, 4, 9, 128, ML,
+                 (318, 300, 257, 290), ()),
+                ("D=128 G=9 lengths 0,1,127,128", 4, 4, 9, 128, ML,
+                 (0, 1, 127, 128), ()),
+                ("D=160 G=4 ctx~300", 4, 8, 4, 160, ML, (318, 300, 257, 290),
+                 ()),
+                ("D=160 G=9 last live page dead", 2, 2, 9, 160, ML,
+                 (300, 129), ((0, 2),)),
+                ("D=256 G=8 ctx~300", 4, 1, 8, 256, ML, (318, 300, 257, 290),
+                 ()),
+                ("D=256 G=8 ragged max_len 500", 4, 1, 8, 256, 500,
+                 (499, 300, 129, 20), ((0, 1),)),
+                ("D=256 G=1 lengths 0,1,127,128", 4, 4, 1, 256, ML,
+                 (0, 1, 127, 128), ()),
+                ("B=8 Hkv=20 D=160 (B*Hkv=160)", 8, 20, 1, 160, ML,
+                 (318, 300, 257, 290, 511, 0, 128, 200), ())):
+            qr = randn(Bf, hkv, g, Df, dtype=tdt)
+            kr = randn(Bf, MLf, hkv, Df, dtype=tdt)
+            vr = randn(Bf, MLf, hkv, Df, dtype=tdt, std=0.3)
+            lr = torch.tensor(lens, dtype=torch.int32, device=dev)
+            tr = KT.cold_page_table(lr, 0, MLf, 128).clone()
+            for (b_, j_) in dead:
+                tr[b_, j_] = -1
+            rargs = (qr, kr, vr, lr, tr)
+            err, rel = decode_errs(PD.paged_decode_flat(*rargs),
+                                   PD.paged_decode_flat_plain(*rargs))
+            record("paged_decode_flat",
+                   f"{label}, split {PD.flat_split(Bf, hkv, sms)}", dt, err,
+                   rel=rel)
+            if bf and label.startswith("starcoder2"):
+                live = (torch.arange(MLf, device=dev)[None]
+                        <= lr[:, None].long())[:, None, None]
+                n_tok = int((lr.long() + 1).sum())
+                extra_row(
+                    "paged_decode_flat", f"starcoder2 B {Bf}, Hkv {hkv}, G "
+                    f"{g}, Dh {Df}, max_len {MLf}, ctx {list(lens)}, split "
+                    f"{PD.flat_split(Bf, hkv, sms)}",
+                    lambda: PD.paged_decode_flat(*rargs),
+                    lambda: PD.paged_decode_flat_plain(*rargs),
+                    sdpa_of(qr.reshape(Bf, hkv * g, 1, Df),
+                            kr.transpose(1, 2), vr.transpose(1, 2), live),
+                    2 * qr.numel() * es + 2 * n_tok * hkv * Df * es
+                    + lr.numel() * 4 + tr.numel() * 4,
+                    4 * Df * hkv * g * n_tok, dt, ev=True)
+            del qr, kr, vr, rargs
+        # ---- ffn_act: stablelm's silu_gated at d_model 5120 (widened: the
+        # stream form's x rows and partial, the fma form's two column
+        # bands) and paligemma's gelu_gated, decode M 4 and prefill; the
+        # bf16 rows timed beside the cuBLAS chain
+        for (arch, D_, F_, kind, M_pre) in (
+                ("stablelm", 5120, 13824, "silu_gated", 256),
+                ("paligemma", 2048, 16384, "gelu_gated", 320)):
+            wf = (randn(D_, F_, dtype=tdt, std=0.5 * D_ ** -0.5),
+                  randn(D_, F_, dtype=tdt, std=0.5 * D_ ** -0.5),
+                  randn(F_, D_, dtype=tdt, std=F_ ** -0.5))
+            for M in (4, M_pre):
+                x = randn(M, D_, dtype=tdt)
+                row = ((3 * D_ * F_ * es, chain_of(x, *wf, kind)) if bf
+                       else None)
+                ffn_case("ffn_act", x, wf, kind, dt,
+                         f"{arch} {kind} M={M} D={D_} F={F_}",
+                         ffn_form(M, dt), row)
+            del wf
+        # ffn_act_int8 at d_model 5120 (F 2048): every form once
+        for M in (4, 65):
+            ffn_case("ffn_act_int8", randn(M, 5120, dtype=tdt),
+                     int8_ffn(5120, 2048, True), "silu_gated", dt,
+                     f"silu_gated M={M} D=5120 F=2048", ffn_form(M, dt))
 
     for dt in ("float32", "bfloat16"):
         tdt = getattr(torch, dt)
@@ -712,7 +1032,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                 if M == 4 and dt == "bfloat16" and D_ in (D_MODEL, D3):
                     main = norm_row(x, sc, es)
                     print(f"[kernels]   fused_norm x ({M}, {D_}): "
-                          f"{1e3 * main['device_ms']:.2f} us device, "
+                          f"{us(main['device_ms'])} device, "
                           f"{main['ms']:.4f} ms call; F.rms_norm (ms) "
                           f"{main['library_device_ms']} device, "
                           f"{main['library_ms']} call, kernels "
@@ -777,15 +1097,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         if dt == "bfloat16":
             ms = time_ms(lambda: AS.attn_stream(q, k, v, causal=True))
             plain = time_ms(lambda: AS.attn_stream_plain(q, k, v, True))
-            if tuple(int(p) for p in torch.__version__.split(".")[:2]) \
-                    >= (2, 5):
-                lib, lib_dev = timed(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True))
-            else:
-                ke = k.repeat_interleave(HEADS // KV_HEADS, 1)
-                ve = v.repeat_interleave(HEADS // KV_HEADS, 1)
-                lib, lib_dev = timed(lambda: F.scaled_dot_product_attention(
-                    q, ke, ve, is_causal=True))
+            lib, lib_dev = timed(sdpa_of(q, k, v))
             pairs = S * (S + 1) // 2
             nbytes = (2 * HEADS * S + 2 * KV_HEADS * L) * HEAD_DIM * es
             b_ms, b_by = bound(pk, nbytes, 4 * HEADS * HEAD_DIM * pairs, dt)
@@ -887,7 +1199,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                        *targs)),
                    "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
             print(f"[kernels]   paged_decode_tiered {row['shape']}: "
-                  f"{1e3 * dms:.2f} us device (profiler), "
+                  f"{us(dms)} device (profiler), "
                   f"{1e3 * row['event_ms']:.2f} us (CUDA events), "
                   f"{ms:.4f} ms call; bound {1e3 * b_ms:.2f} us ({b_by}); "
                   f"plain {row['plain_ms']:.3f} ms")
@@ -1003,8 +1315,8 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                     "library_kernels": lib_kernels(sdpa),
                     "device_ms": dms, "bound_ms": b_ms, "bound_by": b_by}
             print(f"[kernels]   paged_decode_flat {main['shape']}: "
-                  f"{1e3 * dms:.2f} us device, {ms:.4f} ms call; masked "
-                  f"SDPA {1e3 * lib_dev:.2f} us device, {lib:.4f} ms call, "
+                  f"{us(dms)} device, {ms:.4f} ms call; masked "
+                  f"SDPA {us(lib_dev)} device, {lib:.4f} ms call, "
                   f"kernels {main['library_kernels']}; bound "
                   f"{1e3 * b_ms:.2f} us")
         record("paged_decode_flat", "B=4 Hkv=20 G=1 ctx~300", dt, err, main,
@@ -1101,9 +1413,9 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                                 "bound_ms": b_ms, "bound_by": b_by,
                                 "device_ms": dms}
                     print(f"[kernels]   qkv_proj {tag} {where} M={M}: "
-                          f"{1e3 * dms:.1f} us device, {ms:.3f} ms call, "
+                          f"{us(dms, 1)} device, {ms:.3f} ms call, "
                           f"plain {plain:.3f} ms; "
-                          f"torch.addmm {1e3 * lib_dev:.1f} us device, "
+                          f"torch.addmm {us(lib_dev, 1)} device, "
                           f"{lib:.3f} ms call; bound {1e3 * b_ms:.1f} us")
                 record("qkv_proj", f"{tag}{' bias' if bias else ''} M={M}",
                        dt, err, main)
@@ -1167,7 +1479,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                     nr, name="fused_norm", event_ms=None,
                     shape=f"deepseek {nr['shape']}"))
                 print(f"[kernels]   fused_norm deepseek x ({M}, {DS_D}): "
-                      f"{1e3 * nr['device_ms']:.2f} us device, "
+                      f"{us(nr['device_ms'])} device, "
                       f"{nr['ms']:.4f} ms call; bound "
                       f"{1e3 * nr['bound_ms']:.2f} us ({nr['bound_by']}); "
                       f"F.rms_norm {nr['library_device_ms']} ms device")
@@ -1179,6 +1491,8 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         record("attn_stream", "Hkv=20 G=1 causal S=L=256", dt,
                max_err(AS.attn_stream(q, k, v, causal=True),
                        AS.attn_stream_plain(q, k, v, True)))
+        del q, k, v
+        dense_widths(dt)
 
     # ragged / odd shapes, f32
     tdt = torch.float32
@@ -1205,17 +1519,6 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
     # (every activation) and F 1024 with int8 weights (gated and not).
     # Rows that are not whole 16-byte vectors take the FMA tiles at any M:
     # int8 at F 1000 or D 200, bf16 at F 1004
-    def int8_ffn(D, F_, gated):
-        def q8(*shape):
-            return torch.randint(-127, 128, shape, generator=gen, device=dev,
-                                 dtype=torch.int8)
-        su = (0.5 + torch.rand(F_, generator=gen, device=dev)) / (
-            127 * D ** 0.5)
-        sd = (0.5 + torch.rand(D, generator=gen, device=dev)) / (
-            127 * F_ ** 0.5)
-        return (q8(D, F_), su, q8(D, F_) if gated else None,
-                su.flip(0).contiguous() if gated else None, q8(F_, D), sd)
-
     for dt in ("float32", "bfloat16"):
         tq = getattr(torch, dt)
         for i, M in enumerate((1, 3, 5, 63, 65, 257)):
@@ -1503,7 +1806,7 @@ def _parity_preempt(dev) -> dict:
 
 
 def _parity(label, arch, knobs, bknobs, dev, n_vqa: int = 2,
-            slots: int = 4) -> dict:
+            slots: int = 4, max_len: int = 224) -> dict:
     import torch
 
     from repro_torch.launch.serve import generate
@@ -1512,7 +1815,8 @@ def _parity(label, arch, knobs, bknobs, dev, n_vqa: int = 2,
     cfg, model, params = _model(arch, "float32", dev, **knobs)
     reqs = _requests(cfg, n_vqa=n_vqa, n_text=4 - n_vqa, text_with_image=64,
                      text_len=128, gen_len=16, seed=1)
-    backend = LocalBackend(model, params, slots, 224, device=dev, **bknobs)
+    backend = LocalBackend(model, params, slots, max_len, device=dev,
+                           **bknobs)
     for k, v in bknobs.items():
         require(getattr(backend, k) == v, f"{label}: backend {k} != {v}")
     engine = Engine(backend)
@@ -1549,9 +1853,133 @@ def _parity(label, arch, knobs, bknobs, dev, n_vqa: int = 2,
               f"{r.prompt_len}): engine == generate "
               f"{'(tie-broken)' if got != ref else ''}: {got[:8]}...")
     del engine, backend, params
+    gc.collect()
     if dev == "cuda":
         torch.cuda.empty_cache()
     return {"requests": len(reqs), "tie_breaks": ties}
+
+
+# the dense attention archs (stablelm-12b, starcoder2-7b, paligemma-3b):
+# (phase, arch, config knobs, backend knobs, VQA requests, text tokens of
+# a VQA request, kernels the bf16 run must launch). starcoder2's FFN has
+# biases, so it takes the plain path, as in the reference: no FFN kernel
+DENSE_RUNS = (
+    ("stablelm", "stablelm-12b", dict(kv_policy="tiered", kv_hot_window=128),
+     {}, 0, 0, ("fused_norm", "qkv_proj", "attn_stream", "ffn_act",
+                "paged_decode_tiered")),
+    ("starcoder2", "starcoder2-7b", dict(kv_policy="flat"),
+     dict(fused_decode=True), 0, 0,
+     ("fused_norm", "qkv_proj", "attn_stream", "paged_decode_flat")),
+    ("paligemma", "paligemma-3b", dict(kv_policy="tiered", kv_hot_window=128),
+     {}, 4, 64, ("fused_norm", "qkv_proj", "attn_stream", "ffn_act",
+                 "paged_decode_tiered")),
+)
+# the f32 parity runs' depth (full width): stablelm-12b is 48.6 GB in f32
+# at its 40 layers and starcoder2-7b 29.6 GB at 32, so both are cut to 8
+# (13.0 / 8.8 GB); paligemma-3b runs its 18 (10.0 GB)
+DENSE_PARITY_LAYERS = {"stablelm": 8, "starcoder2": 8, "paligemma": 18}
+
+
+def dense_parity(key: str, dev: str = "cuda") -> dict:
+    """<key>-parity: f32 at full width (depth DENSE_PARITY_LAYERS), 4
+    slots, max_len 384, 2 VQA (256 image + 64 text tokens) + 2 text
+    requests of 128 on paligemma, 4 text elsewhere, 16 new tokens: the
+    Engine's tokens against `generate`'s (tie rule as above). The tiered
+    runs use hot window 64, starcoder2 the flat store with fused decode
+    (paged_decode_flat at G 9)."""
+    from repro_torch.configs.base import get_config
+
+    _, arch, knobs, bknobs, n_vqa, _, _ = next(r for r in DENSE_RUNS
+                                               if r[0] == key)
+    full = get_config(arch)
+    n = DENSE_PARITY_LAYERS[key]
+    knobs = dict(knobs, **({"kv_hot_window": 64}
+                           if knobs["kv_policy"] == "tiered" else {}))
+    if n < full.num_layers:
+        knobs.update(num_layers=n, segments=())
+    print(f"[parity] {key}-parity: f32, full width (d_model "
+          f"{full.d_model}, heads {full.num_heads} / {full.num_kv_heads} x "
+          f"{full.head_dim}, d_ff {full.d_ff}), depth {n} of "
+          f"{full.num_layers} layers{' (cut)' if n < full.num_layers else ''}"
+          f", {knobs['kv_policy']} store")
+    res = _parity(f"{key}-parity", arch, knobs, bknobs, dev,
+                  n_vqa=min(n_vqa, 2), max_len=384)
+    res["layers"] = n
+    return res
+
+
+def dense_run(key: str, pk: dict, dev: str = "cuda") -> dict:
+    """<key>: bf16 at full width and depth, weights built on the card,
+    4 slots, max_len 512, 8 requests (paligemma: 4 VQA with 256 image +
+    64 text tokens and 4 text of 256; else 8 text of 256), 64 new each,
+    a Telemetry hub riding along: exact launches a model call (two norms
+    a layer and the final one, one projection a layer, the FFN kernel a
+    layer unless the FFN has biases; attn_stream a layer at prefill and
+    extend, the run's paged decode a layer at decode), write-once, the
+    ledger == simulated_efficiency, chime_sim on CHIME and M3D-DRAM-only,
+    the profiles, and the peak device memory after init and after the
+    run."""
+    import torch
+
+    from repro_torch.serving import Telemetry
+    from repro_torch.tree import tree_leaves
+
+    _, arch, knobs, bknobs, n_vqa, twi, needs = next(r for r in DENSE_RUNS
+                                                     if r[0] == key)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    gc.collect()              # an earlier run's backend, freed first
+    mem_before = 0
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    built = _model(arch, "bfloat16", dev, **knobs)
+    sync()
+    init_s = time.perf_counter() - t0
+    cfg, model, params = built
+    mem_init = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[serving] {key}: {arch}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.num_heads} / {cfg.num_kv_heads} x "
+          f"{cfg.head_dim}, {cfg.mlp_type} d_ff {cfg.d_ff}: {n_params:,} "
+          f"parameters ({2 * n_params / 1e9:.2f} GB bf16) built on the card "
+          f"in {init_s:.1f} s; peak device memory after init "
+          f"{mem_init / 1e9:.2f} GB ({mem_before / 1e9:.2f} GB allocated "
+          f"before it)")
+    res = serve_run(key, arch, knobs, bknobs, twi, needs, dev=dev,
+                    built=built, n_vqa=n_vqa, telemetry=Telemetry())
+    ext, dec = res["extend_calls"], res["decode_steps_engine"]
+    n_layers = cfg.num_layers
+    per_call = {k: v / (ext + dec) for k, v in res["launches"].items()}
+    want = {"fused_norm": 2 * n_layers + 1, "qkv_proj": n_layers,
+            "ffn_act": n_layers if "ffn_act" in needs else 0,
+            "ffn_act_int8": 0,
+            "attn_stream": n_layers * ext / (ext + dec),
+            "paged_decode_tiered": (n_layers * dec / (ext + dec)
+                                    if cfg.kv_policy == "tiered" else 0),
+            "paged_decode_flat": (n_layers * dec / (ext + dec)
+                                  if cfg.kv_policy == "flat" else 0)}
+    require(per_call == want, f"{key}: launches a model call {per_call}, "
+                              f"planned {want}")
+    print(f"[serving] {key}: launches a model call over {ext} extends and "
+          f"{dec} decode steps: fused_norm {per_call['fused_norm']:.0f}, "
+          f"qkv_proj {per_call['qkv_proj']:.0f}, ffn_act "
+          f"{per_call['ffn_act']:.0f}; attn_stream {n_layers} an extend, "
+          f"the paged decode {n_layers} a decode step ({res['launches']})")
+    mem_run = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    print(f"[serving] {key}: peak device memory after the run "
+          f"{mem_run / 1e9:.2f} GB")
+    res.update({"params": n_params, "init_s": init_s,
+                "memory_allocated_before_init": mem_before,
+                "max_memory_allocated_init": mem_init,
+                "max_memory_allocated_run": mem_run})
+    res.pop("finished")
+    del built, cfg, model, params
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return res
 
 
 def serving_phase(pk: dict, dev: str = "cuda") -> dict:
@@ -1564,6 +1992,7 @@ def serving_phase(pk: dict, dev: str = "cuda") -> dict:
     out = {}
     for run in RUNS:
         out[run[0]] = serve_run(*run, dev=dev)
+        gc.collect()
         if dev == "cuda":
             torch.cuda.empty_cache()
     finished = {k: r.pop("finished") for k, r in out.items()}
@@ -1929,9 +2358,9 @@ def _hit_tail_ms(label, engine, req, head: int) -> dict:
            "whole_prefill_device_ms": device_ms(whole_call, reps=5)}
     print(f"[prefix] {label}: one hit-tail extend ({t_valid} tokens padded "
           f"to {out['hit_tail_rows']} rows at q_offset {head}) "
-          f"{out['hit_tail_device_ms']:.3f} ms on the device (profiler) vs "
+          f"{us(out['hit_tail_device_ms'], 3, 'ms')} on the device (profiler) vs "
           f"the whole {n}-token prefill (2 extend calls) "
-          f"{out['whole_prefill_device_ms']:.3f} ms")
+          f"{us(out['whole_prefill_device_ms'], 3, 'ms')}")
     return out
 
 
@@ -2433,29 +2862,35 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
                  "shape": f"q {tuple(a[0].shape)}, lengths "
                           f"{a[-2].tolist()}",
                  "profile_us_per_launch": 1e3 * sum(t for _, t in hits)
-                 / max(sum(c for c, _ in hits), 1),
-                 "device_us": 1e3 * device_ms(lambda: kern(*a, **kw)),
-                 "event_us": 1e3 * event_ms(lambda: kern(*a, **kw))}
+                 / sum(c for c, _ in hits) if hits else None,
+                 "device_us": None, "event_us": 1e3 * event_ms(
+                     lambda: kern(*a, **kw))}
+        alone_ms = device_ms(lambda: kern(*a, **kw))
+        if alone_ms is not None:
+            alone["device_us"] = 1e3 * alone_ms
+        in_prof = alone["profile_us_per_launch"]
         print(f"[profile] {label}: {kern_name} at the decode shape "
-              f"({alone['shape']}): {alone['profile_us_per_launch']:.2f} "
-              f"us a launch in the profile; alone {alone['device_us']:.2f} "
-              f"us (profiler), {alone['event_us']:.2f} us (CUDA events)")
+              f"({alone['shape']}): "
+              f"{us(None if in_prof is None else in_prof / 1e3)} a launch "
+              f"in the profile; alone {us(alone_ms)} (profiler), "
+              f"{alone['event_us']:.2f} us (CUDA events)")
     name = label.split(":")[0].replace(" ", "_")
     (OUT / f"decode_profile_{name}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total",
                                   row_limit=80))
+    # a window with no device event read nothing: busy and idle are None
     out = {"steps": n_steps, "wall_ms_per_step": wall_ms / n_steps,
-           "device_ms_per_step": dev_ms / n_steps,
+           "device_ms_per_step": dev_ms / n_steps if rows else None,
            "device_launches_per_step": sum(r[1] for r in rows) / n_steps,
-           "idle_share": 1 - dev_ms / wall_ms if wall_ms else None,
+           "idle_share": 1 - dev_ms / wall_ms if rows and wall_ms else None,
            "launch_check": launch_check, "decode_kernel_alone": alone,
            "top": [{"kernel": k[:90], "launches_per_step": c / n_steps,
                     "ms_per_step": t / n_steps} for k, c, t in rows[:14]]}
     print(f"[profile] {label}: decode step (4 slots, ctx ~256-290): wall "
           f"{out['wall_ms_per_step']:.2f} ms, device busy "
-          f"{out['device_ms_per_step']:.2f} ms in "
+          f"{us(out['device_ms_per_step'], unit='ms')} in "
           f"{out['device_launches_per_step']:.0f} launches, idle share "
-          f"{out['idle_share']:.3f}")
+          f"{out['idle_share']}")
     for r in out["top"]:
         print(f"[profile]   {r['ms_per_step']:8.3f} ms/step "
               f"{r['launches_per_step']:6.1f} launches/step  {r['kernel']}")
@@ -2525,16 +2960,17 @@ def profile_prefill(label, model, params, cfg, bknobs, dev: str = "cuda",
     (OUT / f"prefill_profile_{name}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total",
                                   row_limit=80))
-    out = {"prompt": prompt, "wall_ms": wall_ms, "device_ms": dev_ms,
+    out = {"prompt": prompt, "wall_ms": wall_ms,
+           "device_ms": dev_ms if rows else None,
            "launch_check": launch_check,
            "device_launches": sum(r[1] for r in rows),
-           "busy_share": dev_ms / wall_ms if wall_ms else None,
+           "busy_share": dev_ms / wall_ms if rows and wall_ms else None,
            "top": [{"kernel": k[:90], "launches": c, "ms": t}
                    for k, c, t in rows[:14]]}
     print(f"[profile] {label}: prefill extend ({prompt} tokens): wall "
-          f"{wall_ms:.2f} ms, device busy {dev_ms:.2f} ms in "
+          f"{wall_ms:.2f} ms, device busy {us(out['device_ms'], unit='ms')} in "
           f"{out['device_launches']} launches, busy share "
-          f"{out['busy_share']:.3f}")
+          f"{out['busy_share']}")
     for r in out["top"]:
         print(f"[profile]   {r['ms']:8.3f} ms {r['launches']:5d} launches  "
               f"{r['kernel']}")
@@ -2549,7 +2985,8 @@ def profile_prefill(label, model, params, cfg, bknobs, dev: str = "cuda",
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernels,parity,serving")
+    ap.add_argument("--phases", default="kernels,parity,serving,stablelm,"
+                                         "starcoder2,paligemma")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2605,6 +3042,12 @@ def main(argv=None) -> int:
             "deepseek-parity", _parity_deepseek, "cuda")}
         report["serving"] = {"deepseek": timed("deepseek", deepseek_run,
                                                pk)}
+    for key, *_ in DENSE_RUNS:
+        if key in phases:
+            report.setdefault("parity", {})[f"{key}-parity"] = timed(
+                f"{key}-parity", dense_parity, key)
+            report.setdefault("serving", {})[key] = timed(key, dense_run,
+                                                          key, pk)
     launches = {k: sum(run.get("launches", {}).get(k, 0)
                        for run in report.get("serving", {}).values())
                 for k in REPLACES}
@@ -2618,7 +3061,9 @@ def main(argv=None) -> int:
             "replaces": REPLACES[k], "tpu_kernel": REPLACES[k],
             "launches": launches.get(k, 0), "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "kernel_ms": r["ms"],
-            "device_ms": r["device_ms"], "host_ms": r["ms"] - r["device_ms"],
+            "device_ms": r["device_ms"],
+            "host_ms": (None if r["device_ms"] is None
+                        else r["ms"] - r["device_ms"]),
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
@@ -2632,8 +3077,9 @@ def main(argv=None) -> int:
                                 "bound_ms", "bound_by", "chain_device_ms",
                                 "chain")}
             for fr in kern.get("ffn_rows", []) if fr["name"] == k] + [
-            {f: fr[f] for f in ("shape", "device_ms", "event_ms", "ms",
-                                "plain_ms", "bound_ms", "bound_by")}
+            {f: fr.get(f) for f in ("shape", "device_ms", "event_ms", "ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "library_device_ms")}
             for fr in kern.get("extra_rows", []) if fr["name"] == k]
         if "event_ms" in r:
             rows[-1]["event_ms"] = r["event_ms"]

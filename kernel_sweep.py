@@ -191,7 +191,8 @@ def ffn_host_breakdown(FF, build, x, w, int8: bool) -> dict:
             lambda: build.require_operands(name, x.device, {
                 n: (t, sh, dt) for (n, t, sh, dt) in ops}))
         parts["f_chunking + sm_count"] = host_us(
-            lambda: FF.f_chunking(M, F_, build.sm_count(x.device.index)))
+            lambda: FF.f_chunking(M, F_, build.sm_count(x.device.index),
+                                 D))
         parts["2 x torch.empty(dtype=, device=)"] = host_us(
             lambda: (torch.empty((8, M, D), dtype=torch.float32,
                                  device=x.device),

@@ -238,7 +238,9 @@ def _ensure_loaded():
     _LOADED = True
     import importlib
     # only the arch modules whose mixers the port runs so far (GQA
-    # attention, MLA with MoE); the other seven come with their mixers
+    # attention, MLA with MoE); rwkv6, zamba2, hubert and llama4 come
+    # with their mixers
     for mod in ("nemotron_4_340b", "granite_3_2b", "deepseek_v2_lite",
+                "stablelm_12b", "starcoder2_7b", "paligemma_3b",
                 "paper_models"):
         importlib.import_module(f"repro_torch.configs.{mod}")

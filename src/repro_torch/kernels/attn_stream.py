@@ -16,6 +16,10 @@ raises, as in the reference.
 - f32 runs the CUDA-core kernel (f32 FMAs, 32-query tiles): wgmma has no
   f32 mode that holds the 1e-4 parity the f32 paths are checked to.
 
+Head dims 160 (stablelm-12b) and 256 (paligemma-3b) are stored as whole
+128-byte panels plus, at 160, one 64-byte panel (no padding); at 256 the
+bf16 kernel's tiles take 161 KB, one block an SM (`wgmma_smem_bytes`).
+
 The kernels read any strides with a contiguous last dim (bf16: 16-byte
 aligned rows), so callers pass transposed views of model-layout tensors
 without copies, and may pass ``out`` (any such view) to receive the
@@ -36,7 +40,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -2.0 ** 20
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 # mirror of the bf16 kernel's tiles in csrc/attn_stream.cu (WG_*); chip_smoke
 # holds `wgmma_smem_bytes` against the library's `attn_stream_smem_bytes`
 WGMMA_BQ, WGMMA_BK, WGMMA_STAGES = 64, 64, 2

@@ -17,7 +17,8 @@
 // bf16: a Flash-style tensor-core kernel (`attn_wgmma_kernel`). One
 // warpgroup (128 threads) per 64-query tile of one (b, h):
 //   * Q, K and V tiles land in shared memory by cp.async in the 128-byte
-//     swizzled layout of wgmma.cuh (64/32-byte swizzle at Dh 32/16); K/V
+//     swizzled layout of wgmma.cuh (64/32-byte swizzle at Dh 32/16; at Dh
+//     160 two 128B panels and one 64B panel); K/V
 //     tiles of 64 keys sit in a ring of 2 stages, so tile j + 1 loads
 //     while tile j is multiplied (a 3-stage ring that also issued tile
 //     j + 1's S before tile j's softmax measured slower on the H100);
@@ -27,8 +28,14 @@
 //     log2e-scaled scores);
 //   * P is rounded to bf16 and multiplied into the output by wgmma with A
 //     from registers (the S accumulator fragment is P's A fragment) and V
-//     as an MN-major shared operand. That rounding is the one place the
-//     bf16 kernel differs from the f32 math of the twin beyond bf16 I/O;
+//     as an MN-major shared operand: one m64nDhk16 at Dh <= 128; at Dh
+//     160 an n128 over the two whole panels and an n32 over the 64B one,
+//     at Dh 256 two n128s. At Dh 256 the f32 output accumulator is 128
+//     registers a thread (S and P add 48): one warpgroup still fits
+//     under the 255-register cap, and the 161 KB of Q and the 2-stage
+//     ring leave one block an SM (Dh 160: 101 KB, two). The rounding of
+//     P is the one place the bf16 kernel differs from the f32 math of the
+//     twin beyond bf16 I/O;
 //     chip_smoke holds it to the bf16 tolerance (2e-2 on outputs < 2);
 //   * query tiles run heaviest first (the last causal tile has the most
 //     keys). At 60-80 query tiles the card is under-filled and the
@@ -38,8 +45,10 @@
 //     rank order by rank 0 through distributed shared memory.
 // f32: wgmma has no f32 mode that holds the port's f32 parity (1e-4 with
 // TF32 off), so f32 keeps the CUDA-core kernel below (`attn_fma_kernel`:
-// 32-query tiles, 4 threads per row, f32 FMAs, 32-key tiles staged as f32
-// in shared memory). The wrapper picks the kernel by dtype, and both count
+// 32-query tiles, 4 threads per row (8 above Dh 128, so a thread holds at
+// most 32 features of q and of the accumulator), f32 FMAs, 32-key tiles
+// (16 at Dh 256, within 48 KB of static shared memory) staged as f32 in
+// shared memory). The wrapper picks the kernel by dtype, and both count
 // as attn_stream launches.
 //
 // Tensors are addressed through strides (last dim contiguous), so the
@@ -55,12 +64,19 @@ namespace cg = cooperative_groups;
 
 // ---- f32: CUDA-core kernel -------------------------------------------------
 constexpr int BQ = 32;   // query rows per block
-constexpr int BK = 32;   // keys per shared-memory tile
-constexpr int TPR = 4;   // threads per query row
-constexpr int NT = BQ * TPR;
+
+// threads per query row, keys per shared-memory tile and threads of the
+// f32 kernel at head dim HD
+template <int HD>
+struct FmaShape {
+  static constexpr int TPR = HD > 128 ? 8 : 4;
+  static constexpr int BK = HD > 160 ? 16 : 32;
+  static constexpr int NT = BQ * TPR;
+  static_assert(HD % TPR == 0 && 2 * BK * HD * 4 <= 48 * 1024, "head dim");
+};
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(FmaShape<HD>::NT)
     attn_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ o, int H,
                     int Hkv, int S, int L, long long qsb, long long qsh,
@@ -68,6 +84,8 @@ __global__ void __launch_bounds__(NT)
                     long long ksl, long long vsb, long long vsh,
                     long long vsl, long long osb, long long osh,
                     long long oss, int causal, int q_offset, float scale) {
+  constexpr int TPR = FmaShape<HD>::TPR, BK = FmaShape<HD>::BK;
+  constexpr int NT = FmaShape<HD>::NT;
   constexpr int DPT = HD / TPR;  // features per thread
   __shared__ float ks[BK][HD];
   __shared__ float vs[BK][HD];
@@ -117,8 +135,9 @@ __global__ void __launch_bounds__(NT)
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < DPT; ++i) part += qreg[i] * ks[j][sub + TPR * i];
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
+#pragma unroll
+      for (int o = 1; o < TPR; o <<= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, o);
       const int kj = k0 + j;
       const bool ok = kj < L && (!causal || kj <= q_pos);
       const float sc = ok ? part * scale : NEG_INF;
@@ -303,8 +322,16 @@ __global__ void __launch_bounds__(WG_NT) attn_wgmma_kernel(AttnArgs a) {
     wgmma_hold<NO>(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < WG_BK / 16; ++kk)
-      Wgmma<HD>::template rs<1>(o, p[kk], desc_mn<WG_BK, HD>(vt, kk), 1);
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      if constexpr (HD <= 128) {
+        Wgmma<HD>::template rs<1>(o, p[kk], desc_mn<WG_BK, HD>(vt, kk), 1);
+      } else {  // columns 0..127 (two 128B panels), then the rest
+        Wgmma<128>::template rs<1>(o, p[kk], desc_mn_at<WG_BK, HD>(vt, kk, 0),
+                                   1);
+        Wgmma<HD - 128>::template rs<1>(o + 64, p[kk],
+                                        desc_mn_at<WG_BK, HD>(vt, kk, 2), 1);
+      }
+    }
     wgmma_commit();
     wgmma_wait<0>();
     wgmma_hold<NO>(o);
@@ -381,7 +408,7 @@ static int launch_fma(const AttnArgs& a, const float* q, const float* k,
                       const float* v, float* o, int B, float scale,
                       cudaStream_t st) {
   dim3 grid((a.S + BQ - 1) / BQ, B * a.H);
-  attn_fma_kernel<float, HD><<<grid, NT, 0, st>>>(
+  attn_fma_kernel<float, HD><<<grid, FmaShape<HD>::NT, 0, st>>>(
       q, k, v, o, a.H, a.Hkv, a.S, a.L, a.qsb, a.qsh, a.qss, a.ksb, a.ksh,
       a.ksl, a.vsb, a.vsh, a.vsl, a.osb, a.osh, a.oss, a.causal, a.q_offset,
       scale);
@@ -451,6 +478,8 @@ extern "C" int attn_stream(const void* q, const void* k, const void* v,
     case 32: bad = launch_hd<32>(a, q, k, v, o, B, scale, dtype, kv_split, st); break;
     case 64: bad = launch_hd<64>(a, q, k, v, o, B, scale, dtype, kv_split, st); break;
     case 128: bad = launch_hd<128>(a, q, k, v, o, B, scale, dtype, kv_split, st); break;
+    case 160: bad = launch_hd<160>(a, q, k, v, o, B, scale, dtype, kv_split, st); break;
+    case 256: bad = launch_hd<256>(a, q, k, v, o, B, scale, dtype, kv_split, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bad) {
@@ -464,7 +493,8 @@ extern "C" int attn_stream(const void* q, const void* k, const void* v,
 // dim it does not take), for the Python mirror's check.
 extern "C" int attn_stream_smem_bytes(int hd) {
   switch (hd) {
-    case 16: case 32: case 64: case 128: return wg_smem_bytes(hd);
+    case 16: case 32: case 64: case 128: case 160: case 256:
+      return wg_smem_bytes(hd);
   }
   return 0;
 }

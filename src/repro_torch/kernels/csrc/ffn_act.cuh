@@ -67,9 +67,14 @@
 // 3. "fma": f32 activations at every M (the f32 parity path: wgmma and
 //    mma.sync have no f32 mode that holds 1e-4), and any shape whose rows
 //    do not start 16-byte aligned (the other forms copy 16 bytes at a
-//    time). Blocks over (16-row tile, F chunk) with f32 FMAs, the hidden
-//    tile in shared memory and one f32 partial per F chunk, added in
-//    chunk order by the same reduction kernel.
+//    time). Blocks over (16-row tile, F chunk, band of 3072 output
+//    columns) with f32 FMAs, the hidden tile in shared memory and one f32
+//    partial per F chunk, added in chunk order by the same reduction
+//    kernel. A thread holds 12 output columns of 16 rows (192
+//    accumulators); a d_model above 3072 (stablelm-12b's 5120) takes a
+//    second band of blocks, each recomputing its chunk's hidden tile (an
+//    f32 parity path: the bands double phase 1's FMAs, not its bytes in
+//    flight).
 // Ragged M, D and F are masked (zero rows, columns, hidden units).
 #pragma once
 
@@ -628,6 +633,7 @@ static int launch_stream(const FfnArgs& a, cudaStream_t st) {
 constexpr int BF = 32;   // hidden units per inner step
 constexpr int NT = 256;  // threads; phase 2 gives each thread D / NT columns
 constexpr int FMA_BM = 16;  // rows a block
+constexpr int FMA_BAND = 12 * NT;  // output columns a block: 12 a thread
 
 // T: the type of x and out; WT: the weights' type (T, or int8_t with the
 // column scales s1 / sg of W_up / W_gate)
@@ -653,6 +659,8 @@ __global__ void __launch_bounds__(NT)
   __shared__ float hs[BM][BF];
   const int m0 = blockIdx.x * BM;
   const int fc = blockIdx.y;
+  // this block's band of output columns: [n0, n0 + nd)
+  const int n0 = blockIdx.z * FMA_BAND, nd = min(D - n0, FMA_BAND);
   const int f_lo = fc * f_per_block;
   const int f_hi = min(F, f_lo + f_per_block);
   const int tid = threadIdx.x;
@@ -744,9 +752,9 @@ __global__ void __launch_bounds__(NT)
       for (int r0 = 0; r0 < nf; r0 += RS) {
         const int nr = min(RS, nf - r0);
         __syncthreads();  // the previous stage (or phase 1) fully read
-        const WT* src = w2 + (long long)(f0 + r0) * D;
+        const WT* src = w2 + (long long)(f0 + r0) * D + n0;
         if (vec & VEC_DOWN) {  // D % 16 == 0 and an aligned base
-          const int nv = D / 16;
+          const int nv = nd / 16;
           for (int idx = tid; idx < nr * nv; idx += NT) {
             const int rr = idx / nv, cv = idx % nv;
             *reinterpret_cast<uint4*>(w2s + rr * STR + cv * 16) =
@@ -754,8 +762,9 @@ __global__ void __launch_bounds__(NT)
                                                 cv * 16);
           }
         } else {
-          for (int idx = tid; idx < nr * D; idx += NT)
-            w2s[(idx / D) * STR + idx % D] = src[idx];
+          for (int idx = tid; idx < nr * nd; idx += NT)
+            w2s[(idx / nd) * STR + idx % nd] =
+                src[(long long)(idx / nd) * D + idx % nd];
         }
         __syncthreads();
 #pragma unroll(BM >= 16 ? 4 : 1)
@@ -764,7 +773,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
           for (int c = 0; c < NCH; ++c) {
             const int n = tid + NT * c;
-            wv[c] = n < D ? static_cast<float>(w2s[rr * STR + n]) : 0.f;
+            wv[c] = n < nd ? static_cast<float>(w2s[rr * STR + n]) : 0.f;
           }
 #pragma unroll
           for (int r = 0; r < BM; ++r) {
@@ -780,12 +789,12 @@ __global__ void __launch_bounds__(NT)
       // per SM
 #pragma unroll(BM >= 16 ? 4 : 1)
       for (int ff = 0; ff < nf; ++ff) {
-        const WT* w2row = w2 + (long long)(f0 + ff) * D;
+        const WT* w2row = w2 + (long long)(f0 + ff) * D + n0;
         float wv[NCH];
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
           const int n = tid + NT * c;
-          wv[c] = n < D ? to_f32(w2row[n]) : 0.f;
+          wv[c] = n < nd ? to_f32(w2row[n]) : 0.f;
         }
 #pragma unroll
         for (int r = 0; r < BM; ++r) {
@@ -797,7 +806,7 @@ __global__ void __launch_bounds__(NT)
     }
   }
 
-  float* pb = partial + (long long)fc * M * D;
+  float* pb = partial + (long long)fc * M * D + n0;
 #pragma unroll
   for (int r = 0; r < BM; ++r) {
     const int m = m0 + r;
@@ -805,7 +814,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
       const int n = tid + NT * c;
-      if (n < D) pb[(long long)m * D + n] = acc[r][c];
+      if (n < nd) pb[(long long)m * D + n] = acc[r][c];
     }
   }
 }
@@ -813,7 +822,8 @@ __global__ void __launch_bounds__(NT)
 template <typename T, typename WT, int NCH>
 static int launch_fma(const FfnArgs& a, cudaStream_t stream) {
   const int f_per_block = a.p[0], n_fc = a.p[1], vec = a.p[2];
-  dim3 grid((a.M + FMA_BM - 1) / FMA_BM, n_fc);
+  dim3 grid((a.M + FMA_BM - 1) / FMA_BM, n_fc,
+            (a.D + FMA_BAND - 1) / FMA_BAND);
   ffn_act_kernel<T, WT, FMA_BM, NCH><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(a.x), static_cast<const WT*>(a.w1),
       static_cast<const WT*>(a.wg), static_cast<const WT*>(a.w2), a.s1, a.sg,
@@ -826,7 +836,7 @@ static int launch_fma(const FfnArgs& a, cudaStream_t stream) {
 // p = {f_per_block, n_fc, vec}
 template <typename T, typename WT>
 static int dispatch_fma(const FfnArgs& a, cudaStream_t st) {
-  const int nch = (a.D + NT - 1) / NT;
+  const int nch = (min(a.D, FMA_BAND) + NT - 1) / NT;
 #define FFN_CASE(N) \
   if (nch <= N) return launch_fma<T, WT, N>(a, st);
   FFN_CASE(1) FFN_CASE(2) FFN_CASE(4) FFN_CASE(6) FFN_CASE(8) FFN_CASE(10)

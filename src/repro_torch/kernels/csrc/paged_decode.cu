@@ -50,6 +50,15 @@
 // workspace, one launch; an empty warp or rank gives (NEG_INF, 0, 0),
 // which weighs 0.
 //
+// Head dims. A key row is split over LPK lanes, LPK its 16-byte chunks
+// (8 features a chunk in the tiered kernel) rounded up to a power of two
+// and at most 32: a row of 20 chunks (Dh 160 in bf16) takes a whole warp,
+// the 12 lanes past its end copy zeros and hold zero q, so every
+// shuffle tree and lane map stays a power of two; past 32 chunks (f32 at
+// Dh 160 / 256 in the flat kernel) a lane holds CH = 2 chunks of a row.
+// A warp's partial (G x Dh f32) goes over its ring after the loop, so
+// groups above 8 are refused at Dh 256 where the ring is 4 KB a stage.
+//
 // Tiered specifics. A (slot, kv head)'s tile list is the hot ring's tiles,
 // then the cold pages' tiles up to the one holding position pos - W. The
 // two sources differ in element size, so a lane owns the same 8 features
@@ -62,7 +71,9 @@
 // widened to bf16, exactly; K chunks XOR-swizzled so the fragment loads
 // hit distinct banks): the softmax runs on the score fragments, a quad of
 // lanes a row, and the weights reach the V sums, which stay f32, through
-// a small warp scratch after the block table. tau > 0 keeps the reference's skip decisions: the
+// a small warp scratch after the block table; an mma takes 8 keys, so
+// where a warp's row is the whole warp (Dh 160 / 256) its stages are 8 KB
+// (8 keys of K and V). tau > 0 keeps the reference's skip decisions: the
 // rule is a chain in page order, so the kernel runs one block a (slot, kv
 // head) (split 1), takes the hot ring, then the pages in logical order,
 // its 4 warps sharing each page's tiles, and at each page boundary applies
@@ -88,11 +99,26 @@ constexpr int FL_MAX_SPLIT = 8;       // portable cluster size
 
 // dynamic shared memory of a block: the warps' rings (reused for their
 // partials after the loop) and the slot's block table
-__host__ __device__ constexpr int fl_ring_bytes() {
-  return FL_WARPS * FL_STAGES * FL_STAGE_BYTES;
+__host__ __device__ constexpr int fl_ring_bytes(int stage = FL_STAGE_BYTES) {
+  return FL_WARPS * FL_STAGES * stage;
+}
+__host__ __device__ constexpr int fl_table_bytes(int n_pages) {
+  return (4 * n_pages + 15) & ~15;
 }
 __host__ __device__ constexpr int fl_smem_bytes(int n_pages) {
-  return fl_ring_bytes() + ((4 * n_pages + 15) & ~15);
+  return fl_ring_bytes() + fl_table_bytes(n_pages);
+}
+// lanes a key row of ``chunks`` chunks is split over: the chunks rounded
+// up to a power of two, at most a warp
+__host__ __device__ constexpr int row_lanes(int chunks) {
+  int p = 1;
+  while (p < chunks && p < 32) p <<= 1;
+  return p;
+}
+// the largest query group of head dim ``hd``: a warp's partial (2 + hd
+// floats a row) fits its 4 KB-stage ring up to 16 rows at Dh <= 160
+__host__ __device__ constexpr int max_group(int hd) {
+  return hd > 160 ? 8 : MAXG;
 }
 
 // cp.async of 8 or 4 bytes (.ca: .cg takes only 16); ``bytes`` 0 zero-fills
@@ -189,14 +215,17 @@ __device__ __forceinline__ void softmax_step(float (&sc)[STEPS][GM],
 // rank a share of the outputs, every rank's loads issued before the
 // sums); and write the output rows ``ob``. An empty partial (NEG_INF, 0,
 // 0) weighs 0 beside any live one.
-template <typename T, int HD, int GM, int VE>
+// A lane holds CH chunks of VE features of a row, chunk x at features
+// (c + LPK x) VE (lanes c past the row's NCH = HD / VE chunks hold none).
+template <typename T, int HD, int GM, int LPK, int CH, int VE, int STAGE>
 __device__ __forceinline__ void merge_partials(const float (&m)[GM],
                                                const float (&d)[GM],
-                                               float (&acc)[GM][VE],
+                                               float (&acc)[GM][CH * VE],
                                                uint8_t* smem, int G,
                                                T* __restrict__ ob) {
-  constexpr int LPK = HD / VE;
-  constexpr int WARP_FLOATS = FL_STAGES * FL_STAGE_BYTES / 4;
+  constexpr int NCH = HD / VE;
+  constexpr int WARP_FLOATS = FL_STAGES * STAGE / 4;
+  static_assert(2 * GM + GM * HD <= WARP_FLOATS, "a warp's partial");
   constexpr int NI = (GM * HD + FL_NT - 1) / FL_NT;  // outputs a thread has
   __shared__ float wgt_s[FL_WARPS][GM], bm_s[GM], bd_s[GM];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -206,7 +235,7 @@ __device__ __forceinline__ void merge_partials(const float (&m)[GM],
 #pragma unroll
   for (int g = 0; g < GM; ++g)
 #pragma unroll
-    for (int e = 0; e < VE; ++e)
+    for (int e = 0; e < CH * VE; ++e)
 #pragma unroll
       for (int o = LPK; o < 32; o <<= 1)
         acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
@@ -222,8 +251,12 @@ __device__ __forceinline__ void merge_partials(const float (&m)[GM],
     for (int g = 0; g < GM; ++g)
       if (g < G)
 #pragma unroll
-        for (int e = 0; e < VE; ++e)
-          part[2 * GM + g * HD + c * VE + e] = acc[g][e];
+        for (int x = 0; x < CH; ++x)
+          if (c + LPK * x < NCH)
+#pragma unroll
+            for (int e = 0; e < VE; ++e)
+              part[2 * GM + g * HD + (c + LPK * x) * VE + e] =
+                  acc[g][x * VE + e];
   __syncthreads();  // every warp's partial is written
 
   // the block's warps: a query row's weights, then outputs tid, tid +
@@ -339,22 +372,26 @@ static int launch_cluster(void (*kern)(Args), int& granted, const Args& a,
 }
 
 // ---- paged_decode_flat ------------------------------------------------------
-constexpr int FL_STEPS = 4;           // key steps a tile: one 16-byte K and
-                                      // one V chunk a lane a step
-constexpr int FL_STEP_BYTES = 32 * 16;               // a warp's chunks a step
-constexpr int FL_V_OFF = FL_STEPS * FL_STEP_BYTES;  // V half of a stage
+constexpr int FL_STEPS = 4;  // 16-byte K and V chunks a lane a tile
 
-// A key row of HD elements of T is LPK lanes' 16-byte chunks; a warp
-// step covers KPW keys, a tile TK = KPW * FL_STEPS keys (always 4 KB of
-// K and V together).
+// A key row of HD elements of T is NCH 16-byte chunks over LPK lanes (CH
+// chunks a lane); a warp step covers KPW keys, a tile TK = KPW * STEPS
+// keys (4 KB of K and V together, the padding lanes' zeros included).
 template <typename T, int HD>
 struct FlatTile {
   static constexpr int VE = 16 / sizeof(T);
-  static constexpr int LPK = HD / VE;
+  static constexpr int NCH = HD / VE;
+  static constexpr int LPK = row_lanes(NCH);
+  static constexpr int CH = (NCH + LPK - 1) / LPK;
   static constexpr int KPW = 32 / LPK;
-  static constexpr int TK = KPW * FL_STEPS;
-  static_assert(LPK >= 1 && LPK <= 32 && KPW * LPK == 32, "head dim");
-  static_assert(2 * TK * HD * sizeof(T) == FL_STAGE_BYTES, "stage size");
+  static constexpr int STEPS = FL_STEPS / CH;
+  static constexpr int TK = KPW * STEPS;
+  static constexpr int X_BYTES = 32 * 16;  // a warp's x-th chunks of a step
+  static constexpr int STEP_BYTES = CH * X_BYTES;  // a warp's chunks a step
+  static constexpr int V_OFF = STEPS * STEP_BYTES;  // V half of a stage
+  static_assert(HD % VE == 0 && CH * LPK >= NCH && (CH == 1 || CH == 2),
+                "head dim");
+  static_assert(2 * V_OFF == FL_STAGE_BYTES, "stage size");
 };
 
 struct FlatArgs {
@@ -369,6 +406,8 @@ template <typename T, int HD, int GM>
 __global__ void __launch_bounds__(FL_NT) paged_decode_flat_kernel(FlatArgs a) {
   using FT = FlatTile<T, HD>;
   constexpr int VE = FT::VE, LPK = FT::LPK, KPW = FT::KPW, TK = FT::TK;
+  constexpr int CH = FT::CH, NCH = FT::NCH, STEPS = FT::STEPS;
+  constexpr int SB = FT::STEP_BYTES;
   constexpr int WARP_BYTES = FL_STAGES * FL_STAGE_BYTES;
   extern __shared__ __align__(16) uint8_t fl_smem[];
   int* tab_s = reinterpret_cast<int*>(fl_smem + fl_ring_bytes());
@@ -376,23 +415,32 @@ __global__ void __launch_bounds__(FL_NT) paged_decode_flat_kernel(FlatArgs a) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int rank = blockIdx.z, n_split = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // this lane's 16-byte chunk of a row, and its key of each step
+  // this lane's 16-byte chunks of a row (c + LPK x; past NCH: none), and
+  // its key of each step
   const int c = lane % LPK, kg = lane / LPK;
   const int G = a.G, n_pages = a.n_pages, block_k = a.block_k;
+  bool live_ch[CH];
+#pragma unroll
+  for (int x = 0; x < CH; ++x) live_ch[x] = c + LPK * x < NCH;
 
   // prologue: the slot's length and block table in one round trip, and
-  // this lane's chunk of the G query rows, pre-scaled into the log2 domain
+  // this lane's chunks of the G query rows, pre-scaled into the log2 domain
   if (tid == 0) pos_s = a.lengths[b];
   for (int j = tid; j < n_pages; j += FL_NT)
     tab_s[j] = a.table[(long long)b * n_pages + j];
   const T* qb = static_cast<const T*>(a.q) +
                 ((long long)b * a.Hkv + h) * G * HD + c * VE;
-  float qf[GM][VE];
+  float qf[GM][CH * VE];
 #pragma unroll
   for (int g = 0; g < GM; ++g)
 #pragma unroll
-    for (int e = 0; e < VE; ++e)
-      qf[g][e] = g < G ? to_f32(qb[g * HD + e]) * a.scale_log2 : 0.f;
+    for (int x = 0; x < CH; ++x)
+#pragma unroll
+      for (int e = 0; e < VE; ++e)
+        qf[g][x * VE + e] =
+            g < G && live_ch[x]
+                ? to_f32(qb[g * HD + LPK * x * VE + e]) * a.scale_log2
+                : 0.f;
   __syncthreads();
   const int pos = pos_s;
 
@@ -426,23 +474,28 @@ __global__ void __launch_bounds__(FL_NT) paged_decode_flat_kernel(FlatArgs a) {
     const uint32_t st =
         smem_u32(ring + (i % FL_STAGES) * FL_STAGE_BYTES) + lane * 16;
 #pragma unroll
-    for (int s = 0; s < FL_STEPS; ++s) {
+    for (int s = 0; s < STEPS; ++s) {
       const int kk = c0 + s * KPW + kg;
       const bool ok = key_ok(j, phys, kk);
       const long long off = ok ? ((long long)phys * block_k + kk) * rs : 0;
-      // a masked key is zero-filled and nothing is read
-      cp_async16(st + s * FL_STEP_BYTES, kb + off, ok ? 16 : 0);
-      cp_async16(st + FL_V_OFF + s * FL_STEP_BYTES, vb + off, ok ? 16 : 0);
+#pragma unroll
+      for (int x = 0; x < CH; ++x) {
+        // a masked key (and a padding lane) is zero-filled, nothing read
+        const int n = ok && live_ch[x] ? 16 : 0;
+        const long long o = n ? off + LPK * x * VE : 0;
+        cp_async16(st + s * SB + x * FT::X_BYTES, kb + o, n);
+        cp_async16(st + FT::V_OFF + s * SB + x * FT::X_BYTES, vb + o, n);
+      }
     }
   };
 
-  float m[GM], d[GM], acc[GM][VE];
+  float m[GM], d[GM], acc[GM][CH * VE];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
     m[g] = NEG_INF;
     d[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VE; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < CH * VE; ++e) acc[g][e] = 0.f;
   }
 #pragma unroll
   for (int i = 0; i < FL_STAGES - 1; ++i) {
@@ -457,38 +510,44 @@ __global__ void __launch_bounds__(FL_NT) paged_decode_flat_kernel(FlatArgs a) {
     const int t = jb + warp + i * FL_WARPS;
     const int j = t / tpp, c0 = (t % tpp) * TK, phys = tab_s[j];
     const uint8_t* st = ring + (i % FL_STAGES) * FL_STAGE_BYTES + lane * 16;
-    float sc[FL_STEPS][GM];
-    bool ok[FL_STEPS];
+    float sc[STEPS][GM];
+    bool ok[STEPS];
 #pragma unroll
-    for (int s = 0; s < FL_STEPS; ++s) {
+    for (int s = 0; s < STEPS; ++s) {
       ok[s] = key_ok(j, phys, c0 + s * KPW + kg);
-      float kv[VE];
-      load16_f32(reinterpret_cast<const T*>(st + s * FL_STEP_BYTES), kv);
+      float kv[CH * VE];
+#pragma unroll
+      for (int x = 0; x < CH; ++x)
+        load16_f32(reinterpret_cast<const T*>(st + s * SB + x * FT::X_BYTES),
+                   kv + x * VE);
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         float p = 0.f;
 #pragma unroll
-        for (int e = 0; e < VE; ++e) p += qf[g][e] * kv[e];
+        for (int e = 0; e < CH * VE; ++e) p += qf[g][e] * kv[e];
 #pragma unroll
         for (int o = 1; o < LPK; o <<= 1)
           p += __shfl_xor_sync(0xffffffffu, p, o);
         sc[s][g] = ok[s] ? p : NEG_INF;
       }
     }
-    softmax_step<FL_STEPS, GM, VE, LPK>(sc, ok, m, d, acc);
+    softmax_step<STEPS, GM, CH * VE, LPK>(sc, ok, m, d, acc);
 #pragma unroll
-    for (int s = 0; s < FL_STEPS; ++s) {
-      float vv[VE];
-      load16_f32(
-          reinterpret_cast<const T*>(st + FL_V_OFF + s * FL_STEP_BYTES), vv);
+    for (int s = 0; s < STEPS; ++s) {
+      float vv[CH * VE];
+#pragma unroll
+      for (int x = 0; x < CH; ++x)
+        load16_f32(reinterpret_cast<const T*>(st + FT::V_OFF + s * SB +
+                                              x * FT::X_BYTES),
+                   vv + x * VE);
 #pragma unroll
       for (int g = 0; g < GM; ++g)
 #pragma unroll
-        for (int e = 0; e < VE; ++e) acc[g][e] += sc[s][g] * vv[e];
+        for (int e = 0; e < CH * VE; ++e) acc[g][e] += sc[s][g] * vv[e];
     }
   }
   cp_async_wait<0>();
-  merge_partials<T, HD, GM, VE>(
+  merge_partials<T, HD, GM, LPK, CH, VE, FL_STAGE_BYTES>(
       m, d, acc, fl_smem, G,
       static_cast<T*>(a.out) + ((long long)b * a.Hkv + h) * G * HD);
 }
@@ -506,7 +565,9 @@ static int flat_g(const FlatArgs& a, int B, int split, cudaStream_t st) {
   if (a.G <= 2) return launch_flat<T, HD, 2>(a, B, split, st);
   if (a.G <= 4) return launch_flat<T, HD, 4>(a, B, split, st);
   if (a.G <= 8) return launch_flat<T, HD, 8>(a, B, split, st);
-  return launch_flat<T, HD, MAXG>(a, B, split, st);
+  if constexpr (max_group(HD) == MAXG)
+    return launch_flat<T, HD, MAXG>(a, B, split, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -516,6 +577,8 @@ static int flat(int D, const FlatArgs& a, int B, int split, cudaStream_t st) {
     case 32: return flat_g<T, 32>(a, B, split, st);
     case 64: return flat_g<T, 64>(a, B, split, st);
     case 128: return flat_g<T, 128>(a, B, split, st);
+    case 160: return flat_g<T, 160>(a, B, split, st);
+    case 256: return flat_g<T, 256>(a, B, split, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -530,7 +593,8 @@ extern "C" int paged_decode_flat(const void* q, const void* k, const void* v,
                                  float scale, int dtype, int split,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G < 1 || G > MAXG || split < 1 || split > FL_MAX_SPLIT || block_k < 1)
+  if (G < 1 || G > max_group(D) || split < 1 || split > FL_MAX_SPLIT ||
+      block_k < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B * Hkv == 0) return static_cast<int>(cudaGetLastError());
   const FlatArgs a = {q, k, v, static_cast<const int*>(lengths),
@@ -550,17 +614,32 @@ extern "C" int paged_decode_flat_smem_bytes(int n_pages) {
 
 // ---- paged_decode_tiered ----------------------------------------------------
 // A lane owns VE = 8 features of a key row in both sources: a hot row of T
-// is LPK lanes' HB-byte chunks, a cold int8 row LPK lanes' 8-byte chunks; a
-// warp step covers KPW keys, a tile TK = KPW * STEPS keys of one source.
-// A hot tile's K and V fill a stage (4 KB); a cold tile's K, V and scales
-// fit in it.
-template <typename T, int HD>
+// is LPK lanes' HB-byte chunks, a cold int8 row LPK lanes' 8-byte chunks
+// (LPK the row's hd / 8 chunks rounded up to a power of two: lanes past
+// them copy zeros); a warp step covers KPW keys, a tile TK = KPW * STEPS
+// keys of one source. A hot tile's K and V fill a stage (4 KB, or 8 KB on
+// the tensor-core path at LPK 32, whose mma takes 8 keys); a cold tile's
+// K, V and scales fit in it.
+__host__ __device__ constexpr bool td_mma(int es, int gm) {
+  return es == 2 && gm >= 2;
+}
+__host__ __device__ constexpr int td_stage_bytes(int es, int hd, int gm) {
+  return td_mma(es, gm) && row_lanes(hd / 8) == 32 ? 2 * FL_STAGE_BYTES
+                                                    : FL_STAGE_BYTES;
+}
+__host__ __device__ constexpr int td_tile_keys(int es, int hd, int gm) {
+  return 32 / row_lanes(hd / 8) * (td_stage_bytes(es, hd, gm) / (512 * es));
+}
+
+template <typename T, int HD, int GM>
 struct TieredTile {
   static constexpr int VE = 8;
-  static constexpr int LPK = HD / VE;
+  static constexpr int NCH = HD / VE;
+  static constexpr int LPK = row_lanes(NCH);
   static constexpr int KPW = 32 / LPK;
   static constexpr int HB = VE * static_cast<int>(sizeof(T));
-  static constexpr int STEPS = FL_STAGE_BYTES / (2 * 32 * HB);
+  static constexpr int STAGE = td_stage_bytes(sizeof(T), HD, GM);
+  static constexpr int STEPS = STAGE / (2 * 32 * HB);
   static constexpr int TK = KPW * STEPS;
   static constexpr int HV_OFF = STEPS * 32 * HB;  // hot: K, then V
   static constexpr int CV_OFF = STEPS * 32 * 8;   // cold: K, V, k / v scales
@@ -569,23 +648,22 @@ struct TieredTile {
   // the tensor-core path stores chunk c of key row n at c ^ (n & SW), so
   // the 8 rows of an mma fragment load hit distinct banks
   static constexpr int SW = (LPK < 8 ? LPK : 8) - 1;
-  static_assert(LPK >= 1 && LPK <= 32 && KPW * LPK == 32, "head dim");
-  static_assert(2 * HV_OFF == FL_STAGE_BYTES, "hot stage size");
-  static_assert(VS_OFF + STEPS * 32 * 4 <= FL_STAGE_BYTES, "cold stage size");
+  static_assert(HD % 16 == 0 && NCH <= LPK && KPW * LPK == 32, "head dim");
+  static_assert(TK == td_tile_keys(sizeof(T), HD, GM), "tile keys");
+  static_assert(2 * HV_OFF == STAGE, "hot stage size");
+  static_assert(VS_OFF + STEPS * 32 * 4 <= STAGE, "cold stage size");
 };
 
 // the tiered kernel's dynamic shared memory: the rings and the table, then
 // (bf16 with 2+ query rows: the tensor-core scores) each warp's scratch of
-// TK x GM weights and 3 x GM row sums, TK = (32 / (hd / 8)) key steps of
-// FL_STAGE_BYTES / (2 * 32 * 8 * es) keys
+// TK x GM weights and 3 x GM row sums
 __host__ __device__ constexpr int td_scratch_floats(int es, int hd, int gm) {
-  return es == 2 && gm >= 2
-             ? gm * (256 / hd * (FL_STAGE_BYTES / (512 * es)) + 3)
-             : 0;
+  return td_mma(es, gm) ? gm * (td_tile_keys(es, hd, gm) + 3) : 0;
 }
 __host__ __device__ constexpr int td_smem_bytes(int n_pages, int es, int hd,
                                                 int gm) {
-  return fl_smem_bytes(n_pages) + 4 * FL_WARPS * td_scratch_floats(es, hd, gm);
+  return fl_ring_bytes(td_stage_bytes(es, hd, gm)) + fl_table_bytes(n_pages) +
+         4 * FL_WARPS * td_scratch_floats(es, hd, gm);
 }
 
 struct TieredArgs {
@@ -603,22 +681,26 @@ struct TieredArgs {
 template <typename T, int HD, int GM>
 __global__ void __launch_bounds__(FL_NT)
     paged_decode_tiered_kernel(TieredArgs a) {
-  using TT = TieredTile<T, HD>;
+  using TT = TieredTile<T, HD, GM>;
   constexpr int VE = TT::VE, LPK = TT::LPK, KPW = TT::KPW, HB = TT::HB;
   constexpr int STEPS = TT::STEPS, TK = TT::TK, SW = TT::SW;
-  constexpr int WARP_BYTES = FL_STAGES * FL_STAGE_BYTES;
+  constexpr int STAGE = TT::STAGE, WARP_BYTES = FL_STAGES * STAGE;
   // bf16 with 2+ query rows: a tile's scores on tensor cores (q·K^T, 16
   // padded query rows x 8 keys an mma), the softmax over the score
   // fragments, the weights through a warp scratch to the V sums below
   constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value && GM >= 2;
+  static_assert(MMA == td_mma(sizeof(T), GM) && (!MMA || TK % 8 == 0),
+                "tensor-core tiles");
   extern __shared__ __align__(16) uint8_t td_smem[];
-  int* tab_s = reinterpret_cast<int*>(td_smem + fl_ring_bytes());
+  int* tab_s = reinterpret_cast<int*>(td_smem + fl_ring_bytes(STAGE));
   __shared__ int pos_s;
   const int h = blockIdx.x, b = blockIdx.y;
   const int rank = blockIdx.z, n_split = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // this lane's 8 features of a row, and its key of each step
+  // this lane's 8 features of a row (none past the row's NCH chunks), and
+  // its key of each step
   const int c = lane % LPK, kg = lane / LPK;
+  const bool live_ch = c < TT::NCH;
   const int G = a.G, W = a.W, n_pages = a.n_pages, block_k = a.block_k;
   const int max_len = a.max_len;
 
@@ -633,11 +715,11 @@ __global__ void __launch_bounds__(FL_NT)
   float qf[GM][VE];  // 16-byte loads: q is 16-byte aligned (the wrapper)
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
-    if (g < G) load8_f32<T>(reinterpret_cast<const uint8_t*>(qb + g * HD),
-                            qf[g]);
+    if (g < G && live_ch)
+      load8_f32<T>(reinterpret_cast<const uint8_t*>(qb + g * HD), qf[g]);
 #pragma unroll
     for (int e = 0; e < VE; ++e)
-      qf[g][e] = g < G ? qf[g][e] * a.scale_log2 : 0.f;
+      qf[g][e] = g < G && live_ch ? qf[g][e] * a.scale_log2 : 0.f;
   }
   // the mma A fragments of q (bf16, unscaled): rows g0 and g0 + 8 (zero
   // past G), features 16kk + 2qd (+1) and + 8
@@ -694,12 +776,12 @@ __global__ void __launch_bounds__(FL_NT)
            (long long)phys * block_k + kk < max_len;
   };
   auto issue = [&](int t, int i) {
-    const uint32_t st = smem_u32(ring + (i % FL_STAGES) * FL_STAGE_BYTES);
+    const uint32_t st = smem_u32(ring + (i % FL_STAGES) * STAGE);
     if (t < n_hot) {
 #pragma unroll
       for (int s = 0; s < STEPS; ++s) {
         const int slot = t * TK + s * KPW + kg;
-        const bool ok = hot_ok(slot);
+        const bool ok = hot_ok(slot) && live_ch;
         const long long off = ok ? (long long)slot * rs * sizeof(T) : 0;
         const int n = s * KPW + kg;  // the key's row in the tile
         const uint32_t dv = st + TT::HV_OFF + (s * 32 + lane) * HB;
@@ -724,8 +806,8 @@ __global__ void __launch_bounds__(FL_NT)
         const uint32_t dk =
             MMA ? st + (n * LPK + (c ^ (n & SW))) * 8 : dv - TT::CV_OFF;
         const uint32_t d4 = st + TT::KS_OFF + (s * 32 + lane) * 4;
-        cp_async8(dk, ckb + row * rs, ok ? 8 : 0);
-        cp_async8(dv, cvb + row * rs, ok ? 8 : 0);
+        cp_async8(dk, ckb + row * rs, ok && live_ch ? 8 : 0);
+        cp_async8(dv, cvb + row * rs, ok && live_ch ? 8 : 0);
         cp_async4(d4, ksb + row * a.Hkv, ok ? 4 : 0);
         cp_async4(d4 + (TT::VS_OFF - TT::KS_OFF), vsb + row * a.Hkv,
                   ok ? 4 : 0);
@@ -746,10 +828,12 @@ __global__ void __launch_bounds__(FL_NT)
   constexpr int SCR = td_scratch_floats(sizeof(T), HD, GM);
   static_assert(SCR == (MMA ? TK * GM + 3 * GM : 0), "warp scratch");
   float* scr =
-      reinterpret_cast<float*>(td_smem + fl_smem_bytes(n_pages)) + warp * SCR;
+      reinterpret_cast<float*>(td_smem + fl_ring_bytes(STAGE) +
+                               fl_table_bytes(n_pages)) +
+      warp * SCR;
   // fold tile t, landed in stage i % FL_STAGES, into m, d, acc
   auto consume = [&](int t, int i) {
-    const uint8_t* st = ring + (i % FL_STAGES) * FL_STAGE_BYTES;
+    const uint8_t* st = ring + (i % FL_STAGES) * STAGE;
     const bool hot = t < n_hot;
     const int u = t - n_hot;
     const int j = hot ? 0 : u / tpp, c0 = hot ? 0 : (u % tpp) * TK;
@@ -771,13 +855,13 @@ __global__ void __launch_bounds__(FL_NT)
         for (int kk = 0; kk < KSTEPS; ++kk) {
           uint32_t b0, b1;
           if (hot) {
-            const uint8_t* row = st + n * HD * 2 + 4 * qd;
+            const uint8_t* row = st + n * LPK * 16 + 4 * qd;
             b0 = *reinterpret_cast<const uint32_t*>(
                 row + ((2 * kk) ^ (n & SW)) * 16);
             b1 = *reinterpret_cast<const uint32_t*>(
                 row + ((2 * kk + 1) ^ (n & SW)) * 16);
           } else {
-            const uint8_t* row = st + n * HD + 2 * qd;
+            const uint8_t* row = st + n * LPK * 8 + 2 * qd;
             b0 = i8x2_bf16x2(*reinterpret_cast<const uint16_t*>(
                 row + ((2 * kk) ^ (n & SW)) * 8));
             b1 = i8x2_bf16x2(*reinterpret_cast<const uint16_t*>(
@@ -998,7 +1082,7 @@ __global__ void __launch_bounds__(FL_NT)
     run(lo, hi);
     if (!a.sparse) break;
   }
-  merge_partials<T, HD, GM, VE>(
+  merge_partials<T, HD, GM, LPK, 1, VE, STAGE>(
       m, d, acc, td_smem, G,
       static_cast<T*>(a.out) + ((long long)b * a.Hkv + h) * G * HD);
 }
@@ -1033,7 +1117,9 @@ static int tiered_g(const TieredArgs& a, int B, int split, cudaStream_t st,
   if (a.G <= 2) return launch_tiered<T, HD, 2>(a, B, split, st, occ);
   if (a.G <= 4) return launch_tiered<T, HD, 4>(a, B, split, st, occ);
   if (a.G <= 8) return launch_tiered<T, HD, 8>(a, B, split, st, occ);
-  return launch_tiered<T, HD, MAXG>(a, B, split, st, occ);
+  if constexpr (max_group(HD) == MAXG)
+    return launch_tiered<T, HD, MAXG>(a, B, split, st, occ);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -1044,6 +1130,8 @@ static int tiered(int D, const TieredArgs& a, int B, int split,
     case 32: return tiered_g<T, 32>(a, B, split, st, occ);
     case 64: return tiered_g<T, 64>(a, B, split, st, occ);
     case 128: return tiered_g<T, 128>(a, B, split, st, occ);
+    case 160: return tiered_g<T, 160>(a, B, split, st, occ);
+    case 256: return tiered_g<T, 256>(a, B, split, st, occ);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1060,7 +1148,7 @@ extern "C" int paged_decode_tiered(
     int max_len, int n_pages, int block_k, float scale, float log_tau,
     int use_tau, int dtype, int split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G < 1 || G > MAXG || split < 1 || split > FL_MAX_SPLIT ||
+  if (G < 1 || G > max_group(D) || split < 1 || split > FL_MAX_SPLIT ||
       block_k < 1 || (use_tau && split != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B * Hkv == 0) return static_cast<int>(cudaGetLastError());
@@ -1093,7 +1181,8 @@ extern "C" int paged_decode_tiered_smem_bytes(int n_pages, int dtype, int D,
 // entries, or minus the CUDA error
 extern "C" int paged_decode_tiered_blocks_per_sm(int n_pages, int dtype, int D,
                                                  int G) {
-  if (G < 1 || G > MAXG) return -static_cast<int>(cudaErrorInvalidValue);
+  if (G < 1 || G > max_group(D))
+    return -static_cast<int>(cudaErrorInvalidValue);
   TieredArgs a = {};
   a.G = G;
   a.n_pages = n_pages;

@@ -26,14 +26,19 @@
 // the bytes and the latency of a short dependency chain.
 //
 // Tile layout. A tile of R rows by C bf16 columns is stored as C / 64
-// regions of 64 columns (one region of C columns when C < 64), each R
-// rows of ROWB = 2 * min(C, 64) bytes. Inside a region the 16-byte chunk
-// j of row r sits at chunk j ^ (r % 8) (128-byte swizzle; for 64- and
-// 32-byte rows the 64B / 32B swizzle on the same byte-address bits), the
-// layout TMA's swizzle modes write and wgmma reads. Every region starts
-// 1024-byte aligned. The same stored tile serves as a K-major operand
-// (rows = M or N, columns = K: Q, K, x) or as an MN-major one (rows = K,
-// columns = N: V, W).
+// regions of 64 columns, then, where C % 64 is 16 or 32 (head dims 16,
+// 32, 160), one region of the C % 64 columns left; each region is R rows
+// of ROWB bytes (128, or 2 * (C % 64) for the last). Inside a region the
+// 16-byte chunk j of row r sits at chunk j ^ (r % 8) (128-byte swizzle;
+// for 64- and 32-byte rows the 64B / 32B swizzle on the same
+// byte-address bits), the layout TMA's swizzle modes write and wgmma
+// reads. Every region starts 1024-byte aligned (R a multiple of 8), and
+// the tile is exactly R * C * 2 bytes: a head dim of 160 is two 128B
+// panels and one 64B panel, never padded to 192. The same stored tile
+// serves as a K-major operand (rows = M or N, columns = K: Q, K, x) or as
+// an MN-major one (rows = K, columns = N: V, W); an MN-major product
+// wider than one region's columns is issued a region group at a time
+// (`desc_mn_at`).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,20 +72,28 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // ---- tile layout ----------------------------------------------------------
-// bytes of one row of a region of a tile ``C`` columns wide
-__host__ __device__ constexpr int tile_rowb(int C) {
-  return 2 * (C < 64 ? C : 64);
+// bytes of one row of region ``k`` (64 columns each) of a tile ``C``
+// columns wide: 128 for a whole region, 2 * (C % 64) for the last part one
+__host__ __device__ constexpr int tile_rowb(int C, int k = 0) {
+  return k < C / 64 ? 128 : 2 * (C % 64);
 }
 __host__ __device__ constexpr int tile_bytes(int R, int C) { return R * C * 2; }
+// the swizzle modes wgmma reads: 128-, 64- or 32-byte rows
+__host__ __device__ constexpr bool tile_ok(int R, int C) {
+  return R % 8 == 0 && C % 16 == 0 && (C % 64 == 0 || C % 64 == 16 ||
+                                       C % 64 == 32);
+}
 
 // byte offset of 16-byte chunk ``cj`` (columns 8cj..8cj+7) of row ``r`` in
 // a tile of R rows by C columns
 template <int R, int C>
 __device__ __forceinline__ uint32_t tile_offset(int r, int cj) {
-  constexpr int ROWB = tile_rowb(C), CPR = ROWB / 16;
-  const uint32_t lin = r * ROWB + (cj % CPR) * 16;
+  static_assert(tile_ok(R, C), "tile shape");
+  const int k = cj / 8;  // the region: 8 chunks (128 bytes) a whole one
+  const int rowb = tile_rowb(C, k);
+  const uint32_t lin = r * rowb + (cj % 8) * 16;
   // 128B / 64B / 32B swizzle: chunk bits [4, 4 + log2(CPR)) ^= bits [7, ..)
-  return (cj / CPR) * (R * ROWB) + (lin ^ ((lin >> 3) & (ROWB - 16)));
+  return k * (R * 128) + (lin ^ ((lin >> 3) & (rowb - 16)));
 }
 
 // Fill a tile of R rows by C columns from global rows ``src + r * stride``
@@ -117,19 +130,25 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
 // address it forms); 8-row groups are ROWB * 8 bytes apart.
 template <int R, int C>
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int ks) {
-  constexpr int ROWB = tile_rowb(C);
-  const int kb = ks * 32;
-  return make_desc(tile + (kb / ROWB) * (R * ROWB) + kb % ROWB, 16, 8 * ROWB,
-                   ROWB);
+  const int kb = ks * 32, k = kb / 128;  // k: the region holding the step
+  const int rowb = tile_rowb(C, k);
+  return make_desc(tile + k * (R * 128) + kb % 128, 16, 8 * rowb, rowb);
 }
 
 // MN-major operand (rows = K, columns = N) of a tile of R rows by C
-// columns: k-step ``ks`` covers rows 16ks..16ks+15. LBO steps between
-// 64-column regions, SBO between 8-row groups.
+// columns: k-step ``ks`` covers rows 16ks..16ks+15, columns from region
+// ``k`` on (64k..). LBO steps between 64-column regions, SBO between
+// 8-row groups; a product's N columns stay inside regions of one row
+// width (the whole ones, or the last part one alone).
+template <int R, int C>
+__device__ __forceinline__ uint64_t desc_mn_at(uint32_t tile, int ks, int k) {
+  const int rowb = tile_rowb(C, k);
+  return make_desc(tile + k * (R * 128) + ks * 16 * rowb, R * rowb, 8 * rowb,
+                   rowb);
+}
 template <int R, int C>
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int ks) {
-  constexpr int ROWB = tile_rowb(C);
-  return make_desc(tile + ks * 16 * ROWB, R * ROWB, 8 * ROWB, ROWB);
+  return desc_mn_at<R, C>(tile, ks, 0);
 }
 
 // ---- wgmma ordering -------------------------------------------------------

@@ -23,8 +23,12 @@ row starts 16-byte aligned:
   block's shared memory), phase 2 multiplies h into W_down, F split over
   a cluster when the tile grid underfills the card (`wgmma_plan`).
 - "fma" (f32 x at every M, the f32 parity path; or rows not 16-byte
-  aligned): f32 FMA tiles over (16-row tile, F chunk), one f32 partial
-  per chunk (`f_chunking`).
+  aligned): f32 FMA tiles over (16-row tile, F chunk, band of FMA_BAND
+  output columns), one f32 partial per chunk (`f_chunking`).
+
+d_model is bounded only by the stream form's shared memory (x's rows and
+the (M, D) f32 partial: `stream_smem_bytes` <= SMEM_LIMIT, D 5120 at M 8
+in bf16); the wgmma form loops over D, the fma form over its bands.
 
 Ragged M, D and F are masked, not asserted. Activations: ``silu_gated``,
 ``gelu``, ``gelu_gated`` (tanh GELU) and ``relu2``; the int8 TPU kernel is
@@ -65,7 +69,8 @@ WGMMA_BK, WGMMA_MAX_STAGES, WGMMA_BN = 64, 6, 128
 BF = 32                  # its hidden-unit step
 FMA_ROWS = 16            # its rows a block
 BLOCKS_PER_SM = 4        # grid target its F-chunk count is sized for
-MAX_D = 12 * 256         # 3072: the fma form's 12 columns a thread
+FMA_BAND = 12 * 256      # the fma form's output columns a block: 12 a
+                         # thread; a wider d_model takes more bands
 VARIANTS = ("fma", "stream", "wgmma")           # the C entry's codes
 
 
@@ -174,11 +179,12 @@ def wgmma_plan(M: int, D: int, F_: int, n_sms: int
     return wgs, -(-F_ // k_chunk), k_chunk
 
 
-def f_chunking(M: int, F_: int, n_sms: int) -> tuple[int, int]:
+def f_chunking(M: int, F_: int, n_sms: int, D: int) -> tuple[int, int]:
     """(f_per_block, n_fchunks) of the fma form: split F so the grid
-    holds about BLOCKS_PER_SM blocks per SM, in whole BF steps."""
+    (row tiles x F chunks x column bands of D) holds about BLOCKS_PER_SM
+    blocks per SM, in whole BF steps."""
     units = -(-F_ // BF)
-    n_mt = -(-M // FMA_ROWS)
+    n_mt = -(-M // FMA_ROWS) * -(-D // FMA_BAND)
     want = max(1, min(units, -(-(BLOCKS_PER_SM * n_sms) // n_mt)))
     per = -(-units // want)
     return per * BF, -(-units // per)
@@ -224,7 +230,7 @@ def _plan(M: int, D: int, F_: int, x_bf16: bool, vec: int, x_ok: bool,
         plan = wgmma_plan(M, D, F_, n_sms)
         scratch = (M, F_), torch.bfloat16
     else:
-        per, n_fc = f_chunking(M, F_, n_sms)
+        per, n_fc = f_chunking(M, F_, n_sms, D)
         plan = (per, n_fc, vec)
         scratch = (n_fc, M, D), torch.float32
     return (VARIANTS.index(variant), variant, plan, *scratch)
@@ -257,9 +263,6 @@ def _launch(entry: str, fn, x: torch.Tensor, dev: int, ptrs: list,
     W_gate and W_down, of ``w_es`` bytes an element. Returns (out,
     form)."""
     M, D = x.shape
-    if D > MAX_D:
-        raise ValueError(f"{entry} kernel supports d_model <= {MAX_D}, "
-                         f"got {D}")
     dt = build.dtype_code(x.dtype)
     px = x.data_ptr()
     up, gate, down = wptrs
@@ -268,6 +271,10 @@ def _launch(entry: str, fn, x: torch.Tensor, dev: int, ptrs: list,
     code, variant, plan, shape, sdt = _plan(
         M, D, F_, dt == 1, vec,
         (D * x.element_size()) % 16 == 0 and px % 16 == 0, dev)
+    if (variant == "stream"
+            and stream_smem_bytes(M, D, plan[0], w_es == 1) > SMEM_LIMIT):
+        raise ValueError(f"{entry} stream form: d_model {D} at M {M} "
+                         f"exceeds a block's shared memory")
     scratch = x.new_empty(shape, dtype=sdt)
     out = torch.empty_like(x)
     err = fn(px, *ptrs, scratch.data_ptr(), out.data_ptr(), M, D, F_,

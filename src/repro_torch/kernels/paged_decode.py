@@ -23,6 +23,13 @@ with no hot ring, no scales and no sparse read; a token is attendable iff
 its position <= lengths[b]. The ragged tail page (max_len not a multiple
 of ``block_k``) is masked, not padded.
 
+Head dims 16 to 256: a key row is split over its 16-byte chunks (8
+features a chunk in the tiered kernel) rounded up to a power of two lanes
+(`row_lanes`), at most a warp; the lanes past a row's end (Dh 160) copy
+zeros; past 32 chunks a lane holds two (f32 at Dh 160 / 256, flat).
+Groups up to MAX_GROUP, 8 at Dh 256 (`max_group`: a warp's G x Dh
+partial goes over its 12 KB ring).
+
 Both kernels are split-K (flash-decoding): each (slot, kv head)'s live
 key tiles are shared by the blocks of a thread-block cluster
 (``tiered_split`` / ``flat_split``, from shapes and the SM count only),
@@ -55,7 +62,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -2.0 ** 20
 INT8_QMAX = 127.0
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 MAX_GROUP = 16
 # mirror of the two kernels' shared constants in csrc/paged_decode.cu
 # (FL_*); chip_smoke holds `flat_smem_bytes` and `tiered_smem_bytes`
@@ -70,6 +77,24 @@ TIERED_FEATURES = 8       # features of a key row a lane owns, both sources
 SMEM_LIMIT = 232_448      # shared memory one block may use on Hopper
 
 
+def row_lanes(chunks: int) -> int:
+    """Lanes a key row of ``chunks`` chunks is split over: the chunks
+    rounded up to a power of two, at most a warp (the kernels'
+    `row_lanes`)."""
+    return min(32, 1 << max(chunks - 1, 0).bit_length())
+
+
+def max_group(head_dim: int) -> int:
+    """The largest query group either kernel takes at ``head_dim``: a
+    warp's partial (m, d and G x head_dim f32 accumulators) goes over its
+    ring after the loop, 12 KB at 4 KB a stage."""
+    return 8 if head_dim > 160 else MAX_GROUP
+
+
+def _es(dtype: torch.dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
 def flat_smem_bytes(n_pages: int) -> int:
     """Dynamic shared memory of a flat-kernel block: the warps' rings
     (their partials reuse them) and the slot's block table."""
@@ -77,35 +102,50 @@ def flat_smem_bytes(n_pages: int) -> int:
             + (4 * n_pages + 15) // 16 * 16)
 
 
+def tiered_stage_bytes(head_dim: int, G: int, dtype: torch.dtype) -> int:
+    """One warp's ring stage in the tiered kernel: FLAT_STAGE_BYTES, or
+    twice that where the scores are tensor-core products (bf16, G >= 2)
+    and a key row takes a whole warp (head dims 160, 256), so that a tile
+    holds the 8 keys an mma takes."""
+    mma = dtype == torch.bfloat16 and G >= 2
+    lanes = row_lanes(head_dim // TIERED_FEATURES)
+    return FLAT_STAGE_BYTES * (2 if mma and lanes == 32 else 1)
+
+
 def tiered_smem_bytes(n_pages: int, head_dim: int, G: int,
                       dtype: torch.dtype) -> int:
-    """Dynamic shared memory of a tiered-kernel block: the flat kernel's
-    rings and block table, then, where the scores are tensor-core
-    products (bf16, G >= 2), each warp's scratch of a tile's weights
-    (tile keys x GM) and 3 x GM row sums, GM the group rounded up to
-    1/2/4/8/16 (the kernel's template)."""
+    """Dynamic shared memory of a tiered-kernel block: the warps' rings
+    (`tiered_stage_bytes` a stage) and the block table, then, where the
+    scores are tensor-core products (bf16, G >= 2), each warp's scratch
+    of a tile's weights (tile keys x GM) and 3 x GM row sums, GM the
+    group rounded up to 1/2/4/8/16 (the kernel's template)."""
     gm = 1 << max(G - 1, 0).bit_length()
     scratch = 0
     if dtype == torch.bfloat16 and gm >= 2:
-        scratch = gm * (tiered_tile_keys(head_dim, dtype) + 3)
-    return flat_smem_bytes(n_pages) + 4 * FLAT_WARPS * scratch
+        scratch = gm * (tiered_tile_keys(head_dim, dtype, gm) + 3)
+    return (FLAT_WARPS * FLAT_STAGES * tiered_stage_bytes(head_dim, gm, dtype)
+            + (4 * n_pages + 15) // 16 * 16 + 4 * FLAT_WARPS * scratch)
 
 
 def flat_tile_keys(head_dim: int, dtype: torch.dtype) -> int:
-    """Keys in one of the flat kernel's tiles: K and V rows of a tile
-    fill FLAT_STAGE_BYTES (16-byte chunks, four a lane)."""
-    es = torch.tensor([], dtype=dtype).element_size()
-    return FLAT_STAGE_BYTES // (2 * head_dim * es)
+    """Keys in one of the flat kernel's tiles: a row's 16-byte chunks
+    over `row_lanes` lanes (two chunks a lane past 32), four chunks a
+    lane a tile, K and V together FLAT_STAGE_BYTES."""
+    chunks = head_dim * _es(dtype) // 16
+    lanes = row_lanes(chunks)
+    per_lane = -(-chunks // lanes)
+    return 32 // lanes * (4 // per_lane)
 
 
-def tiered_tile_keys(head_dim: int, dtype: torch.dtype) -> int:
+def tiered_tile_keys(head_dim: int, dtype: torch.dtype, G: int = 1) -> int:
     """Keys in one of the tiered kernel's tiles, hot or cold: a lane owns
     TIERED_FEATURES features of a row, so a warp step covers 32 /
-    (head_dim / 8) keys, and a hot tile's K and V rows in ``dtype`` fill
-    FLAT_STAGE_BYTES (its int8 cold tile, with scales, fits in less)."""
-    es = torch.tensor([], dtype=dtype).element_size()
-    keys_a_step = 32 * TIERED_FEATURES // head_dim
-    steps = FLAT_STAGE_BYTES // (2 * 32 * TIERED_FEATURES * es)
+    `row_lanes`(head_dim / 8) keys, and a hot tile's K and V rows in
+    ``dtype`` fill a stage (`tiered_stage_bytes`; its int8 cold tile,
+    with scales, fits in less)."""
+    keys_a_step = 32 // row_lanes(head_dim // TIERED_FEATURES)
+    steps = tiered_stage_bytes(head_dim, G, dtype) // (
+        2 * 32 * TIERED_FEATURES * _es(dtype))
     return keys_a_step * steps
 
 
@@ -254,9 +294,10 @@ def _check(kernel: str, q, expect: dict) -> None:
     is contiguous, of that shape and dtype, on q's device, with the K/V
     stores 16-byte aligned for the kernel's row loads."""
     B, Hkv, G, D = q.shape
-    if D not in HEAD_DIMS or G > MAX_GROUP:
+    if D not in HEAD_DIMS or G > max_group(D):
         raise ValueError(f"{kernel} kernel supports head dims {HEAD_DIMS} "
-                         f"and groups <= {MAX_GROUP}, got D={D}, G={G}")
+                         f"and groups <= {MAX_GROUP} (<= 8 at 256), got "
+                         f"D={D}, G={G}")
     if not q.is_contiguous() or q.data_ptr() % 16:
         raise ValueError(f"{kernel}: q must be contiguous and start 16-byte "
                          f"aligned")

@@ -138,6 +138,9 @@ def test_fused_norm_threads_per_row(units, tpr):
     (2, 4, 2, 40, 72, 16, True),      # G = 2, causal S < L, ragged
     (1, 6, 1, 33, 33, 32, False),     # G = 6, ragged, non-causal
     (1, 12, 2, 20, 50, 16, True),     # G = 6, the fastvlm grouping
+    (1, 8, 2, 20, 36, 160, True),     # stablelm-12b's head dim, G = 4
+    (1, 8, 1, 20, 36, 256, True),     # paligemma-3b's head dim, MQA
+    (1, 9, 1, 20, 36, 128, True),     # G = 9, starcoder2-7b's grouping
 ])
 def test_attn_stream_twin_matches_pallas(B, H, Hkv, S, L, D, causal):
     rng = np.random.default_rng(2)
@@ -195,10 +198,12 @@ def test_ffn_act_twin_matches_pallas(kind):
                                       (5, 1000, 132), (1, 40, 8)])
 def test_ffn_act_chunking_covers_f(M, F_, sms):
     """The F split of the fma form covers [0, F) exactly once in whole
-    32-unit steps and aims at a few blocks per SM."""
-    per, n = FF.f_chunking(M, F_, sms)
+    32-unit steps and aims at a few blocks per SM (one column band at
+    mobilevlm-3b's d_model)."""
+    D = 2560
+    per, n = FF.f_chunking(M, F_, sms, D)
     assert per % FF.BF == 0 and (n - 1) * per < F_ <= n * per
-    n_mt = -(-M // FF.FMA_ROWS)
+    n_mt = -(-M // FF.FMA_ROWS) * -(-D // FF.FMA_BAND)
     assert n_mt * n <= max(FF.BLOCKS_PER_SM * sms, n_mt)
 
 
@@ -339,14 +344,18 @@ def _stores(rng, B, max_len, Hkv, D, W, lengths, cold_scale=1.0):
     return build(kf), build(vf)
 
 
-@pytest.mark.parametrize("G", [1, 2, 6])
-@pytest.mark.parametrize("tau", [0.0, 1e-3])
-@pytest.mark.parametrize("dead", [False, True])
-def test_paged_decode_twin_matches_pallas(G, tau, dead):
+@pytest.mark.parametrize("G,tau,dead,D", [
+    pytest.param(G, tau, dead, 16, id=f"{dead}-{tau}-{G}")
+    for dead in (False, True) for tau in (0.0, 1e-3) for G in (1, 2, 6)] + [
+    pytest.param(G, 0.0, True, D, id=f"D{D}-G{G}")
+    for D, G in ((160, 4), (160, 9), (256, 8))])
+def test_paged_decode_twin_matches_pallas(G, tau, dead, D):
     """Ragged per-slot lengths; dead table entries; the sparse read with
-    a cold tier small enough that tau = 1e-3 really skips pages."""
+    a cold tier small enough that tau = 1e-3 really skips pages; the
+    dense archs' head dims 160 (G 4, and 9: 16 score rows on the card)
+    and 256 (G 8)."""
     rng = np.random.default_rng(5)
-    B, max_len, Hkv, D, W, bk = 4, 64, 2, 16, 8, 16
+    B, max_len, Hkv, W, bk = 4, 64, 2, 8, 16
     lengths = [63, 40, 9, 4]
     ks, vs = _stores(rng, B, max_len, Hkv, D, W, lengths,
                      cold_scale=0.02 if tau else 1.0)
@@ -380,14 +389,18 @@ def _flat_case(rng, B, max_len, Hkv, G, D):
     return q, k, v
 
 
-@pytest.mark.parametrize("G", [1, 2, 4])
-@pytest.mark.parametrize("dead", [False, True])
-def test_paged_decode_flat_twin_matches_pallas(G, dead):
+@pytest.mark.parametrize("G,dead,D", [
+    pytest.param(G, dead, 16, id=f"{dead}-{G}")
+    for dead in (False, True) for G in (1, 2, 4)] + [
+    pytest.param(G, True, D, id=f"D{D}-G{G}")
+    for D, G in ((128, 9), (160, 4), (256, 8))])
+def test_paged_decode_flat_twin_matches_pallas(G, dead, D):
     """Ragged per-slot lengths, max_len 200 (not a multiple of the 128
     page: the port masks the tail page the reference pads), and dead
-    table entries, against the reference kernel in interpret mode."""
+    table entries, against the reference kernel in interpret mode; also
+    at starcoder2-7b's G 9 and the dense archs' head dims 160 and 256."""
     rng = np.random.default_rng(7)
-    B, max_len, Hkv, D, bk = 4, 200, 2, 16, 128
+    B, max_len, Hkv, bk = 4, 200, 2, 128
     q, k, v = _flat_case(rng, B, max_len, Hkv, G, D)
     lengths = np.asarray([199, 150, 127, 3], np.int32)
     table = np.asarray(RKT.cold_page_table(jnp.asarray(lengths)[:, None], 0,
@@ -582,17 +595,26 @@ def test_paged_decode_flat_rank_order_merge_matches_plain(G, block_k):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_paged_decode_flat_tiles_fit_shared_memory(head_dim, dtype):
     """The flat kernel's tiles (the Python mirror of the .cu constants,
-    which chip_smoke holds against the built library): a tile's K and V
-    rows fill one ring stage in whole 16-byte chunks, four a lane; the
-    warps' partials (m, d and G x D accumulators, G up to 16) fit their
-    rings; at mobilevlm-3b's 4 pages four blocks share an SM."""
+    which chip_smoke holds against the built library): a row's 16-byte
+    chunks over a power of two lanes (a warp's 32 at most; the lanes past
+    Dh 160's 20 chunks hold zeros, and past 32 chunks a lane holds two),
+    a tile's K and V rows (padding lanes included) filling one ring stage,
+    four chunks a lane; the warps' partials (m, d and G x D accumulators,
+    G up to `max_group`) fit their rings; at mobilevlm-3b's 4 pages four
+    blocks share an SM."""
     es = torch.tensor([], dtype=dtype).element_size()
     tk = PD.flat_tile_keys(head_dim, dtype)
-    lanes_a_key = head_dim * es // 16
-    assert 1 <= lanes_a_key <= 32 and tk == 4 * (32 // lanes_a_key)
-    assert 2 * tk * head_dim * es == PD.FLAT_STAGE_BYTES
+    chunks = head_dim * es // 16
+    lanes_a_key = PD.row_lanes(chunks)
+    per_lane = -(-chunks // lanes_a_key)
+    assert chunks <= lanes_a_key * per_lane and per_lane in (1, 2)
+    assert lanes_a_key == 32 or lanes_a_key == chunks
+    assert tk == 4 // per_lane * (32 // lanes_a_key)
+    assert 2 * tk * lanes_a_key * per_lane * 16 == PD.FLAT_STAGE_BYTES
     ring = PD.FLAT_STAGES * PD.FLAT_STAGE_BYTES
-    assert 4 * (2 * PD.MAX_GROUP + PD.MAX_GROUP * head_dim) <= ring
+    gmax = PD.max_group(head_dim)
+    assert gmax == (PD.MAX_GROUP if head_dim <= 160 else 8)
+    assert 4 * (2 * gmax + gmax * head_dim) <= ring
     assert PD.flat_smem_bytes(4) == PD.FLAT_WARPS * ring + 16
     assert 4 * PD.flat_smem_bytes(4) <= PD.SMEM_LIMIT
     assert PD.flat_smem_bytes(-(-32768 // 16)) <= PD.SMEM_LIMIT
@@ -900,35 +922,44 @@ def test_paged_decode_check_wants_aligned_q(kernel):
 def test_paged_decode_tiered_tiles_fit_shared_memory(head_dim, dtype):
     """The tiered kernel's tiles (the Python mirror of the .cu constants,
     which chip_smoke holds against the built library): a lane owns 8
-    features of a row in both sources; a hot tile's K and V rows fill one
-    ring stage in whole 16-byte chunks; a cold tile's int8 K and V rows
-    and their k and v scales fit one; a warp's partial (m, d and G x D
-    accumulators, G up to 16) fits its ring; the tensor-core scores'
-    warp scratch (bf16, G >= 2) follows the table. By shared memory at 4
-    pages (with the 1 KB a block is reserved and 1 KB for the static
-    merge arrays) every instance leaves an SM room for the planner's
-    FLAT_BLOCKS_PER_SM blocks, and head dims 64 and 128 (the served
-    models') for four; chip_smoke reads the blocks an SM holds, registers
-    included, from the library. A 32k-token table fits a block."""
+    features of a row in both sources (a row over a power of two lanes,
+    the padding lanes' zeros included); a hot tile's K and V rows fill one
+    ring stage in whole 16-byte chunks (8 KB on the tensor-core path at
+    head dims 160 / 256, whose tiles then hold the 8 keys an mma takes);
+    a cold tile's int8 K and V rows and their k and v scales fit one; a
+    warp's partial (m, d and G x D accumulators, G up to `max_group`)
+    fits its ring; the tensor-core scores' warp scratch (bf16, G >= 2)
+    follows the table. By shared memory at 4 pages (with the 1 KB a block
+    is reserved and 1 KB for the static merge arrays) every instance
+    leaves an SM room for the planner's FLAT_BLOCKS_PER_SM blocks, and
+    head dims 64 and 128 for four; chip_smoke reads the blocks an SM
+    holds, registers included, from the library. A 32k-token table fits
+    a block."""
     es = torch.tensor([], dtype=dtype).element_size()
-    tk = PD.tiered_tile_keys(head_dim, dtype)
-    lanes_a_key = head_dim // PD.TIERED_FEATURES
-    assert 1 <= lanes_a_key <= 32 and PD.TIERED_FEATURES * es % 16 == 0
-    assert tk % (32 // lanes_a_key) == 0
-    assert 2 * tk * head_dim * es == PD.FLAT_STAGE_BYTES
-    assert tk * (2 * head_dim + 2 * 4) <= PD.FLAT_STAGE_BYTES
-    ring = PD.FLAT_STAGES * PD.FLAT_STAGE_BYTES
-    assert 4 * (2 * PD.MAX_GROUP + PD.MAX_GROUP * head_dim) <= ring
+    chunks = head_dim // PD.TIERED_FEATURES
+    lanes_a_key = PD.row_lanes(chunks)
+    assert chunks <= lanes_a_key <= 32 and PD.TIERED_FEATURES * es % 16 == 0
+    assert lanes_a_key == 32 or lanes_a_key == chunks
     sm_bytes = 233_472                     # shared memory of a Hopper SM
-    for G in range(1, PD.MAX_GROUP + 1):
+    for G in range(1, PD.max_group(head_dim) + 1):
         gm = 1 << (G - 1).bit_length()
-        scratch = (gm * (tk + 3) if dtype == torch.bfloat16 and gm >= 2
-                   else 0)
+        mma = dtype == torch.bfloat16 and gm >= 2
+        stage = PD.tiered_stage_bytes(head_dim, gm, dtype)
+        assert stage == PD.FLAT_STAGE_BYTES * (
+            2 if mma and lanes_a_key == 32 else 1)
+        tk = PD.tiered_tile_keys(head_dim, dtype, gm)
+        assert tk % (32 // lanes_a_key) == 0 and (not mma or tk % 8 == 0)
+        row = lanes_a_key * PD.TIERED_FEATURES   # with the padding lanes
+        assert 2 * tk * row * es == stage
+        assert tk * (2 * row + 2 * 4) <= stage
+        ring = PD.FLAT_STAGES * stage
+        assert 4 * (2 * gm + gm * head_dim) <= ring
+        scratch = gm * (tk + 3) if mma else 0
         b = PD.tiered_smem_bytes(4, head_dim, G, dtype)
         assert b == PD.FLAT_WARPS * (ring + 4 * scratch) + 16 and b % 16 == 0
         fit = sm_bytes // (b + 2048)
         assert fit >= PD.FLAT_BLOCKS_PER_SM
-        assert fit >= 4 or head_dim < 64
+        assert fit >= 4 or head_dim < 64 or (mma and head_dim > 128)
         assert PD.tiered_smem_bytes(-(-32768 // 16), head_dim, G,
                                     dtype) <= PD.SMEM_LIMIT
 
@@ -1096,7 +1127,7 @@ def test_attn_stream_variant_by_dtype(head_dim):
 
 @pytest.mark.parametrize("dtype,head_dim,exc", [
     (torch.float16, 128, TypeError), (torch.bfloat16, 48, ValueError),
-    (torch.float32, 256, ValueError), (torch.int8, 64, TypeError)])
+    (torch.float32, 320, ValueError), (torch.int8, 64, TypeError)])
 def test_attn_stream_variant_rejects_before_launch(dtype, head_dim, exc):
     """What no kernel takes raises in the dispatch, before the library is
     loaded or anything launches."""
