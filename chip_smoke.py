@@ -70,7 +70,16 @@ source, all started together; seven kernels), then:
      (85.5 slices of 128: a ragged last one) at M 4 (stream) and 256
      (wgmma), f32 and bf16, the bf16 ones timed beside their bound and
      the cuBLAS chain, and fused_norm at D 2048, M 4 and 256 (bf16 timed
-     beside F.rms_norm); and the dense archs' widths (stablelm-12b,
+     beside F.rms_norm); the recurrent archs' widths: fused_norm
+     LayerNorm + bias at rwkv6-7b's D 4096 (M 1, 4, 256; beside
+     F.layer_norm) and zamba2-1.2b's shared attention block: qkv_proj at
+     D 2048, N 3 x 2048 (M 1, 4, 5, 256; beside torch.addmm),
+     attn_stream at Dh 64, G 1, H 32 (S = L = 256 beside SDPA; extend
+     chunks S 128 at L 256 and S 44 at L 300), paged_decode_tiered at
+     Hkv 32, G 1, Dh 64 (the decode shape timed; lengths around the
+     window and the pages, dead pages) and ffn_act gelu_gated at D 2048,
+     F 8192 (M 4 stream, M 256 wgmma, beside the cuBLAS chain); and the
+     dense archs' widths (stablelm-12b,
      starcoder2-7b, paligemma-3b): fused_norm LayerNorm + bias at D 5120
      / 4608 and rms at 2048; qkv_proj at D 5120 (N 5120 / 1280 / 1280),
      D 4608 with bias (4608 / 512 / 512) and D 2048 (2048 / 256 / 256) at
@@ -104,7 +113,12 @@ source, all started together; seven kernels), then:
      3 hits of 256 tokens; and deepseek-parity: deepseek-v2-lite in f32
      at full width with the depth cut to 6 layers (1 dense + 5 MoE; the
      cut is printed), tiered latent store (hot window 64), 2 slots, 4
-     text requests of 128 tokens, 16 new: Engine == generate (tie rule);
+     text requests of 128 tokens, 16 new: Engine == generate (tie rule;
+     6 of 27 layers: full depth fits, 62.8 GB in f32, but there router
+     probabilities come within ~1e-7 of a tie, where the experts'
+     atomic sums vary run to run, and the tokens can part; the phase
+     deepseek-ties, not run by default, reads the gaps); every parity
+     run prints its peak device memory;
   3. serving — three bf16 runs through the Engine at full width and
      depth, each the main path of its configuration: the kernels' launch
      counters are zeroed just before each run and read just after, and
@@ -176,9 +190,10 @@ source, all started together; seven kernels), then:
      `apply_mla_decode` run again on one decode step's inputs with the
      device's sync debug mode at "error" (a host sync fails the run).
   4. stablelm, starcoder2, paligemma — the dense attention archs, each
-     an f32 parity run at full width (<arch>-parity: Engine == generate,
-     tie rule; stablelm-12b and starcoder2-7b cut to 8 layers, 13.0 / 8.8
-     GB, paligemma-3b at its 18; 2 VQA + 2 text requests on paligemma)
+     an f32 parity run at full width and depth (<arch>-parity: Engine ==
+     generate, tie rule; stablelm-12b 40 layers, 48.6 GB, starcoder2-7b
+     32, 29.6 GB, paligemma-3b 18, 10.0 GB, each printing its peak
+     memory; 2 VQA + 2 text requests on paligemma)
      and a bf16 run at full width and depth, weights built on the card,
      4 slots, max_len 512, 8 requests of 256 tokens with 64 new
      (paligemma: 4 of them VQA, 256 image + 64 text tokens) and a
@@ -191,6 +206,26 @@ source, all started together; seven kernels), then:
      decode step), write-once, the ledger == simulated_efficiency,
      chime_sim on CHIME and M3D-DRAM-only, the timing and both profiles,
      the peak device memory after init and after the run.
+  5. rwkv6, zamba2 — the recurrent archs (`models/ssm.py`; the WKV6 and
+     SSD scans are plain PyTorch ops, as the reference has no kernel for
+     them), each an f32 parity run at full width and depth
+     (<arch>-parity, tie rule: rwkv6-7b's 32 layers, 30.5 GB in f32, 4
+     text requests of 128; zamba2-1.2b's 38 positions, tiered (hot window
+     64), 2 requests of 128 and 2 of 300 tokens, the Engine prefilling in
+     chunks of at most 128 on the SSM grid, `generate` whole) and a bf16
+     run as the dense archs' (8 text requests of 256, 64 new, 4 slots,
+     max_len 512, a Telemetry hub): rwkv6-7b with no KV store (CHIME
+     tiering does not apply), zamba2-1.2b over the tiered store (hot
+     window 128; KV in its 6 shared-attention applications only). Exact
+     launches a model call (rwkv6: fused_norm 65 and nothing else, the
+     channel mix plain as in the reference; zamba2: fused_norm 45,
+     qkv_proj 6, ffn_act 6, attn_stream 6 an extend, paged_decode_tiered
+     6 a decode step), write-once, ledger == simulated_efficiency,
+     chime_sim, and in both profiles the device time and launches under
+     the recurrences' ranges (the mixers, the scans, the channel mix).
+  Every dense and recurrent bf16 run prints its decode busy beside the
+  weight floor: every weight read once a step (the embedding table left
+  out unless it is the tied head; a shared block once an application).
 
 It prints the card (name, power limit), the kernel build time, the
 phases' results, then one JSON line {"kernels": [...]} (launches summed
@@ -201,12 +236,15 @@ or when any check fails. `--phases` selects a subset (e.g. `--phases
 kernels` for a quick compile check; `--phases kernels,deepseek` for the
 kernels and only the deepseek-v2-lite parity and serving runs;
 `--phases kernels,stablelm,starcoder2,paligemma` for the kernels and
-the dense archs' runs).
+the dense archs' runs; `--phases kernels,rwkv6,zamba2` for the
+recurrent archs'; `--phases deepseek-ties` for the router gap probe
+alone).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import pathlib
@@ -228,11 +266,15 @@ D3, F3, H3 = 2560, 6912, 20
 HIT_TAIL = 64
 # deepseek-v2-lite: d_model and its dense first layer's d_ff (F / 128 =
 # 85.5: the stream form's last slice is ragged); the f32 parity run cuts
-# the depth to 1 dense + 5 MoE layers (full depth in f32 is 62.8 GB of
-# weights alone)
+# the depth to 1 dense + 5 MoE layers (full depth fits, 62.8 GB of f32
+# weights, but its router near-ties make the check flaky: deepseek_ties)
 DS_D, DS_F, DS_PARITY_LAYERS = 2048, 10944, 6
 # stablelm-12b's d_model: the widest the FFN kernels take on this path
 DENSE_D = 5120
+# rwkv6-7b's d_model (LayerNorm + bias); zamba2-1.2b's shared attention
+# block: d_model 2048, 32 heads of 64 (G 1), gelu_gated F 8192
+SSM_D = 4096
+ZAMBA_D, ZAMBA_H, ZAMBA_DH, ZAMBA_F = 2048, 32, 64, 8192
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 REPLACES = {
@@ -1013,6 +1055,122 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                      int8_ffn(5120, 2048, True), "silu_gated", dt,
                      f"silu_gated M={M} D=5120 F=2048", ffn_form(M, dt))
 
+    def ssm_widths(dt):
+        """The kernels of the rwkv6-7b and zamba2-1.2b paths at their
+        serving shapes (4 slots, 256-token prompts; zamba2's chunked
+        parity prompts of 300 in chunks of 128), in ``dt`` against the
+        plain twin, the form that ran asserted; bf16 rows timed beside
+        their bound and the library call. rwkv6: fused_norm LayerNorm +
+        bias at D 4096. zamba2's shared attention block (Dh 64, G 1, 32
+        heads, d_model 2048): qkv_proj (N 3 x 2048), attn_stream,
+        paged_decode_tiered and ffn_act gelu_gated at F 8192."""
+        tdt = getattr(torch, dt)
+        es = torch.tensor([], dtype=tdt).element_size()
+        bf = dt == "bfloat16"
+        # ---- fused_norm: rwkv6's LayerNorm + bias at D 4096 ------------
+        D_ = SSM_D
+        sc = (0.25 + 0.1 * torch.rand(D_, generator=gen, device=dev)).to(tdt)
+        bi = randn(D_, dtype=tdt, std=0.3)
+        for M in (1, 4, 256):
+            x = randn(M, D_, dtype=tdt)
+            record("fused_norm", f"rwkv6 layer M={M} D={D_}", dt,
+                   max_err(FN.fused_norm(x, sc, bi, "layer"),
+                           FN.fused_norm_plain(x, sc, bi, "layer")))
+            if bf and M in (4, 256):
+                extra_row("fused_norm", f"rwkv6 x ({M}, {D_}) layer",
+                          lambda: FN.fused_norm(x, sc, bi, "layer"),
+                          lambda: FN.fused_norm_plain(x, sc, bi, "layer"),
+                          lambda: F.layer_norm(x, (D_,), sc, bi, 1e-5),
+                          (2 * M * D_ + 2 * D_) * es, 0, dt)
+        # ---- qkv_proj: zamba2's shared block, N 3 x 2048 ---------------
+        D_, H_, Dh = ZAMBA_D, ZAMBA_H, ZAMBA_DH
+        ns = (H_ * Dh,) * 3
+        ws = [randn(D_, n, dtype=tdt, std=0.5 * D_ ** -0.5) for n in ns]
+        wcat = torch.cat(ws, 1)
+        zero = torch.zeros(wcat.shape[1], dtype=tdt, device=dev)
+        N = sum(ns)
+        for M in (1, 4, 5, 256):
+            x = randn(M, D_, dtype=tdt)
+            want_v = QK.kernel_variant(M, tdt)
+            require(want_v == ("gemv" if M <= 4 else
+                               "wgmma" if bf else "fma"),
+                    f"qkv_proj zamba2 M={M}: form {want_v}")
+            record("qkv_proj", f"zamba2 M={M} ({want_v})", dt,
+                   max(max_err(a, b) for a, b in zip(
+                       QK.qkv_proj(x, *ws, None, None, None),
+                       QK.qkv_proj_plain(x, *ws, None, None, None))))
+            if bf and M in (4, 256):
+                extra_row("qkv_proj", f"zamba2 x ({M}, {D_}), N {ns} "
+                                      f"({want_v})",
+                          lambda: QK.qkv_proj(x, *ws, None, None, None),
+                          lambda: QK.qkv_proj_plain(x, *ws, None, None,
+                                                    None),
+                          lambda: torch.addmm(zero, x, wcat),
+                          (M * D_ + D_ * N + M * N) * es, 2 * M * D_ * N,
+                          dt)
+        del ws, wcat
+        # ---- attn_stream: Dh 64, G 1, H 32: the prefill (S = L = 256)
+        # and the chunked parity's extend chunks (128 at q_offset 128; the
+        # ragged last 44 of a 300-token prompt)
+        require(AS.kernel_variant(tdt, Dh) == ("wgmma" if bf else "fma"),
+                f"attn_stream Dh {Dh} {dt}: form")
+        form = "wgmma" if bf else "fma"
+        for (S, L) in ((256, 256), (128, 256), (44, 300)):
+            q = randn(1, H_, S, Dh, dtype=tdt)
+            k = randn(1, H_, L, Dh, dtype=tdt)
+            v = randn(1, H_, L, Dh, dtype=tdt, std=0.4)
+            record("attn_stream", f"zamba2 H={H_} Hkv={H_} Dh={Dh} S={S} "
+                                  f"L={L} ({form})", dt,
+                   max_err(AS.attn_stream(q, k, v, causal=True),
+                           AS.attn_stream_plain(q, k, v, True)))
+            if bf and S == L:
+                extra_row("attn_stream", f"zamba2 q (1, {H_}, {S}, {Dh}), "
+                                         f"kv heads {H_}, causal, split "
+                                         f"{AS.kv_split(1, H_, S, L, sms)}",
+                          lambda: AS.attn_stream(q, k, v, causal=True),
+                          lambda: AS.attn_stream_plain(q, k, v, True),
+                          sdpa_of(q, k, v), 4 * H_ * S * Dh * es,
+                          4 * H_ * Dh * S * (S + 1) // 2, dt)
+        del q, k, v
+        # ---- paged_decode_tiered: Hkv 32, G 1, Dh 64 at the decode shape
+        # (timed), around the window and the pages, dead pages
+        targs = tiered_args(B, H_, 1, Dh, (318, 300, 257, 290))
+        err, rel = decode_errs(PD.paged_decode_tiered(*targs),
+                               PD.paged_decode_tiered_plain(*targs))
+        record("paged_decode_tiered", f"zamba2 Hkv={H_} G=1 D={Dh} ctx~300",
+               dt, err, rel=rel)
+        if bf:
+            results["extra_rows"].append(dict(
+                tiered_row(targs, f"zamba2 B {B}, Hkv {H_}, G 1, Dh {Dh}, "
+                                  f"W {W}, max_len {ML}, ctx [318, 300, "
+                                  f"257, 290]"),
+                name="paged_decode_tiered"))
+        del targs
+        for (label, lens, dead) in (
+                ("lengths 0,1,W-1,W", (0, 1, W - 1, W), ()),
+                ("W+1,max_len-1, dead pages", (W + 1, ML - 1, 255, 256),
+                 ((1, 0), (1, 2), (2, 0)))):
+            targs = tiered_args(B, H_, 1, Dh, lens, dead)
+            err, rel = decode_errs(PD.paged_decode_tiered(*targs),
+                                   PD.paged_decode_tiered_plain(*targs))
+            record("paged_decode_tiered", f"zamba2 D={Dh} G=1 {label}, "
+                   f"split {PD.tiered_split(B, H_, sms, False)}", dt, err,
+                   rel=rel)
+            del targs
+        # ---- ffn_act: gelu_gated at D 2048, F 8192, both forms ---------
+        F_ = ZAMBA_F
+        wf = (randn(D_, F_, dtype=tdt, std=0.5 * D_ ** -0.5),
+              randn(D_, F_, dtype=tdt, std=0.5 * D_ ** -0.5),
+              randn(F_, D_, dtype=tdt, std=F_ ** -0.5))
+        for M in (4, 256):
+            x = randn(M, D_, dtype=tdt)
+            row = ((3 * D_ * F_ * es, chain_of(x, *wf, "gelu_gated")) if bf
+                   else None)
+            ffn_case("ffn_act", x, wf, "gelu_gated", dt,
+                     f"zamba2 gelu_gated M={M} D={D_} F={F_}",
+                     ffn_form(M, dt), row)
+        del wf
+
     for dt in ("float32", "bfloat16"):
         tdt = getattr(torch, dt)
         es = torch.tensor([], dtype=tdt).element_size()
@@ -1493,6 +1651,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                        AS.attn_stream_plain(q, k, v, True)))
         del q, k, v
         dense_widths(dt)
+        ssm_widths(dt)
 
     # ragged / odd shapes, f32
     tdt = torch.float32
@@ -1649,7 +1808,12 @@ def _parity_deepseek(dev) -> dict:
     """deepseek-parity: f32 deepseek-v2-lite at full width, depth cut to
     DS_PARITY_LAYERS (1 dense + 5 MoE), tiered latent store (hot window
     64), 2 slots, 4 text requests (128-token prompts, 16 new tokens):
-    the Engine's tokens against `generate`'s, tie rule as above."""
+    the Engine's tokens against `generate`'s, tie rule as above. Full
+    depth fits the card (62.8 GB of f32 weights) but is not run: there
+    the router's top-k-th and next probabilities come within ~1e-7 (the
+    `deepseek-ties` phase reads the gaps), the scale at which the
+    experts' atomic `index_add_` sums vary from run to run on the card,
+    so the tokens can part where the logit tie rule sees no tie."""
     from repro_torch.configs.base import Segment, get_config
 
     n = DS_PARITY_LAYERS
@@ -1662,9 +1826,114 @@ def _parity_deepseek(dev) -> dict:
           f"{cut.moe.top_k}, kv_lora_rank {cut.mla.kv_lora_rank}), depth "
           f"cut from {full.num_layers} to {n} layers (1 dense + {n - 1} "
           f"MoE): {cut.param_count():,} parameters, "
-          f"{4 * cut.param_count() / 1e9:.1f} GB in f32")
-    return _parity("deepseek-parity", "deepseek-v2-lite", knobs, {}, dev,
-                   n_vqa=0, slots=2)
+          f"{4 * cut.param_count() / 1e9:.1f} GB in f32; full depth "
+          f"({4 * full.param_count() / 1e9:.1f} GB) fits, but its router "
+          f"near-ties make the check flaky (phase deepseek-ties)")
+    res = _parity("deepseek-parity", "deepseek-v2-lite", knobs, {}, dev,
+                  n_vqa=0, slots=2)
+    res["layers"] = n
+    return res
+
+
+def deepseek_ties(dev: str = "cuda") -> dict:
+    """deepseek-ties (not a default phase): deepseek-parity at full depth
+    (f32, 27 layers, 2 slots, the same 4 requests) with the router read
+    at every MoE layer of every model call, in the Engine and in
+    `generate` for each request: the first step where a request's
+    tokens part, the first model call (0 = the prompt) and MoE layer
+    where its routed experts differ, and the gap between the top-k-th
+    and the next router probability there in each run; the smallest gap
+    of the `generate` runs beside it."""
+    import torch
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import layers as L
+    from repro_torch.serving import Engine, LocalBackend
+
+    gc.collect()              # an earlier run's backend, freed first
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    cfg, model, params = _model("deepseek-v2-lite", "float32", dev,
+                                kv_policy="tiered", kv_hot_window=64)
+    reqs = _requests(cfg, n_vqa=0, n_text=4, text_with_image=64,
+                     text_len=128, gen_len=16, seed=1)
+    k, D = cfg.moe.top_k, cfg.d_model
+    n_moe = sum(u.repeats for u in model.plan if u.block.mlp == "moe")
+    moe = L.apply_moe
+    rows_of = {}            # rid -> [(experts, gaps) of its rows, a call]
+    owner = {"rows": None}  # the rid of each row of the running call
+
+    def probe(p, c, x, dropless=True):
+        probs = torch.softmax(x.reshape(-1, D).float() @ p["router"].float(),
+                              dim=-1)
+        top = probs.topk(k + 1, dim=-1)
+        ex = top.indices[:, :k].sort(-1).values.cpu()
+        gap = (top.values[:, k - 1] - top.values[:, k]).cpu()
+        S = x.shape[1]
+        for b, rid in enumerate(owner["rows"]):
+            if rid is not None:
+                rows_of.setdefault(rid, []).append(
+                    (ex[b * S:(b + 1) * S], gap[b * S:(b + 1) * S]))
+        return moe(p, c, x, dropless)
+    backend = LocalBackend(model, params, 2, 224, device=dev)
+    engine = Engine(backend)
+    ext, dec = backend.extend_step, backend.decode_step
+
+    def extend_step(*a):
+        owner["rows"] = [engine._inflight.req.rid]
+        return ext(*a)
+
+    def decode_step(toks, state, pos, active):
+        owner["rows"] = [r.rid if act and r is not None else None
+                         for r, act in zip(engine._slot_req, active)]
+        return dec(toks, state, pos, active)
+    backend.extend_step, backend.decode_step = extend_step, decode_step
+    L.apply_moe = probe
+    try:
+        done = {r.rid: r.generated for r in engine.run(reqs)}
+        eng_rows, rows_of = rows_of, {}
+        gen = {}
+        for r in reqs:
+            owner["rows"] = [r.rid]
+            out, _ = generate(model, params, {"tokens": r.tokens[None]},
+                              r.prompt_len, r.max_new_tokens, device=dev)
+            gen[r.rid] = out[0].tolist()
+    finally:
+        L.apply_moe = moe
+    out = {}
+    min_gap = min(float(g.min()) for calls in rows_of.values()
+                  for _, g in calls)
+    for r in reqs:
+        part = next((t for t, (a, b) in enumerate(zip(done[r.rid],
+                                                      gen[r.rid]))
+                     if a != b), None)
+        first = None
+        for i, ((e1, g1), (e2, g2)) in enumerate(zip(eng_rows[r.rid],
+                                                     rows_of[r.rid])):
+            diff = (e1 != e2).any(-1).nonzero()
+            if len(diff):
+                j = int(diff[0])
+                first = {"call": i // n_moe, "moe_layer": i % n_moe,
+                         "row": j, "gap_engine": float(g1[j]),
+                         "gap_generate": float(g2[j])}
+                break
+        out[r.rid] = {"tokens_part_at": part, "experts_first_differ": first}
+        print(f"[ties] deepseek f32, {cfg.num_layers} layers, request "
+              f"{r.rid}: tokens "
+              f"part at step {part}; routed experts first differ at "
+              + ("no call" if first is None else
+                 f"model call {first['call']} (0 = the prompt), MoE layer "
+                 f"{first['moe_layer']}, row {first['row']}: top-{k} vs "
+                 f"next router probability gap {first['gap_engine']:.3e} "
+                 f"(Engine), {first['gap_generate']:.3e} (generate)"))
+    print(f"[ties] the smallest top-{k} vs next gap in the generate runs: "
+          f"{min_gap:.3e}")
+    out["min_gap_generate"] = min_gap
+    del engine, backend, params
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def _require_tie(label, model, params, r, step: int, got: int, want: int,
@@ -1806,21 +2075,32 @@ def _parity_preempt(dev) -> dict:
 
 
 def _parity(label, arch, knobs, bknobs, dev, n_vqa: int = 2,
-            slots: int = 4, max_len: int = 224) -> dict:
+            slots: int = 4, max_len: int = 224, make_reqs=None,
+            engine_kw=None) -> dict:
+    """f32 Engine == generate (tie rule), 4 requests of 16 new tokens:
+    ``n_vqa`` VQA (64 text tokens) and text of 128, or ``make_reqs(cfg)``'s;
+    ``engine_kw`` goes to the Engine (e.g. chunk_tokens). The run's peak
+    device memory is printed and returned."""
     import torch
 
     from repro_torch.launch.serve import generate
     from repro_torch.serving import Engine, LocalBackend
 
+    if dev == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     cfg, model, params = _model(arch, "float32", dev, **knobs)
-    reqs = _requests(cfg, n_vqa=n_vqa, n_text=4 - n_vqa, text_with_image=64,
-                     text_len=128, gen_len=16, seed=1)
+    reqs = (make_reqs(cfg) if make_reqs is not None else
+            _requests(cfg, n_vqa=n_vqa, n_text=4 - n_vqa,
+                      text_with_image=64, text_len=128, gen_len=16, seed=1))
     backend = LocalBackend(model, params, slots, max_len, device=dev,
                            **bknobs)
     for k, v in bknobs.items():
         require(getattr(backend, k) == v, f"{label}: backend {k} != {v}")
-    engine = Engine(backend)
+    engine = Engine(backend, **(engine_kw or {}))
     done = {r.rid: r.generated for r in engine.run(reqs)}
+    stats = dict(engine.stats)
     ties = 0
     for r in reqs:
         batch = {"tokens": r.tokens[None]}
@@ -1852,11 +2132,17 @@ def _parity(label, arch, knobs, bknobs, dev, n_vqa: int = 2,
               f"({'VQA' if r.patches is not None else 'text'}, prompt "
               f"{r.prompt_len}): engine == generate "
               f"{'(tie-broken)' if got != ref else ''}: {got[:8]}...")
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    print(f"[parity] {label}: {ties} ties broken; peak device memory "
+          f"{peak / 1e9:.2f} GB ({cfg.param_count():,} parameters, "
+          f"{4 * cfg.param_count() / 1e9:.1f} GB in f32)")
     del engine, backend, params
     gc.collect()
     if dev == "cuda":
         torch.cuda.empty_cache()
-    return {"requests": len(reqs), "tie_breaks": ties}
+    return {"requests": len(reqs), "tie_breaks": ties,
+            "prefill_chunks": stats["prefill_chunks"],
+            "peak_memory_allocated": peak}
 
 
 # the dense attention archs (stablelm-12b, starcoder2-7b, paligemma-3b):
@@ -1874,10 +2160,73 @@ DENSE_RUNS = (
      {}, 4, 64, ("fused_norm", "qkv_proj", "attn_stream", "ffn_act",
                  "paged_decode_tiered")),
 )
-# the f32 parity runs' depth (full width): stablelm-12b is 48.6 GB in f32
-# at its 40 layers and starcoder2-7b 29.6 GB at 32, so both are cut to 8
-# (13.0 / 8.8 GB); paligemma-3b runs its 18 (10.0 GB)
-DENSE_PARITY_LAYERS = {"stablelm": 8, "starcoder2": 8, "paligemma": 18}
+# the f32 parity runs' depth (full width): every arch at full depth --
+# stablelm-12b is 48.6 GB in f32 at its 40 layers, starcoder2-7b 29.6 GB
+# at 32, paligemma-3b 10.0 GB at 18; each run prints its peak memory
+DENSE_PARITY_LAYERS = {"stablelm": 40, "starcoder2": 32, "paligemma": 18}
+
+
+# the recurrent archs, as DENSE_RUNS: rwkv6-7b (attention-free, no KV
+# store: CHIME tiering does not apply, its config says so; the channel mix
+# is plain, as in the reference, so only fused_norm runs) and zamba2-1.2b
+# (Mamba2 + one shared attention block, 6 applications over the tiered
+# store: CHIME's mapping, with KV only in those 6)
+SSM_RUNS = (
+    ("rwkv6", "rwkv6-7b", {}, {}, 0, 0, ("fused_norm",)),
+    ("zamba2", "zamba2-1.2b", dict(kv_policy="tiered", kv_hot_window=128),
+     {}, 0, 0, ("fused_norm", "qkv_proj", "attn_stream", "ffn_act",
+                "paged_decode_tiered")),
+)
+
+
+def ssm_parity(key: str, dev: str = "cuda") -> dict:
+    """<key>-parity: f32 at full width and depth, 4 slots, 16 new tokens:
+    the Engine's tokens against `generate`'s (tie rule as above). rwkv6:
+    4 text requests of 128 (one chunk of its grid each), max_len 224.
+    zamba2: tiered (hot window 64), max_len 384, 2 requests of 128 and 2
+    of 300, the Engine prefilling in chunks of 128 (its chunk unit: 128 +
+    128 + 44 for a 300-token prompt) while `generate` prefills each prompt
+    whole, so the chunked requests are held to the whole-prompt path."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving import Request
+
+    _, arch, knobs, bknobs, _, _, _ = next(r for r in SSM_RUNS
+                                           if r[0] == key)
+    full = get_config(arch)
+    mixers = "+".join(sorted({m for sg in full.segments
+                              for m in sg.pattern}))
+    print(f"[parity] {key}-parity: f32, full width and depth ({arch}: "
+          f"{full.num_layers} layers of {mixers}, d_model {full.d_model}, "
+          f"heads {full.num_heads} x {full.head_dim}, {full.mlp_type} d_ff "
+          f"{full.d_ff}, vocab {full.vocab_size}, ssm chunk "
+          f"{full.ssm.chunk_size})")
+    if key == "rwkv6":
+        res = _parity(f"{key}-parity", arch, knobs, bknobs, dev, n_vqa=0)
+        res["layers"] = full.num_layers
+        return res
+
+    def make_reqs(cfg):
+        rng = np.random.default_rng(1)
+        return [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, n)
+                        .astype(np.int32), max_new_tokens=16)
+                for i, n in enumerate((300, 128, 300, 128))]
+    chunk = full.ssm.chunk_size
+    res = _parity(f"{key}-parity", arch, dict(knobs, kv_hot_window=64),
+                  bknobs, dev, max_len=384, make_reqs=make_reqs,
+                  engine_kw=dict(chunk_tokens=chunk))
+    # at least 3 chunks for a prompt of 300 and 1 for one of 128 (the
+    # scheduler's budget may cut a chunk shorter, on the grid)
+    least = sum(-(-r.prompt_len // chunk) for r in make_reqs(full))
+    require(res["prefill_chunks"] >= least, f"{key}-parity: "
+            f"{res['prefill_chunks']} prefill chunks, fewer than {least}")
+    print(f"[parity] {key}-parity: 2 prompts of 300 prefilled in chunks of "
+          f"at most {chunk} (+ 2 of 128): {res['prefill_chunks']} chunks, "
+          f"tokens == the whole-prompt path ({res['tie_breaks']} ties "
+          f"broken)")
+    res["layers"] = full.num_layers
+    return res
 
 
 def dense_parity(key: str, dev: str = "cuda") -> dict:
@@ -1924,8 +2273,8 @@ def dense_run(key: str, pk: dict, dev: str = "cuda") -> dict:
     from repro_torch.serving import Telemetry
     from repro_torch.tree import tree_leaves
 
-    _, arch, knobs, bknobs, n_vqa, twi, needs = next(r for r in DENSE_RUNS
-                                                     if r[0] == key)
+    _, arch, knobs, bknobs, n_vqa, twi, needs = next(
+        r for r in DENSE_RUNS + SSM_RUNS if r[0] == key)
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
     gc.collect()              # an earlier run's backend, freed first
     mem_before = 0
@@ -1940,46 +2289,76 @@ def dense_run(key: str, pk: dict, dev: str = "cuda") -> dict:
     cfg, model, params = built
     mem_init = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
     n_params = sum(t.numel() for t in tree_leaves(params))
-    print(f"[serving] {key}: {arch}, {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, heads {cfg.num_heads} / {cfg.num_kv_heads} x "
-          f"{cfg.head_dim}, {cfg.mlp_type} d_ff {cfg.d_ff}: {n_params:,} "
-          f"parameters ({2 * n_params / 1e9:.2f} GB bf16) built on the card "
-          f"in {init_s:.1f} s; peak device memory after init "
-          f"{mem_init / 1e9:.2f} GB ({mem_before / 1e9:.2f} GB allocated "
-          f"before it)")
+    mixers = "+".join(sorted({u.block.mixer for u in model.plan}))
+    print(f"[serving] {key}: {arch}, {cfg.num_layers} layers ({mixers}), "
+          f"d_model {cfg.d_model}, heads {cfg.num_heads} / "
+          f"{cfg.num_kv_heads} x {cfg.head_dim}, {cfg.mlp_type} d_ff "
+          f"{cfg.d_ff}: {n_params:,} parameters ({2 * n_params / 1e9:.2f} "
+          f"GB bf16) built on the card in {init_s:.1f} s; peak device "
+          f"memory after init {mem_init / 1e9:.2f} GB "
+          f"({mem_before / 1e9:.2f} GB allocated before it)")
     res = serve_run(key, arch, knobs, bknobs, twi, needs, dev=dev,
                     built=built, n_vqa=n_vqa, telemetry=Telemetry())
     ext, dec = res["extend_calls"], res["decode_steps_engine"]
-    n_layers = cfg.num_layers
+    n_norm, n_gqa, n_ffn = plan_counts(model)
     per_call = {k: v / (ext + dec) for k, v in res["launches"].items()}
-    want = {"fused_norm": 2 * n_layers + 1, "qkv_proj": n_layers,
-            "ffn_act": n_layers if "ffn_act" in needs else 0,
+    want = {"fused_norm": n_norm, "qkv_proj": n_gqa,
+            "ffn_act": n_ffn if "ffn_act" in needs else 0,
             "ffn_act_int8": 0,
-            "attn_stream": n_layers * ext / (ext + dec),
-            "paged_decode_tiered": (n_layers * dec / (ext + dec)
+            "attn_stream": n_gqa * ext / (ext + dec),
+            "paged_decode_tiered": (n_gqa * dec / (ext + dec)
                                     if cfg.kv_policy == "tiered" else 0),
-            "paged_decode_flat": (n_layers * dec / (ext + dec)
+            "paged_decode_flat": (n_gqa * dec / (ext + dec)
                                   if cfg.kv_policy == "flat" else 0)}
     require(per_call == want, f"{key}: launches a model call {per_call}, "
                               f"planned {want}")
     print(f"[serving] {key}: launches a model call over {ext} extends and "
           f"{dec} decode steps: fused_norm {per_call['fused_norm']:.0f}, "
           f"qkv_proj {per_call['qkv_proj']:.0f}, ffn_act "
-          f"{per_call['ffn_act']:.0f}; attn_stream {n_layers} an extend, "
-          f"the paged decode {n_layers} a decode step ({res['launches']})")
+          f"{per_call['ffn_act']:.0f}; attn_stream {n_gqa} an extend, "
+          f"the paged decode {n_gqa} a decode step ({res['launches']})")
     mem_run = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
     print(f"[serving] {key}: peak device memory after the run "
           f"{mem_run / 1e9:.2f} GB")
+    floor = weight_floor(model, params, pk)
+    busy = res.get("profile", {}).get("device_ms_per_step")
+    print(f"[serving] {key}: decode busy {us(busy, unit='ms')} a step "
+          f"against the weight floor {floor['ms']:.2f} ms "
+          f"({floor['bytes'] / 1e9:.2f} GB read once a step at "
+          f"{pk['bw'] / 1e12:.2f} TB/s: {floor['what']})")
     res.update({"params": n_params, "init_s": init_s,
                 "memory_allocated_before_init": mem_before,
                 "max_memory_allocated_init": mem_init,
-                "max_memory_allocated_run": mem_run})
+                "max_memory_allocated_run": mem_run,
+                "weight_floor": floor})
     res.pop("finished")
     del built, cfg, model, params
     gc.collect()
     if dev == "cuda":
         torch.cuda.empty_cache()
     return res
+
+
+def weight_floor(model, params, pk: dict) -> dict:
+    """The bytes one decode step must read: every weight once (the
+    embedding table only where it is also the tied head; its 4 gathered
+    rows are left out) and the shared attention block once for each
+    application; their time at the card's memory rate."""
+    from repro_torch.tree import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    total = nbytes(params)
+    what = "every weight once"
+    if not model.cfg.tie_embeddings:
+        total -= nbytes(params["embed"])
+        what += ", the embedding table left out"
+    if "shared_attn" in params:
+        apps = sum(u.repeats for u in model.plan
+                   if u.block.mixer == "attn_shared")
+        total += (apps - 1) * nbytes(params["shared_attn"])
+        what += f", the shared attention block {apps} times"
+    return {"bytes": total, "ms": 1e3 * total / pk["bw"], "what": what}
 
 
 def serving_phase(pk: dict, dev: str = "cuda") -> dict:
@@ -2583,6 +2962,23 @@ def timed_engine(backend, dev: str, **engine_kw):
     return Engine(backend, **engine_kw), step_s, sync
 
 
+def plan_counts(model) -> tuple[int, int, int]:
+    """Launches a model call of (fused_norm, the GQA kernels, the FFN
+    kernel), from the plan: a norm before each half-block and the final
+    one (a hybrid's Mamba2 blocks have no MLP half); the projection and
+    attention kernels in every GQA layer (a shared-attention application
+    is one); the FFN kernel in every layer with a dense FFN (not the
+    routed experts, not RWKV's channel mix, plain in the reference too)."""
+    plan = model.plan
+    n_norm = 1 + sum(u.repeats * (1 + (u.block.mlp is not None))
+                     for u in plan)
+    n_gqa = sum(u.repeats for u in plan
+                if u.block.mixer in ("attn", "attn_shared"))
+    n_ffn = sum(u.repeats for u in plan
+                if u.block.mlp not in (None, "moe", "rwkv_cm"))
+    return n_norm, n_gqa, n_ffn
+
+
 def check_run(label, cfg, model, engine, done, n_reqs, counts,
               needs, reruns: int = 0) -> dict:
     """Every request finished with all its tokens, in the vocabulary;
@@ -2598,16 +2994,10 @@ def check_run(label, cfg, model, engine, done, n_reqs, counts,
                 f"{label}: request {r.rid} made {r.n_generated} tokens")
         require(all(0 <= t < model.padded_vocab for t in r.generated),
                 f"{label}: request {r.rid}: token id out of range")
-    n_layers = cfg.num_layers
-    # GQA layers run the projection and attention kernels, layers with a
-    # dense FFN (every layer of a dense model, a MoE model's dense first
-    # ones) the FFN kernel; MLA and routed experts run none
-    n_gqa = sum(u.repeats for u in model.plan if u.block.mixer == "attn")
-    n_ffn = sum(u.repeats for u in model.plan
-                if u.block.mlp not in (None, "moe"))
+    n_norm, n_gqa, n_ffn = plan_counts(model)
     ext = engine.stats["extend_calls"] + reruns
     dec = engine.stats["decode_steps"]
-    want = {"fused_norm": (2 * n_layers + 1) * (ext + dec),
+    want = {"fused_norm": n_norm * (ext + dec),
             "qkv_proj": n_gqa * (ext + dec),
             "attn_stream": n_gqa * ext,
             "ffn_act": n_ffn * (ext + dec),
@@ -2623,7 +3013,9 @@ def check_run(label, cfg, model, engine, done, n_reqs, counts,
     res = {"requests": len(done), "max_context": ctx, "launches": counts,
            "extend_calls": ext, "reruns": reruns,
            "decode_steps_engine": dec}
-    if cfg.kv_policy == "tiered":
+    if cfg.kv_policy == "tiered" and any(
+            u.block.mixer in ("attn", "attn_shared", "mla")
+            for u in model.plan):
         rep = engine.endurance_report()
         require(ctx > cfg.kv_hot_window and rep["total_cold_writes"] > 0,
                 f"{label}: no cold page was live")
@@ -2724,10 +3116,15 @@ def serve_run(label, arch, knobs, bknobs, text_with_image, needs,
         print(f"[sim] {label}: the Telemetry ledger reconciles with "
               f"simulated_efficiency: EXACT")
     if dev == "cuda":
+        t1 = time.perf_counter()
         res["profile"] = profile_decode(label, model, params, cfg,
                                         text_with_image, bknobs, dev)
+        t2 = time.perf_counter()
         res["prefill_profile"] = profile_prefill(label, model, params, cfg,
                                                  bknobs, dev)
+        print(f"[time] {label}: served in {wall:.1f} s; decode profile "
+              f"{t2 - t1:.1f} s, prefill profile "
+              f"{time.perf_counter() - t2:.1f} s")
     del engine, backend, params
     return res
 
@@ -2776,16 +3173,18 @@ def lead_in() -> None:
     torch.cuda.synchronize()
 
 
-def device_rows(prof) -> list:
-    """(kernel, launches, device ms) of a profiled window: device-side
-    events only (kernels, memcpy, memset; the aten ops that launched them
-    carry the same device time again), the lead-in's spin kernel left
-    out, longest first."""
+def device_rows(ka) -> list:
+    """(kernel, launches, device ms) of a profiled window's key averages
+    ``ka``: device-side events only (kernels, memcpy, memset; the aten
+    ops that launched them carry the same device time again), the
+    lead-in's spin kernel and the "ssm::" ranges' device-side spans
+    (`ssm_ranges`: annotations, not kernels) left out, longest first."""
     from torch.autograd import DeviceType
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-            for e in prof.key_averages()
+            for e in ka
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0 and "spin_kernel" not in e.key]
+            and e.self_device_time_total > 0 and "spin_kernel" not in e.key
+            and not e.key.startswith("ssm::")]
     return sorted(rows, key=lambda r: -r[2])
 
 
@@ -2822,7 +3221,7 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
     # as it is) is kept, to time the kernel alone at this decode shape
     # after the window. MLA decodes without one (fused decode is
     # GQA-only), so an MLA model has none to keep
-    gqa = any(u.block.mixer == "attn" for u in model.plan)
+    gqa = any(u.block.mixer in ("attn", "attn_shared") for u in model.plan)
     kern_name = (None if not gqa else "paged_decode_tiered"
                  if cfg.kv_policy == "tiered" else "paged_decode_flat")
     adapter = getattr(ops, kern_name) if kern_name else None
@@ -2837,7 +3236,8 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
         setattr(ops, kern_name, keep)
     try:
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA]) as prof, \
+                ssm_ranges(model):
             lead_in()
             t0 = time.perf_counter()
             for _ in range(n_steps):
@@ -2848,7 +3248,8 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
         if kern_name:
             setattr(ops, kern_name, adapter)
     counts = kernels.launch_counts()
-    rows = device_rows(prof)
+    ka = prof.key_averages()
+    rows = device_rows(ka)
     dev_ms = sum(r[2] for r in rows)
     launch_check = profile_launch_check(label, "decode", rows, counts)
     alone = None
@@ -2876,7 +3277,7 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
               f"{alone['event_us']:.2f} us (CUDA events)")
     name = label.split(":")[0].replace(" ", "_")
     (OUT / f"decode_profile_{name}.txt").write_text(
-        prof.key_averages().table(sort_by="self_device_time_total",
+        ka.table(sort_by="self_device_time_total",
                                   row_limit=80))
     # a window with no device event read nothing: busy and idle are None
     out = {"steps": n_steps, "wall_ms_per_step": wall_ms / n_steps,
@@ -2894,7 +3295,10 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
     for r in out["top"]:
         print(f"[profile]   {r['ms_per_step']:8.3f} ms/step "
               f"{r['launches_per_step']:6.1f} launches/step  {r['kernel']}")
-    out["top_ops"] = top_ops(prof, n_steps)
+    out["recurrence"] = range_rows(prof, ka, n_steps)
+    print_ranges(label, "decode step", out["recurrence"],
+                 out["device_ms_per_step"])
+    out["top_ops"] = top_ops(ka, n_steps)
     print(f"[profile] {label}: decode step's top torch ops by the device "
           f"time of what they launch (inclusive; nested ops count again):")
     for r in out["top_ops"]:
@@ -2903,7 +3307,82 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
     return out
 
 
-def top_ops(prof, n_steps: int, n: int = 12) -> list:
+# the recurrences' functions, each timed as a profiler range in the
+# serving profiles of a plan that runs them: the mixers (their
+# projections included), the scans alone (chunked at prefill, the single
+# step at decode), and RWKV's channel mix
+SSM_FUNCS = {"ssm": ("apply_rwkv6", "apply_mamba2", "wkv6_chunked",
+                     "wkv6_step", "ssd_chunked", "ssd_step"),
+             "layers": ("apply_rwkv_cm",)}
+
+
+@contextlib.contextmanager
+def ssm_ranges(model):
+    """Within the block, the functions of SSM_FUNCS run inside a
+    `record_function` range "ssm::<name>" (module attributes swapped, as
+    the model looks them up at call time); nothing when ``model`` runs no
+    recurrent mixer."""
+    import torch
+
+    from repro_torch.models import layers, ssm
+    from repro_torch.models.model import SSM_MIXERS
+    saved = []
+    if any(u.block.mixer in SSM_MIXERS for u in model.plan):
+        for mod in (ssm, layers):
+            for name in SSM_FUNCS[mod.__name__.rsplit(".", 1)[1]]:
+                fn = getattr(mod, name)
+
+                def ranged(*a, _fn=fn, _name=name, **kw):
+                    with torch.profiler.record_function(f"ssm::{_name}"):
+                        return _fn(*a, **kw)
+                saved.append((mod, name, fn))
+                setattr(mod, name, ranged)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def range_rows(prof, ka, n_steps: int) -> list:
+    """The "ssm::" ranges of a profiled window, per step: calls, the
+    device time of what they launch (inclusive) and the device kernels
+    launched under them (walked through the ops each range called)."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0)
+
+    def kernels(e):
+        return len(getattr(e, "kernels", [])) + sum(
+            kernels(c) for c in getattr(e, "cpu_children", []))
+    launches = {}
+    for e in prof.events():
+        if e.name.startswith("ssm::"):
+            launches[e.name] = launches.get(e.name, 0) + kernels(e)
+    rows = [{"range": e.key, "calls_per_step": e.count / n_steps,
+             "ms_per_step": dev_us(e) / 1e3 / n_steps,
+             "launches_per_step": launches.get(e.key, 0) / n_steps}
+            for e in ka
+            if e.device_type == DeviceType.CPU
+            and e.key.startswith("ssm::")]
+    return sorted(rows, key=lambda r: -r["ms_per_step"])
+
+
+def print_ranges(label, what, rows, dev_ms) -> None:
+    if not rows:
+        return
+    print(f"[profile] {label}: {what}: the recurrences' ranges (device ms "
+          f"of what each launches, inclusive: a mixer's includes its scan; "
+          f"of {us(dev_ms, unit='ms')} busy):")
+    for r in rows:
+        print(f"[profile]   {r['ms_per_step']:8.3f} ms "
+              f"{r['launches_per_step']:8.1f} launches "
+              f"{r['calls_per_step']:6.1f} calls  {r['range']}")
+
+
+def top_ops(ka, n_steps: int, n: int = 12) -> list:
     """The torch ops (aten::bmm, aten::einsum, aten::index_add_, ...)
     that launched the most device time in a profiled window, per step:
     each op's device time includes the ops it calls, so MoE's products
@@ -2912,7 +3391,7 @@ def top_ops(prof, n_steps: int, n: int = 12) -> list:
     def dev_us(e):
         return getattr(e, "device_time_total", None) or getattr(
             e, "cuda_time_total", 0)
-    rows = [(e.key, e.count, dev_us(e) / 1e3) for e in prof.key_averages()
+    rows = [(e.key, e.count, dev_us(e) / 1e3) for e in ka
             if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
             and dev_us(e) > 0]
     rows.sort(key=lambda r: -r[2])
@@ -2946,19 +3425,21 @@ def profile_prefill(label, model, params, cfg, bknobs, dev: str = "cuda",
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            ssm_ranges(model):
         lead_in()
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     counts = kernels.launch_counts()
-    rows = device_rows(prof)
+    ka = prof.key_averages()
+    rows = device_rows(ka)
     dev_ms = sum(r[2] for r in rows)
     launch_check = profile_launch_check(label, "prefill", rows, counts)
     name = label.split(":")[0].replace(" ", "_")
     (OUT / f"prefill_profile_{name}.txt").write_text(
-        prof.key_averages().table(sort_by="self_device_time_total",
+        ka.table(sort_by="self_device_time_total",
                                   row_limit=80))
     out = {"prompt": prompt, "wall_ms": wall_ms,
            "device_ms": dev_ms if rows else None,
@@ -2974,7 +3455,10 @@ def profile_prefill(label, model, params, cfg, bknobs, dev: str = "cuda",
     for r in out["top"]:
         print(f"[profile]   {r['ms']:8.3f} ms {r['launches']:5d} launches  "
               f"{r['kernel']}")
-    out["top_ops"] = top_ops(prof, 1)
+    out["recurrence"] = range_rows(prof, ka, 1)
+    print_ranges(label, f"prefill ({prompt} tokens)", out["recurrence"],
+                 out["device_ms"])
+    out["top_ops"] = top_ops(ka, 1)
     print(f"[profile] {label}: prefill's top torch ops by the device time "
           f"of what they launch (inclusive):")
     for r in out["top_ops"]:
@@ -2986,7 +3470,8 @@ def profile_prefill(label, model, params, cfg, bknobs, dev: str = "cuda",
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="kernels,parity,serving,stablelm,"
-                                         "starcoder2,paligemma")
+                                         "starcoder2,paligemma,rwkv6,"
+                                         "zamba2")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3037,15 +3522,19 @@ def main(argv=None) -> int:
         report["parity"] = timed("parity", parity_phase)
     if "serving" in phases:
         report["serving"] = timed("serving", serving_phase, pk)
+    if "deepseek-ties" in phases:
+        report["deepseek_ties"] = timed("deepseek-ties", deepseek_ties)
     if "deepseek" in phases and not {"parity", "serving"} & phases:
         report["parity"] = {"deepseek-parity": timed(
             "deepseek-parity", _parity_deepseek, "cuda")}
         report["serving"] = {"deepseek": timed("deepseek", deepseek_run,
                                                pk)}
-    for key, *_ in DENSE_RUNS:
+    for key, *_ in DENSE_RUNS + SSM_RUNS:
         if key in phases:
+            par = (ssm_parity if key in {r[0] for r in SSM_RUNS}
+                   else dense_parity)
             report.setdefault("parity", {})[f"{key}-parity"] = timed(
-                f"{key}-parity", dense_parity, key)
+                f"{key}-parity", par, key)
             report.setdefault("serving", {})[key] = timed(key, dense_run,
                                                           key, pk)
     launches = {k: sum(run.get("launches", {}).get(k, 0)

@@ -79,9 +79,10 @@ def apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor,
         # serving routes dropless: capacity competition would couple the
         # tokens of a batch and make chunked prefill depend on the chunking
         return L.apply_moe(p, cfg, x, dropless=True)
+    if kind == "rwkv_cm":
+        raise ValueError("rwkv_cm is stateful; handled in model block")
     if kind not in FFN_KINDS:
-        raise NotImplementedError(
-            f"mlp {kind!r}: ROADMAP Queue 1 item 7 (remaining mixers)")
+        raise ValueError(f"unknown mlp kind {kind!r}")
     if "b_up" in p:
         return L.apply_mlp(p, cfg, x, mlp_type=kind)
     if "w_up_q" in p:

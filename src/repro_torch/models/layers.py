@@ -1,5 +1,5 @@
-"""Shared layers: parameter init helpers, norms, rotary, dense MLP and
-the dropless mixture of experts.
+"""Shared layers: parameter init helpers, norms, rotary, dense MLP, the
+RWKV6 channel mix and the dropless mixture of experts.
 
 Port of the reference's `models/layers.py` for the serving path. Parameter
 shapes and init scales follow the reference (normal with std
@@ -178,6 +178,39 @@ def apply_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if "b_down" in p:
         out = out + p["b_down"].to(out.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 channel mix (a token-shifted MLP)
+# ---------------------------------------------------------------------------
+def init_rwkv_cm(b: ParamInit, cfg: ModelConfig) -> dict:
+    return {"mu_k": b.zeros((cfg.d_model,)),
+            "mu_r": b.zeros((cfg.d_model,)),
+            "w_k": b.normal((cfg.d_model, cfg.d_ff)),
+            "w_v": b.normal((cfg.d_ff, cfg.d_model)),
+            "w_r": b.normal((cfg.d_model, cfg.d_model))}
+
+
+def apply_rwkv_cm(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                  x_prev: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV channel mix, plain (the reference runs no kernel here). x:
+    (B,S,D); ``x_prev`` (B,D) is the last row of the previous step, or
+    None (token shift within the sequence, zeros before it). Returns
+    (out, new x_prev)."""
+    cd = torch_dtype(cfg.compute_dtype)
+    if x_prev is None:
+        shifted = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    elif x.shape[1] > 1:
+        shifted = torch.cat([x_prev[:, None], x[:, :-1]], 1)
+    else:
+        shifted = x_prev[:, None]
+    xk = x + (shifted - x) * p["mu_k"].to(x.dtype)
+    xr = x + (shifted - x) * p["mu_r"].to(x.dtype)
+    k = F.relu(xk @ p["w_k"].to(cd)).square()
+    kv = k @ p["w_v"].to(cd)
+    r = torch.sigmoid(xr @ p["w_r"].to(cd))
+    return r * kv, x[:, -1]
 
 
 # ---------------------------------------------------------------------------

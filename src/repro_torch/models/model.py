@@ -1,9 +1,12 @@
-"""Config-driven decoder for attention-mixer plans, PyTorch port.
+"""Config-driven decoder, PyTorch port of the reference's
+`models/model.py` for its serving modes.
 
-Port of the reference's `models/model.py` for GQA models (the paper's
-FastVLM/MobileVLM backbones, granite-3-2b) and MLA + MoE models
-(deepseek-v2-lite: a dense first layer, then routed and shared experts,
-over a compressed latent cache). Parameters are a
+Every mixer of the reference's decoders runs: GQA attention (the paper's
+FastVLM/MobileVLM backbones, granite-3-2b and the dense archs), MLA with
+the dropless MoE (deepseek-v2-lite), RWKV6 with its channel mix
+(rwkv6-7b) and Mamba2 with one shared attention block (zamba2-1.2b: a
+single weight set under the top-level ``shared_attn``, applied by every
+``attn_shared`` unit, each with its own KV store). Parameters are a
 nested dict with the reference's leaf paths, so `bridge.params_from_jax`
 maps one tree onto the other; layers of a repeated unit stay stacked on
 a leading ``repeats`` axis and run in a Python loop where the reference
@@ -16,8 +19,10 @@ scans. Modes:
   * decode  — one token per row; ``pos`` may be a (B,) tensor, so the
               serving backend decodes every slot in one call
 
-Mixers other than ``attn`` and ``mla``, encoder-only configs and learned
-position embeddings raise NotImplementedError (ROADMAP Queue 1 item 7).
+An attention block picks its mode from its own cache's form; a recurrent
+block (RWKV6 / Mamba2) takes its state in every mode, and its extend
+state is its decode state. Encoder-only configs and learned position
+embeddings raise NotImplementedError (ROADMAP Queue 1 item 7c).
 """
 
 from __future__ import annotations
@@ -31,9 +36,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import fusion, kv_tiers as KT
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models import vision as V
 from repro_torch.models.counting import streamed_unit_indices
 from repro_torch.tree import tree_leaves, tree_map
+
+
+SSM_MIXERS = ("rwkv6", "mamba2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,15 +98,12 @@ class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.plan = build_plan(cfg)
-        for u in self.plan:
-            if u.block.mixer not in ("attn", "mla"):
-                raise NotImplementedError(
-                    f"mixer {u.block.mixer!r}: ROADMAP Queue 1 item 7 "
-                    f"(remaining mixers)")
+        self.has_shared_attn = any(u.block.mixer == "attn_shared"
+                                   for u in self.plan)
         if cfg.is_encoder or cfg.pos_emb == "learned":
             raise NotImplementedError(
                 "encoder-only models and learned position embeddings: "
-                "ROADMAP Queue 1 item 7 (remaining architectures)")
+                "ROADMAP Queue 1 item 7c (hubert-xlarge)")
         m = cfg.vocab_pad_multiple
         self.padded_vocab = ((cfg.vocab_size + m - 1) // m) * m
         self.compute_dtype = L.torch_dtype(cfg.compute_dtype)
@@ -117,9 +123,10 @@ class Model:
     # ------------------------------------------------------------------
     def _init_block(self, b: L.ParamInit, spec: BlockSpec) -> dict:
         cfg = self.cfg
-        p = {"ln1": L.init_norm(b, cfg),
-             "mixer": (A.init_mla(b, cfg) if spec.mixer == "mla"
-                       else A.init_attn(b, cfg))}
+        init_mixer = {"attn": A.init_attn, "attn_shared": A.init_attn,
+                      "mla": A.init_mla, "rwkv6": SSM.init_rwkv6,
+                      "mamba2": SSM.init_mamba2}[spec.mixer]
+        p = {"ln1": L.init_norm(b, cfg), "mixer": init_mixer(b, cfg)}
         if spec.mlp is not None:
             p["ln2"] = L.init_norm(b, cfg)
             if spec.mlp == "moe":
@@ -127,6 +134,8 @@ class Model:
             elif spec.mlp == "dense_first":
                 p["mlp"] = L.init_mlp(b, cfg, d_ff=cfg.moe.d_ff_dense,
                                       mlp_type="silu_gated")
+            elif spec.mlp == "rwkv_cm":
+                p["mlp"] = L.init_rwkv_cm(b, cfg)
             else:
                 p["mlp"] = L.init_mlp(b, cfg, mlp_type=spec.mlp)
         return p
@@ -147,6 +156,8 @@ class Model:
             params["frontend"] = V.init_frontend(b, cfg)
         units = {}
         for ui, unit in enumerate(self.plan):
+            if unit.block.mixer == "attn_shared":
+                continue          # the shared weights live at the top level
             if unit.repeats == 1:
                 units[f"u{ui}"] = self._init_block(b, unit.block)
             else:
@@ -161,6 +172,9 @@ class Model:
                 del layer
                 units[f"u{ui}"] = stacked
         params["units"] = units
+        if self.has_shared_attn:
+            params["shared_attn"] = self._init_block(
+                b, BlockSpec("attn", cfg.mlp_type, cfg.d_ff))
         params["final_norm"] = L.init_norm(b, cfg)
         if not cfg.tie_embeddings:
             params["lm_head"] = b.normal((cfg.d_model, self.padded_vocab),
@@ -184,17 +198,32 @@ class Model:
     def _cache_inner(self, spec: BlockSpec) -> dict:
         """Per-token shape of each cached tensor of one block: K and V
         (Hkv, Dh) for attention, the latent (R,) and the RoPE key (rope,)
-        for MLA."""
+        for MLA; none for a recurrent block."""
         cfg = self.cfg
         if spec.mixer == "mla":
             return {"c_kv": (cfg.mla.kv_lora_rank,),
                     "k_rope": (cfg.mla.qk_rope_head_dim,)}
-        inner = (cfg.num_kv_heads, cfg.head_dim)
-        return {"k": inner, "v": inner}
+        if spec.mixer in ("attn", "attn_shared"):
+            inner = (cfg.num_kv_heads, cfg.head_dim)
+            return {"k": inner, "v": inner}
+        return {}
+
+    def _recurrent_state(self, spec: BlockSpec, batch: int, device) -> dict:
+        """A recurrent block's fresh state, decode and extend alike: RWKV6
+        {"tm": {"s", "x_prev"}, "cm_x_prev"}, Mamba2 {"conv", "ssm"}."""
+        cfg = self.cfg
+        if spec.mixer == "rwkv6":
+            return {"tm": SSM.init_rwkv6_state(cfg, batch, device),
+                    "cm_x_prev": torch.zeros((batch, cfg.d_model),
+                                             dtype=self.compute_dtype,
+                                             device=device)}
+        return SSM.init_mamba2_state(cfg, batch, device)
 
     def _block_cache(self, spec: BlockSpec, batch: int, max_len: int,
                      device) -> dict:
         cfg = self.cfg
+        if spec.mixer in SSM_MIXERS:
+            return self._recurrent_state(spec, batch, device)
         return {k: KT.store_init(batch, max_len, inner, cfg.kv_policy,
                                  cfg.kv_hot_window, self.compute_dtype,
                                  device)
@@ -211,7 +240,10 @@ class Model:
     def _block_extend(self, spec: BlockSpec, batch: int, max_len: int,
                       device) -> dict:
         """The full-precision workspace of one block: {"k_ws", "v_ws"}
-        or, for MLA, {"c_kv_ws", "k_rope_ws"}."""
+        or, for MLA, {"c_kv_ws", "k_rope_ws"}; a recurrent block's decode
+        state is chunk-resumable as it is and is reused verbatim."""
+        if spec.mixer in SSM_MIXERS:
+            return self._recurrent_state(spec, batch, device)
         return {f"{k}_ws": torch.zeros((batch, max_len) + inner,
                                        dtype=self.compute_dtype,
                                        device=device)
@@ -261,9 +293,19 @@ class Model:
                    plen=None, commit: bool = False
                    ) -> tuple[torch.Tensor, dict]:
         cfg = self.cfg
+        h = fusion.apply_norm(bp["ln1"], cfg, x)
+        if spec.mixer in SSM_MIXERS:
+            # the state rides in every mode: zeros at prefill, the extend
+            # workspace's state, the committed one at decode
+            if spec.mixer == "rwkv6":
+                out, tm = SSM.apply_rwkv6(bp["mixer"], cfg, h, bcache["tm"])
+                new_cache = {"tm": tm}
+            else:
+                out, new_cache = SSM.apply_mamba2(bp["mixer"], cfg, h,
+                                                  bcache)
+            return self._mlp_half(spec, bp, x + out, bcache, new_cache)
         mla = spec.mixer == "mla"
         first = next(iter(self._cache_inner(spec)))    # "k" or "c_kv"
-        h = fusion.apply_norm(bp["ln1"], cfg, x)
         if mode == "prefill":
             st = bcache[first]
             ml = st["flat"].shape[1] if "flat" in st else st["cold_q"].shape[1]
@@ -279,26 +321,41 @@ class Model:
             dec = (fusion.apply_mla_decode if mla
                    else fusion.apply_attention_decode)
             out, new_cache = dec(bp["mixer"], cfg, h, bcache, pos)
-        x = x + out
-        if spec.mlp is not None:
-            h2 = fusion.apply_norm(bp["ln2"], cfg, x)
-            # a MoE model's dense first layers are gated FFNs of width
-            # moe.d_ff_dense (their leaves say so), run by ffn_act
-            kind = "silu_gated" if spec.mlp == "dense_first" else spec.mlp
-            x = x + fusion.apply_ffn(bp["mlp"], cfg, h2, mlp_type=kind)
-        return x, new_cache
+        return self._mlp_half(spec, bp, x + out, bcache, new_cache)
+
+    def _mlp_half(self, spec: BlockSpec, bp: dict, x: torch.Tensor,
+                  bcache: dict, new_cache: dict
+                  ) -> tuple[torch.Tensor, dict]:
+        """The block's second half: pre-norm, the MLP, the residual."""
+        cfg = self.cfg
+        if spec.mlp is None:
+            return x, new_cache
+        h2 = fusion.apply_norm(bp["ln2"], cfg, x)
+        if spec.mlp == "rwkv_cm":
+            # stateful: the channel mix's token shift carries its last row
+            out, prev = L.apply_rwkv_cm(bp["mlp"], cfg, h2,
+                                        bcache["cm_x_prev"])
+            new_cache["cm_x_prev"] = prev.to(self.compute_dtype)
+            return x + out, new_cache
+        # a MoE model's dense first layers are gated FFNs of width
+        # moe.d_ff_dense (their leaves say so), run by ffn_act
+        kind = "silu_gated" if spec.mlp == "dense_first" else spec.mlp
+        return x + fusion.apply_ffn(bp["mlp"], cfg, h2, mlp_type=kind), \
+            new_cache
 
     def _run_unit(self, ui: int, unit: UnitSpec, params: dict,
                   x: torch.Tensor, positions: torch.Tensor, ucache: dict,
                   pos, mode: str, plen=None, commit: bool = False
                   ) -> tuple[torch.Tensor, dict]:
-        up = params["units"][f"u{ui}"]
+        # a shared-attention unit applies the one top-level weight set
+        shared = unit.block.mixer == "attn_shared"
+        up = params["shared_attn"] if shared else params["units"][f"u{ui}"]
         if unit.repeats == 1:
             return self._run_block(unit.block, up, x, positions, ucache,
                                    pos, mode, plen, commit)
         ncs = []
         for r in range(unit.repeats):
-            bp = tree_map(lambda a: a[r], up)
+            bp = up if shared else tree_map(lambda a: a[r], up)
             bc = tree_map(lambda a: a[r], ucache)
             x, nc = self._run_block(unit.block, bp, x, positions, bc, pos,
                                     mode, plen, commit)

@@ -12,7 +12,8 @@ the two step programs:
   * `decode_step` — one greedy token on every slot in ONE batched model
     call with the (num_slots,) position vector, so the paged-decode
     kernel sees each slot's real length and block table. Inactive slots
-    keep their cache verbatim (no phantom appends, no endurance drift).
+    keep their cache verbatim (no phantom appends, no endurance drift,
+    no recurrent state advanced: the one call advances every row).
 
 Preemption and idle offload park a slot in an RRAM spill lane
 (`evict_slot`) and bring it back into any free slot (`restore_slot`):
@@ -59,6 +60,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import Model
 from repro_torch.models.counting import (streamed_unit_indices,
                                          weight_stream_split)
+from repro_torch.models.model import SSM_MIXERS
 from repro_torch.serving.kv_pool import (KVPoolState, TieredKVPool,
                                          batch_axes, map_spill_stores,
                                          slot_insert, slot_kv_bytes,
@@ -228,16 +230,27 @@ class LocalBackend:
         self.max_len = max_len
         self.n_spill = n_spill
         self.hot_window = min(cfg.kv_hot_window, max_len)
-        self.requires_exact_prefill = False   # attention-only plans
-        self.chunk_unit = 1
-        # prefix-store geometry: a page is an RRAM endurance block clamped
-        # to the slot length (attention-only plans have no chunk grid to
-        # round to), and the store holds enough blocks to re-page every
-        # slot; its tensors are built on first use
+        # a recurrent (RWKV6 / Mamba2) state is cumulative over every row
+        # it is given, so those plans prefill exact lengths, and their
+        # non-final chunks land on the canonical cfg.ssm.chunk_size grid
+        # (chunked prefill then runs whole prefill's op sequence)
+        self.requires_exact_prefill = any(
+            u.block.mixer in SSM_MIXERS for u in model.plan)
+        self.chunk_unit = (cfg.ssm.chunk_size
+                           if self.requires_exact_prefill and cfg.ssm
+                           else 1)
+        # prefix-store geometry: a page is an RRAM endurance block,
+        # rounded to the chunk grid on recurrent plans (a state snapshot
+        # off the grid could never seed a bit-identical resume) and
+        # clamped to the slot length; the store holds enough blocks to
+        # re-page every slot; its tensors are built on first use
         bt = (block_tokens if block_tokens is not None
               else min(KT.ENDURANCE_BLOCK, max_len))
         if bt < 1:
             raise ValueError(f"block_tokens must be >= 1, got {bt}")
+        if self.chunk_unit > 1:
+            bt = max((bt // self.chunk_unit) * self.chunk_unit,
+                     self.chunk_unit)
         self.block_tokens = min(bt, max_len)
         if prefix_blocks is None:
             prefix_blocks = num_slots * (-(-max_len // self.block_tokens))
@@ -248,8 +261,9 @@ class LocalBackend:
         self._axes = batch_axes(model, model.cache_spec(num_slots, max_len))
         ext_spec = model.extend_spec(1, max_len)
         self._ext_axes = batch_axes(model, ext_spec)
-        # workspace leaves (`*_ws`) hold per-position K/V rows; any other
-        # extend leaf would be a recurrent-state snapshot
+        # workspace leaves (`*_ws`) hold per-position K/V rows (a hybrid's
+        # attention units have them, a pure RWKV6 plan none); any other
+        # extend leaf is a recurrent state
         self.has_prefix_ws = any(_is_ws(p[-1]) for p, _ in
                                  tree_leaves_with_path(ext_spec))
         # compressed lanes restructure the tiered stores (hot ->
@@ -452,8 +466,9 @@ class LocalBackend:
     def prefix_save_state(self, state: KVPoolState, ext: dict, bid
                           ) -> KVPoolState:
         """Snapshot ``ext``'s recurrent-state leaves into block ``bid``, in
-        place. The engine calls it for exact-prefill (recurrent) plans
-        only; the port's attention-only plans have no such leaf."""
+        place: the chain terminal's state, what a hit resumes from. The
+        engine calls it for exact-prefill (recurrent) plans only; an
+        attention-only plan has no such leaf."""
         bid = int(bid)
 
         def save(ws, e, s, a):
@@ -465,7 +480,8 @@ class LocalBackend:
     def prefix_load_state(self, state: KVPoolState, ext: dict, bid
                           ) -> dict:
         """A copy of ``ext`` with its recurrent-state leaves seeded from
-        block ``bid`` (recurrent plans only, as `prefix_save_state`)."""
+        block ``bid`` (recurrent plans only, as `prefix_save_state`); its
+        workspace leaves are left as they are."""
         bid = int(bid)
         return self._zip_ext(
             lambda ws, e, s, a: e if ws else s.narrow(a, bid, 1).to(

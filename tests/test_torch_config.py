@@ -129,7 +129,8 @@ def test_nothing_builds_at_import():
 @pytest.mark.parametrize("arch", ["fastvlm-1.7b", "mobilevlm-1.7b",
                                   "granite-3-2b", "nemotron-4-340b",
                                   "deepseek-v2-lite", "stablelm-12b",
-                                  "starcoder2-7b", "paligemma-3b"])
+                                  "starcoder2-7b", "paligemma-3b",
+                                  "rwkv6-7b", "zamba2-1.2b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_configs_equal_field_by_field(arch, reduced):
     assert as_dict(get_config(arch, reduced=reduced)) == as_dict(
@@ -145,6 +146,7 @@ def test_registry_constants_match():
     assert set(PB.list_archs()) == {"granite-3-2b", "nemotron-4-340b",
                                     "deepseek-v2-lite", "stablelm-12b",
                                     "starcoder2-7b", "paligemma-3b",
+                                    "rwkv6-7b", "zamba2-1.2b",
                                     *PB.PAPER_MODELS}
     for arch in PB.list_archs():
         assert get_config(arch).param_count() == \

@@ -225,12 +225,15 @@ def test_serve_cli_paligemma_with_images_on_cpu(capsys):
 
 
 def test_waiting_mixers_still_raise():
-    """rwkv6 and mamba2 wait for the next slice (the recurrent-state
-    store): a plan with either still raises, naming its ROADMAP item."""
+    """Every mixer is ported (rwkv6 and mamba2 build); what still waits
+    is hubert-xlarge's shape: an encoder-only config or learned position
+    embeddings raise, naming ROADMAP Queue 1 item 7c."""
     cfg = get_config("stablelm-12b", reduced=True)
     for mixer in ("rwkv6", "mamba2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(cfg.replace(segments=(Segment((mixer,), 2),)))
+        Model(cfg.replace(segments=(Segment((mixer,), 2),)))
+    for knobs in (dict(is_encoder=True), dict(pos_emb="learned")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*7c"):
+            Model(cfg.replace(**knobs))
 
 
 # ---------------------------------------------------------------------------

@@ -231,12 +231,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_unported_paths_raise_not_implemented():
-    """What is still to port raises, naming its ROADMAP item: other
-    mixers and the sharded backend. (Spill lanes, the paged prefix store
-    and weight streaming are ported: they work.)"""
+    """What is still to port raises, naming its ROADMAP item: learned
+    position embeddings (hubert-xlarge's) and the sharded backend.
+    (Every mixer, spill lanes, the paged prefix store and weight
+    streaming are ported: they work.)"""
     cfg = get_config("granite-3-2b", reduced=True)
+    Model(cfg.replace(segments=(Segment(("mamba2",), 2),)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg.replace(segments=(Segment(("mamba2",), 2),)))
+        Model(cfg.replace(pos_emb="learned"))
     _, _, _, _, model, params = build_pair("granite-3-2b")
     be = LocalBackend(model, params, 2, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
