@@ -93,7 +93,13 @@ source, all started together; seven kernels), then:
      silu_gated and D 2048 F 16384 gelu_gated at M 4 and prefill (the
      bf16 ones timed beside the cuBLAS chain) and ffn_act_int8 at D 5120
      in every form; the bf16 rows beside their bound and the library
-     call (F.layer_norm / F.rms_norm, torch.addmm, SDPA);
+     call (F.layer_norm / F.rms_norm, torch.addmm, SDPA); and this
+     slice's shapes: hubert-xlarge's LayerNorm + bias at D 1280, its
+     qkv_proj GEMM (N 3 x 1280) and its ungated gelu ffn_act (F 5120),
+     each at M 2000 (4 clips x 500 frames: ragged for every tile);
+     llama4-maverick-400b's rms at D 5120, qkv_proj at N 5120 / 1024 /
+     1024 (M 1, 4, 5, 256), attn_stream at H 40, Hkv 8, Dh 128 (G 5)
+     and paged_decode_tiered at Hkv 8, G 5, Dh 128;
   2. parity — f32 at full width and depth, the serving Engine's tokens
      against `generate` on 2 VQA + 2 text requests, for fastvlm-1.7b over
      the tiered store, for mobilevlm-3b on path A (flat store, fused
@@ -114,11 +120,10 @@ source, all started together; seven kernels), then:
      at full width with the depth cut to 6 layers (1 dense + 5 MoE; the
      cut is printed), tiered latent store (hot window 64), 2 slots, 4
      text requests of 128 tokens, 16 new: Engine == generate (tie rule;
-     6 of 27 layers: full depth fits, 62.8 GB in f32, but there router
-     probabilities come within ~1e-7 of a tie, where the experts'
-     atomic sums vary run to run, and the tokens can part; the phase
-     deepseek-ties, not run by default, reads the gaps); every parity
-     run prints its peak device memory;
+     6 of 27 layers, for the script's time; full depth, 62.8 GB in f32,
+     is the phase deepseek-full, not run by default; on a MoE model a
+     failure names where the two runs' routing, logged, first parts);
+     every parity run prints its peak device memory;
   3. serving — three bf16 runs through the Engine at full width and
      depth, each the main path of its configuration: the kernels' launch
      counters are zeroed just before each run and read just after, and
@@ -223,9 +228,37 @@ source, all started together; seven kernels), then:
      6 a decode step), write-once, ledger == simulated_efficiency,
      chime_sim, and in both profiles the device time and launches under
      the recurrences' ranges (the mixers, the scans, the channel mix).
-  Every dense and recurrent bf16 run prints its decode busy beside the
-  weight floor: every weight read once a step (the embedding table left
-  out unless it is the tied head; a shared block once an application).
+  6. hubert — hubert-xlarge encoder inference through `Model.forward`
+     (the full-sequence forward) at full width and depth: 48 layers,
+     d_model 1280, 16 heads x 80, LayerNorm, gelu F 5120, learned
+     positions, the linear audio connector, non-causal attention (plain,
+     as in the reference). bf16 on 4 clips x 500 frames (10 s of 16 kHz
+     audio at 20 ms frames; random frame embeddings, the reference's
+     frontend stub): exact launches a forward (fused_norm 97, qkv_proj
+     48, ffn_act 48 in its wgmma form at M 2000, nothing else), finite
+     logits, wall and device ms, busy share, frames/s, top ops, peak
+     memory; f32 at full depth: clip 0 on the card against the host
+     CPU's forward (<= 1e-3 of the largest |logit|, argmax agreement),
+     and clip 0 alone against its row of the batch (<= 1e-5 relative).
+  7. llama4 — first the MoE determinism check: `apply_moe` twice on one
+     input must be `torch.equal` (one deepseek-v2-lite MoE layer at full
+     width, bf16 and f32, T 4 and 256; llama4's layer 0 in bf16, T 4
+     and 256). Then llama4-maverick-400b at full width (GQA 40 / 8 x
+     128, G 5; 128 experts top-1 of F 8192 + 1 shared; vocab 202,048)
+     at a 2-layer cut in bf16 (its 48 layers hold 32.2 GB of experts
+     each): the dense archs' run (tiered W 128, 8 text requests of 256,
+     64 new; exact launches fused_norm 5, qkv_proj 2, attn_stream 2 an
+     extend, paged_decode_tiered 2 a step; write-once, ledger == sim,
+     profiles, peak memory), decode busy beside the all-weights floor
+     and the floor of the <= 4 experts a layer 4 slots can touch,
+     `apply_moe` under sync debug mode "error"; then llama4-parity: f32
+     at a 1-layer cut (73.5 GB), Engine == generate (tie rule) on 4
+     text requests of 128 with 16 new, the free memory before the build
+     and the peak printed.
+  Every dense, MoE and recurrent bf16 run prints its decode busy beside
+  the weight floor: every weight read once a step (the embedding table
+  left out unless it is the tied head; a shared block once an
+  application).
 
 It prints the card (name, power limit), the kernel build time, the
 phases' results, then one JSON line {"kernels": [...]} (launches summed
@@ -237,8 +270,10 @@ kernels` for a quick compile check; `--phases kernels,deepseek` for the
 kernels and only the deepseek-v2-lite parity and serving runs;
 `--phases kernels,stablelm,starcoder2,paligemma` for the kernels and
 the dense archs' runs; `--phases kernels,rwkv6,zamba2` for the
-recurrent archs'; `--phases deepseek-ties` for the router gap probe
-alone).
+recurrent archs'; `--phases kernels,hubert,llama4` for this slice's;
+`--phases deepseek-full` for deepseek-v2-lite's f32 parity at full
+depth (27 layers, not a default phase; it runs after every other
+phase).
 """
 
 from __future__ import annotations
@@ -266,8 +301,8 @@ D3, F3, H3 = 2560, 6912, 20
 HIT_TAIL = 64
 # deepseek-v2-lite: d_model and its dense first layer's d_ff (F / 128 =
 # 85.5: the stream form's last slice is ragged); the f32 parity run cuts
-# the depth to 1 dense + 5 MoE layers (full depth fits, 62.8 GB of f32
-# weights, but its router near-ties make the check flaky: deepseek_ties)
+# the depth to 1 dense + 5 MoE layers, for the script's time (full depth,
+# 62.8 GB of f32 weights, is the phase deepseek-full)
 DS_D, DS_F, DS_PARITY_LAYERS = 2048, 10944, 6
 # stablelm-12b's d_model: the widest the FFN kernels take on this path
 DENSE_D = 5120
@@ -275,6 +310,11 @@ DENSE_D = 5120
 # block: d_model 2048, 32 heads of 64 (G 1), gelu_gated F 8192
 SSM_D = 4096
 ZAMBA_D, ZAMBA_H, ZAMBA_DH, ZAMBA_F = 2048, 32, 64, 8192
+# hubert-xlarge: d_model 1280, gelu F 5120; its input, 4 clips of 10 s of
+# 16 kHz audio at 20 ms frames (M 2000 rows: ragged for every tile)
+HUBERT_D, HUBERT_F, HUBERT_CLIPS, HUBERT_FRAMES = 1280, 5120, 4, 500
+# llama4-maverick-400b: d_model 5120, 40 / 8 heads of 128 (G 5)
+LLAMA_D, LLAMA_H, LLAMA_HKV = 5120, 40, 8
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 REPLACES = {
@@ -769,7 +809,11 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
             ms, dms = timed(fn)
             c_ms, c_dms = timed(chain)
             c_k = lib_kernels(chain)
-            b_ms, b_by = bound(pk, 4 * M * D_ + w_bytes, 6 * M * D_ * F_,
+            gated = w[2 if name == "ffn_act_int8" else 1] is not None
+            chain_ops = ("mm, mm, act * mul, mm" if gated
+                         else "mm, act, mm")
+            b_ms, b_by = bound(pk, 4 * M * D_ + w_bytes,
+                               (6 if gated else 4) * M * D_ * F_,
                                "bfloat16")
             main = {"shape": f"x ({M}, {D_}), F {F_}, {label}", "ms": ms,
                     "device_ms": dms, "plain_ms": time_ms(ref),
@@ -777,8 +821,8 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                     "chain_ms": c_ms, "chain_device_ms": c_dms,
                     "chain_kernels": c_k,
                     "chain": f"cuBLAS chain of {round(sum(c_k.values()))} "
-                             f"kernels (mm, mm, act * mul, mm), not one "
-                             f"call", "bound_ms": b_ms, "bound_by": b_by}
+                             f"kernels ({chain_ops}), not one call",
+                    "bound_ms": b_ms, "bound_by": b_by}
             results["ffn_rows"].append(dict(main, name=name,
                                             max_abs_err=err, **(extra or {})))
             print(f"[kernels]   {name} {main['shape']} ({got}): "
@@ -1170,6 +1214,134 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                      f"zamba2 gelu_gated M={M} D={D_} F={F_}",
                      ffn_form(M, dt), row)
         del wf
+
+    def slice12_widths(dt):
+        """The kernels of the hubert-xlarge and llama4-maverick-400b paths
+        at their shapes, in ``dt`` against the plain twin, the form that
+        ran asserted; bf16 rows timed beside their bound and the library
+        call. hubert (4 clips x 500 frames: M 2000, a multiple of neither
+        64 nor 128): fused_norm LayerNorm + bias at D 1280, qkv_proj's
+        GEMM at N 3 x 1280 and ffn_act's ungated gelu at F 5120 (wgmma in
+        bf16, fma in f32). llama4 (4 slots, 256-token prompts): fused_norm
+        rms at D 5120, qkv_proj at N 5120 / 1024 / 1024 (M 1, 4, 5, 256),
+        attn_stream at H 40, Hkv 8, Dh 128 (G 5) and paged_decode_tiered
+        at Hkv 8, G 5, Dh 128 (both run their G 8 instances)."""
+        tdt = getattr(torch, dt)
+        es = torch.tensor([], dtype=tdt).element_size()
+        bf = dt == "bfloat16"
+        M_h = HUBERT_CLIPS * HUBERT_FRAMES
+        # ---- fused_norm: hubert's LayerNorm + bias, llama4's rms --------
+        for (arch, D_, kind, Ms) in (("hubert", HUBERT_D, "layer", (M_h,)),
+                                     ("llama4", LLAMA_D, "rms",
+                                      (1, 4, 256))):
+            sc = (0.25 + 0.1 * torch.rand(D_, generator=gen,
+                                          device=dev)).to(tdt)
+            bi = randn(D_, dtype=tdt, std=0.3) if kind == "layer" else None
+            for M in Ms:
+                x = randn(M, D_, dtype=tdt)
+                record("fused_norm", f"{arch} {kind} M={M} D={D_}", dt,
+                       max_err(FN.fused_norm(x, sc, bi, kind),
+                               FN.fused_norm_plain(x, sc, bi, kind)))
+                if bf and M > 1:
+                    lib = ((lambda: F.layer_norm(x, (D_,), sc, bi, 1e-5))
+                           if kind == "layer" else
+                           (lambda: F.rms_norm(x, (D_,), sc, 1e-6))
+                           if hasattr(F, "rms_norm") else None)
+                    extra_row("fused_norm", f"{arch} x ({M}, {D_}) {kind}",
+                              lambda: FN.fused_norm(x, sc, bi, kind),
+                              lambda: FN.fused_norm_plain(x, sc, bi, kind),
+                              lib, (2 * M * D_ + 2 * D_) * es, 0, dt)
+        # ---- qkv_proj: hubert's GEMM, llama4's GEMV and GEMM ------------
+        for (arch, D_, ns, Ms) in (
+                ("hubert", HUBERT_D, (HUBERT_D,) * 3, (M_h,)),
+                ("llama4", LLAMA_D, (LLAMA_H * 128, LLAMA_HKV * 128,
+                                     LLAMA_HKV * 128), (1, 4, 5, 256))):
+            ws = [randn(D_, n, dtype=tdt, std=0.5 * D_ ** -0.5) for n in ns]
+            wcat = torch.cat(ws, 1)
+            zero = torch.zeros(wcat.shape[1], dtype=tdt, device=dev)
+            N = sum(ns)
+            for M in Ms:
+                x = randn(M, D_, dtype=tdt)
+                want_v = QK.kernel_variant(M, tdt)
+                require(want_v == ("gemv" if M <= 4 else
+                                   "wgmma" if bf else "fma"),
+                        f"qkv_proj {arch} M={M}: form {want_v}")
+                record("qkv_proj", f"{arch} M={M} N={ns} ({want_v})", dt,
+                       max(max_err(a, b) for a, b in zip(
+                           QK.qkv_proj(x, *ws, None, None, None),
+                           QK.qkv_proj_plain(x, *ws, None, None, None))))
+                if bf and M != 1 and M != 5:
+                    extra_row("qkv_proj", f"{arch} x ({M}, {D_}), N {ns} "
+                                          f"({want_v})",
+                              lambda: QK.qkv_proj(x, *ws, None, None, None),
+                              lambda: QK.qkv_proj_plain(x, *ws, None, None,
+                                                        None),
+                              lambda: torch.addmm(zero, x, wcat),
+                              (M * D_ + D_ * N + M * N) * es,
+                              2 * M * D_ * N, dt)
+            del ws, wcat
+        # ---- attn_stream: llama4's prefill (S = L = 256), an extend chunk
+        # (S 64 at q_offset 256) and a ragged one: H 40, Hkv 8, Dh 128
+        H_, Hk_, Dh = LLAMA_H, LLAMA_HKV, 128
+        form = "wgmma" if bf else "fma"
+        require(AS.kernel_variant(tdt, Dh) == form,
+                f"attn_stream Dh {Dh} {dt}: form")
+        for (S, L) in ((256, 256), (64, 320), (77, 200)):
+            q = randn(1, H_, S, Dh, dtype=tdt)
+            k = randn(1, Hk_, L, Dh, dtype=tdt)
+            v = randn(1, Hk_, L, Dh, dtype=tdt, std=0.4)
+            record("attn_stream", f"llama4 H={H_} Hkv={Hk_} Dh={Dh} S={S} "
+                                  f"L={L} ({form})", dt,
+                   max_err(AS.attn_stream(q, k, v, causal=True),
+                           AS.attn_stream_plain(q, k, v, True)))
+            if bf and S == L:
+                extra_row("attn_stream", f"llama4 q (1, {H_}, {S}, {Dh}), "
+                                         f"kv heads {Hk_} (G 5), causal, "
+                                         f"split "
+                                         f"{AS.kv_split(1, H_, S, L, sms)}",
+                          lambda: AS.attn_stream(q, k, v, causal=True),
+                          lambda: AS.attn_stream_plain(q, k, v, True),
+                          sdpa_of(q, k, v),
+                          (2 * H_ * S + 2 * Hk_ * L) * Dh * es,
+                          4 * H_ * Dh * S * (S + 1) // 2, dt)
+        del q, k, v
+        # ---- paged_decode_tiered: Hkv 8, G 5, Dh 128 at the decode shape
+        # (timed), around the window and the pages, dead pages
+        targs = tiered_args(B, Hk_, 5, Dh, (318, 300, 257, 290))
+        err, rel = decode_errs(PD.paged_decode_tiered(*targs),
+                               PD.paged_decode_tiered_plain(*targs))
+        record("paged_decode_tiered", f"llama4 Hkv={Hk_} G=5 D={Dh} "
+                                      f"ctx~300", dt, err, rel=rel)
+        if bf:
+            results["extra_rows"].append(dict(
+                tiered_row(targs, f"llama4 B {B}, Hkv {Hk_}, G 5, Dh {Dh}, "
+                                  f"W {W}, max_len {ML}, ctx [318, 300, "
+                                  f"257, 290]"),
+                name="paged_decode_tiered"))
+        del targs
+        for (label, lens, dead) in (
+                ("lengths 0,1,W-1,W", (0, 1, W - 1, W), ()),
+                ("W+1,max_len-1, dead pages", (W + 1, ML - 1, 255, 256),
+                 ((1, 0), (1, 2), (2, 0)))):
+            targs = tiered_args(B, Hk_, 5, Dh, lens, dead)
+            err, rel = decode_errs(PD.paged_decode_tiered(*targs),
+                                   PD.paged_decode_tiered_plain(*targs))
+            record("paged_decode_tiered", f"llama4 D={Dh} G=5 {label}, "
+                   f"split {PD.tiered_split(B, Hk_, sms, False)}", dt, err,
+                   rel=rel)
+            del targs
+        # ---- ffn_act: hubert's ungated gelu, D 1280, F 5120, M 2000 -----
+        D_, F_ = HUBERT_D, HUBERT_F
+        wu = randn(D_, F_, dtype=tdt, std=0.5 * D_ ** -0.5)
+        wd = randn(F_, D_, dtype=tdt, std=F_ ** -0.5)
+        x = randn(M_h, D_, dtype=tdt)
+
+        def chain():
+            return FF.activation(x @ wu, "gelu") @ wd
+        ffn_case("ffn_act", x, (wu, None, wd), "gelu", dt,
+                 f"hubert gelu M={M_h} D={D_} F={F_}", ffn_form(M_h, dt),
+                 (2 * D_ * F_ * es, chain) if bf else None)
+        del wu, wd, x
 
     for dt in ("float32", "bfloat16"):
         tdt = getattr(torch, dt)
@@ -1652,6 +1824,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         del q, k, v
         dense_widths(dt)
         ssm_widths(dt)
+        slice12_widths(dt)
 
     # ragged / odd shapes, f32
     tdt = torch.float32
@@ -1804,19 +1977,71 @@ def parity_phase(dev: str = "cuda") -> dict:
     return out
 
 
-def _parity_deepseek(dev) -> dict:
+def prefill_drift(arch: str, knobs: dict, dev: str = "cuda") -> dict:
+    """f32, on `_parity`'s 4 text prompts: the residual stream after
+    every layer of `Model.prefill` (`generate`'s whole-prompt path)
+    against `Model.extend` (the Engine's path: one chunk over the
+    workspace, committed): a layer, the largest over the rows of a row's
+    largest difference relative to its largest value; printed at a few
+    depths with the first layer past 1e-4."""
+    import torch
+
+    gc.collect()              # an earlier run's weights, freed first
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    cfg, model, params = _model(arch, "float32", dev, **knobs)
+    reqs = _requests(cfg, n_vqa=0, n_text=4, text_with_image=64,
+                     text_len=128, gen_len=16, seed=1)
+    run, xs = model._run_block, []
+
+    def keep(*a, **kw):
+        out = run(*a, **kw)
+        xs.append(out[0])
+        return out
+    model._run_block = keep
+    out = {}
+    try:
+        for r in reqs:
+            batch = {"tokens": r.tokens[None]}
+            xs.clear()
+            model.prefill(params, batch, 224)
+            whole = list(xs)
+            xs.clear()
+            model.extend(params, batch, model.init_extend_cache(1, 224, dev),
+                         0, length=r.prompt_len, commit=True)
+            # each row's largest difference over its own largest value
+            drift = [float(((a - b).abs().amax(-1)
+                            / a.abs().amax(-1)).max())
+                     for a, b in zip(whole, xs)]
+            out[r.rid] = drift
+            past = next((i for i, d in enumerate(drift) if d > 1e-4), None)
+            picks = sorted({0, 1, 2, 4, 8, 14, 20, len(drift) - 1})
+            print(f"[drift] {arch} f32, request {r.rid}: prefill vs extend, "
+                  f"largest row max |diff| / max |x| after layer "
+                  + ", ".join(f"{i}: {drift[i]:.2e}" for i in picks
+                              if i < len(drift))
+                  + f"; first past 1e-4: layer {past}")
+    finally:
+        del model._run_block
+    del params
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _parity_deepseek(dev, n: int = DS_PARITY_LAYERS) -> dict:
     """deepseek-parity: f32 deepseek-v2-lite at full width, depth cut to
-    DS_PARITY_LAYERS (1 dense + 5 MoE), tiered latent store (hot window
-    64), 2 slots, 4 text requests (128-token prompts, 16 new tokens):
-    the Engine's tokens against `generate`'s, tie rule as above. Full
-    depth fits the card (62.8 GB of f32 weights) but is not run: there
-    the router's top-k-th and next probabilities come within ~1e-7 (the
-    `deepseek-ties` phase reads the gaps), the scale at which the
-    experts' atomic `index_add_` sums vary from run to run on the card,
-    so the tokens can part where the logit tie rule sees no tie."""
+    ``n`` layers (default DS_PARITY_LAYERS: 1 dense + 5 MoE, to keep the
+    script's time), tiered latent store (hot window 64), 2 slots, 4 text
+    requests (128-token prompts, 16 new tokens): the Engine's tokens
+    against `generate`'s, tie rule as above. Full depth (27 layers, 62.8
+    GB of f32 weights) is the phase deepseek-full, not run by default:
+    there the router's top-k-th and next probabilities come within ~1e-7,
+    so the Engine's prefill must round as `generate`'s does; it first
+    prints each prompt's prefill-vs-extend drift (`prefill_drift`)."""
     from repro_torch.configs.base import Segment, get_config
 
-    n = DS_PARITY_LAYERS
     knobs = dict(kv_policy="tiered", kv_hot_window=64, num_layers=n,
                  segments=(Segment(("mla",), n),))
     full = get_config("deepseek-v2-lite")
@@ -1826,114 +2051,60 @@ def _parity_deepseek(dev) -> dict:
           f"{cut.moe.top_k}, kv_lora_rank {cut.mla.kv_lora_rank}), depth "
           f"cut from {full.num_layers} to {n} layers (1 dense + {n - 1} "
           f"MoE): {cut.param_count():,} parameters, "
-          f"{4 * cut.param_count() / 1e9:.1f} GB in f32; full depth "
-          f"({4 * full.param_count() / 1e9:.1f} GB) fits, but its router "
-          f"near-ties make the check flaky (phase deepseek-ties)")
-    res = _parity("deepseek-parity", "deepseek-v2-lite", knobs, {}, dev,
-                  n_vqa=0, slots=2)
+          f"{4 * cut.param_count() / 1e9:.1f} GB in f32 (full depth "
+          f"{4 * full.param_count() / 1e9:.1f} GB: phase deepseek-full)")
+    if n > DS_PARITY_LAYERS:
+        prefill_drift("deepseek-v2-lite", knobs, dev)
+    res = _parity(f"deepseek-parity ({n} layers)", "deepseek-v2-lite",
+                  knobs, {}, dev, n_vqa=0, slots=2)
     res["layers"] = n
     return res
 
 
-def deepseek_ties(dev: str = "cuda") -> dict:
-    """deepseek-ties (not a default phase): deepseek-parity at full depth
-    (f32, 27 layers, 2 slots, the same 4 requests) with the router read
-    at every MoE layer of every model call, in the Engine and in
-    `generate` for each request: the first step where a request's
-    tokens part, the first model call (0 = the prompt) and MoE layer
-    where its routed experts differ, and the gap between the top-k-th
-    and the next router probability there in each run; the smallest gap
-    of the `generate` runs beside it."""
+@contextlib.contextmanager
+def routing_log(who: dict):
+    """While open, every `apply_moe` call records, for each row of its
+    input that ``who`` names (``who["rids"][b]``: a request id or None;
+    ``who["pos"][b]``: its first row's position; ``who["len"]``: the
+    valid rows), the sorted top-k experts and the gap between the k-th
+    and the next router probability, one entry a MoE layer in layer
+    order: ``log[rid][position]``. Yields ``log``."""
     import torch
 
-    from repro_torch.launch.serve import generate
     from repro_torch.models import layers as L
-    from repro_torch.serving import Engine, LocalBackend
 
-    gc.collect()              # an earlier run's backend, freed first
-    if dev == "cuda":
-        torch.cuda.empty_cache()
-    cfg, model, params = _model("deepseek-v2-lite", "float32", dev,
-                                kv_policy="tiered", kv_hot_window=64)
-    reqs = _requests(cfg, n_vqa=0, n_text=4, text_with_image=64,
-                     text_len=128, gen_len=16, seed=1)
-    k, D = cfg.moe.top_k, cfg.d_model
-    n_moe = sum(u.repeats for u in model.plan if u.block.mlp == "moe")
-    moe = L.apply_moe
-    rows_of = {}            # rid -> [(experts, gaps) of its rows, a call]
-    owner = {"rows": None}  # the rid of each row of the running call
+    moe, log = L.apply_moe, {}
 
-    def probe(p, c, x, dropless=True):
-        probs = torch.softmax(x.reshape(-1, D).float() @ p["router"].float(),
-                              dim=-1)
+    def probe(p, cfg, x, dropless=True):
+        k = cfg.moe.top_k
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                              @ p["router"].float(), dim=-1)
         top = probs.topk(k + 1, dim=-1)
-        ex = top.indices[:, :k].sort(-1).values.cpu()
-        gap = (top.values[:, k - 1] - top.values[:, k]).cpu()
+        ex = top.indices[:, :k].sort(-1).values.tolist()
+        gap = (top.values[:, k - 1] - top.values[:, k]).tolist()
         S = x.shape[1]
-        for b, rid in enumerate(owner["rows"]):
-            if rid is not None:
-                rows_of.setdefault(rid, []).append(
-                    (ex[b * S:(b + 1) * S], gap[b * S:(b + 1) * S]))
-        return moe(p, c, x, dropless)
-    backend = LocalBackend(model, params, 2, 224, device=dev)
-    engine = Engine(backend)
-    ext, dec = backend.extend_step, backend.decode_step
-
-    def extend_step(*a):
-        owner["rows"] = [engine._inflight.req.rid]
-        return ext(*a)
-
-    def decode_step(toks, state, pos, active):
-        owner["rows"] = [r.rid if act and r is not None else None
-                         for r, act in zip(engine._slot_req, active)]
-        return dec(toks, state, pos, active)
-    backend.extend_step, backend.decode_step = extend_step, decode_step
+        for b, rid in enumerate(who["rids"]):
+            for s_ in range(min(S, who["len"]) if rid is not None else 0):
+                log.setdefault(rid, {}).setdefault(
+                    int(who["pos"][b]) + s_, []).append(
+                    (tuple(ex[b * S + s_]), gap[b * S + s_]))
+        return moe(p, cfg, x, dropless)
     L.apply_moe = probe
     try:
-        done = {r.rid: r.generated for r in engine.run(reqs)}
-        eng_rows, rows_of = rows_of, {}
-        gen = {}
-        for r in reqs:
-            owner["rows"] = [r.rid]
-            out, _ = generate(model, params, {"tokens": r.tokens[None]},
-                              r.prompt_len, r.max_new_tokens, device=dev)
-            gen[r.rid] = out[0].tolist()
+        yield log
     finally:
         L.apply_moe = moe
-    out = {}
-    min_gap = min(float(g.min()) for calls in rows_of.values()
-                  for _, g in calls)
-    for r in reqs:
-        part = next((t for t, (a, b) in enumerate(zip(done[r.rid],
-                                                      gen[r.rid]))
-                     if a != b), None)
-        first = None
-        for i, ((e1, g1), (e2, g2)) in enumerate(zip(eng_rows[r.rid],
-                                                     rows_of[r.rid])):
-            diff = (e1 != e2).any(-1).nonzero()
-            if len(diff):
-                j = int(diff[0])
-                first = {"call": i // n_moe, "moe_layer": i % n_moe,
-                         "row": j, "gap_engine": float(g1[j]),
-                         "gap_generate": float(g2[j])}
-                break
-        out[r.rid] = {"tokens_part_at": part, "experts_first_differ": first}
-        print(f"[ties] deepseek f32, {cfg.num_layers} layers, request "
-              f"{r.rid}: tokens "
-              f"part at step {part}; routed experts first differ at "
-              + ("no call" if first is None else
-                 f"model call {first['call']} (0 = the prompt), MoE layer "
-                 f"{first['moe_layer']}, row {first['row']}: top-{k} vs "
-                 f"next router probability gap {first['gap_engine']:.3e} "
-                 f"(Engine), {first['gap_generate']:.3e} (generate)"))
-    print(f"[ties] the smallest top-{k} vs next gap in the generate runs: "
-          f"{min_gap:.3e}")
-    out["min_gap_generate"] = min_gap
-    del engine, backend, params
-    gc.collect()
-    if dev == "cuda":
-        torch.cuda.empty_cache()
-    return out
+
+
+def first_routing_split(a: dict, b: dict):
+    """(position, MoE layer, gap in a, gap in b) of the first row whose
+    routed experts differ between two runs' logs of one request, or
+    None."""
+    for pos in sorted(set(a) & set(b)):
+        for li, ((ea, ga), (eb, gb)) in enumerate(zip(a[pos], b[pos])):
+            if ea != eb:
+                return pos, li, ga, gb
+    return None
 
 
 def _require_tie(label, model, params, r, step: int, got: int, want: int,
@@ -2079,8 +2250,11 @@ def _parity(label, arch, knobs, bknobs, dev, n_vqa: int = 2,
             engine_kw=None) -> dict:
     """f32 Engine == generate (tie rule), 4 requests of 16 new tokens:
     ``n_vqa`` VQA (64 text tokens) and text of 128, or ``make_reqs(cfg)``'s;
-    ``engine_kw`` goes to the Engine (e.g. chunk_tokens). The run's peak
-    device memory is printed and returned."""
+    ``engine_kw`` goes to the Engine (e.g. chunk_tokens). On a MoE model
+    both runs' routing is logged (`routing_log`), so a failure says
+    where it first parted and at what router gaps. The run's peak device
+    memory is printed and returned."""
+    import numpy as np
     import torch
 
     from repro_torch.launch.serve import generate
@@ -2099,9 +2273,38 @@ def _parity(label, arch, knobs, bknobs, dev, n_vqa: int = 2,
     for k, v in bknobs.items():
         require(getattr(backend, k) == v, f"{label}: backend {k} != {v}")
     engine = Engine(backend, **(engine_kw or {}))
-    done = {r.rid: r.generated for r in engine.run(reqs)}
+    moe = cfg.moe is not None
+    who = {"rids": [], "pos": [], "len": 0}
+    ext_fn, dec_fn = backend.extend_step, backend.decode_step
+
+    def extend_step(batch, state, ext, slot, pos, length, commit):
+        who.update(rids=[engine._inflight.req.rid], pos=[int(pos)],
+                   len=int(length))
+        return ext_fn(batch, state, ext, slot, pos, length, commit)
+
+    def decode_step(toks, state, pos, active):
+        who.update(rids=[r.rid if act and r is not None else None
+                         for r, act in zip(engine._slot_req, active)],
+                   pos=np.asarray(pos).tolist(), len=1)
+        return dec_fn(toks, state, pos, active)
+    if moe:
+        backend.extend_step, backend.decode_step = extend_step, decode_step
+    with (routing_log(who) if moe else contextlib.nullcontext({})) as e_log:
+        done = {r.rid: r.generated for r in engine.run(reqs)}
+    if moe:             # no cycle through the wrappers keeps the weights
+        del backend.extend_step, backend.decode_step
     stats = dict(engine.stats)
     ties = 0
+    pre, dec = model.prefill, model.decode_step
+
+    def prefill(params, batch, max_len, length=None):
+        who.update(pos=[0], len=1 << 30)
+        return pre(params, batch, max_len, length)
+
+    def decode(params, tokens, cache, pos):
+        who.update(pos=[int(pos)], len=1)
+        return dec(params, tokens, cache, pos)
+    model.prefill, model.decode_step = prefill, decode
     for r in reqs:
         batch = {"tokens": r.tokens[None]}
         if r.patches is not None:
@@ -2109,29 +2312,42 @@ def _parity(label, arch, knobs, bknobs, dev, n_vqa: int = 2,
         # the unfused model: on path A its flat decode is store_read +
         # softmax, so the parity also holds paged_decode_flat against a
         # path that does not run it
-        toks, _, logits = generate(model, params, batch,
-                                   r.prompt_len, r.max_new_tokens,
-                                   device=dev, return_logits=True)
+        who["rids"] = [r.rid]
+        with (routing_log(who) if moe else
+              contextlib.nullcontext({})) as g_log:
+            toks, _, logits = generate(model, params, batch,
+                                       r.prompt_len, r.max_new_tokens,
+                                       device=dev, return_logits=True)
         ref = toks[0].tolist()
         got = done[r.rid]
         require(len(got) == len(ref) == r.max_new_tokens,
                 f"{label} request {r.rid}: token counts {len(got)}, "
                 f"{len(ref)}")
+        note = ""
         for t, (a, b) in enumerate(zip(got, ref)):
             if a == b:
                 continue
             top2 = logits[0, t].float().topk(2).values
             margin = float(top2[0] - top2[1])
+            split = first_routing_split(e_log.get(r.rid, {}),
+                                        g_log.get(r.rid, {}))
             require(margin < 1e-3,
                     f"{label} request {r.rid} step {t}: engine token {a} "
                     f"!= generate {b} with top-2 margin {margin:.3e} "
-                    f"(not a tie)")
+                    f"(not a tie)" + ("" if not moe else
+                                      "; routing first parts nowhere"
+                                      if split is None else
+                                      f"; routing first parts at position "
+                                      f"{split[0]}, MoE layer {split[1]}, "
+                                      f"router gaps {split[2]:.3e} "
+                                      f"(Engine) / {split[3]:.3e}"))
             ties += 1
+            note = f"(tie-broken at step {t})"
             break           # the streams legitimately diverge after a tie
         print(f"[parity] {label}: request {r.rid} "
               f"({'VQA' if r.patches is not None else 'text'}, prompt "
-              f"{r.prompt_len}): engine == generate "
-              f"{'(tie-broken)' if got != ref else ''}: {got[:8]}...")
+              f"{r.prompt_len}): engine == generate {note}: {got[:8]}...")
+    del model.prefill, model.decode_step
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
     print(f"[parity] {label}: {ties} ties broken; peak device memory "
           f"{peak / 1e9:.2f} GB ({cfg.param_count():,} parameters, "
@@ -2175,6 +2391,20 @@ SSM_RUNS = (
     ("rwkv6", "rwkv6-7b", {}, {}, 0, 0, ("fused_norm",)),
     ("zamba2", "zamba2-1.2b", dict(kv_policy="tiered", kv_hot_window=128),
      {}, 0, 0, ("fused_norm", "qkv_proj", "attn_stream", "ffn_act",
+                "paged_decode_tiered")),
+)
+
+
+# llama4-maverick-400b, as DENSE_RUNS, at a 2-layer cut: its 48 layers
+# hold 32.2 GB of bf16 experts each, so one card holds 2 (bf16) or 1
+# (f32); every layer is MoE (128 routed experts top-1 + 1 shared, plain
+# batched matmuls as in the reference), so no FFN kernel runs
+LLAMA_LAYERS = {"bfloat16": 2, "float32": 1}
+MOE_RUNS = (
+    ("llama4", "llama4-maverick-400b",
+     dict(kv_policy="tiered", kv_hot_window=128,
+          num_layers=LLAMA_LAYERS["bfloat16"], segments=()),
+     {}, 0, 0, ("fused_norm", "qkv_proj", "attn_stream",
                 "paged_decode_tiered")),
 )
 
@@ -2257,7 +2487,7 @@ def dense_parity(key: str, dev: str = "cuda") -> dict:
     return res
 
 
-def dense_run(key: str, pk: dict, dev: str = "cuda") -> dict:
+def dense_run(key: str, pk: dict, dev: str = "cuda", after=None) -> dict:
     """<key>: bf16 at full width and depth, weights built on the card,
     4 slots, max_len 512, 8 requests (paligemma: 4 VQA with 256 image +
     64 text tokens and 4 text of 256; else 8 text of 256), 64 new each,
@@ -2267,14 +2497,14 @@ def dense_run(key: str, pk: dict, dev: str = "cuda") -> dict:
     extend, the run's paged decode a layer at decode), write-once, the
     ledger == simulated_efficiency, chime_sim on CHIME and M3D-DRAM-only,
     the profiles, and the peak device memory after init and after the
-    run."""
+    run. ``after(model, params, res)`` runs last, on the run's weights."""
     import torch
 
     from repro_torch.serving import Telemetry
     from repro_torch.tree import tree_leaves
 
     _, arch, knobs, bknobs, n_vqa, twi, needs = next(
-        r for r in DENSE_RUNS + SSM_RUNS if r[0] == key)
+        r for r in DENSE_RUNS + SSM_RUNS + MOE_RUNS if r[0] == key)
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
     gc.collect()              # an earlier run's backend, freed first
     mem_before = 0
@@ -2332,6 +2562,8 @@ def dense_run(key: str, pk: dict, dev: str = "cuda") -> dict:
                 "max_memory_allocated_run": mem_run,
                 "weight_floor": floor})
     res.pop("finished")
+    if after is not None:
+        after(model, params, res)
     del built, cfg, model, params
     gc.collect()
     if dev == "cuda":
@@ -2465,10 +2697,10 @@ def deepseek_run(pk: dict, dev: str = "cuda") -> dict:
 
 
 def sync_free_check(label, model, params, dev: str = "cuda") -> dict:
-    """Capture `fusion.apply_mla_decode`'s and `layers.apply_moe`'s first
-    call of one batched decode step (4 slots), then run each again on
-    those inputs with the device's sync debug mode at "error": a host
-    synchronisation inside either raises."""
+    """Capture `layers.apply_moe`'s and, on an MLA model,
+    `fusion.apply_mla_decode`'s first call of one batched decode step (4
+    slots), then run each again on those inputs with the device's sync
+    debug mode at "error": a host synchronisation inside either raises."""
     import torch
 
     from repro_torch.core import fusion
@@ -2483,8 +2715,9 @@ def sync_free_check(label, model, params, dev: str = "cuda") -> dict:
     while engine._inflight is not None or engine.scheduler.pending \
             or int(engine._active.sum()) < len(reqs):
         engine.step()
-    fns = {"apply_mla_decode": (fusion, fusion.apply_mla_decode),
-           "apply_moe": (L, L.apply_moe)}
+    fns = {"apply_moe": (L, L.apply_moe)}
+    if any(u.block.mixer == "mla" for u in model.plan):
+        fns["apply_mla_decode"] = (fusion, fusion.apply_mla_decode)
     seen = {}
 
     def capture(name, fn):
@@ -2521,6 +2754,285 @@ def sync_free_check(label, model, params, dev: str = "cuda") -> dict:
             print(f"[serving] {label}: {name} on a decode step's input "
                   f"{tuple(a[2].shape)} ran under sync debug mode \"error\""
                   f": no host synchronisation")
+    return out
+
+
+def moe_determinism(label, p, cfg, dtype, Ts=(4, 256),
+                    dev: str = "cuda") -> dict:
+    """`apply_moe` twice on the same input, one MoE layer's weights ``p``:
+    the two outputs must be bit-identical (`torch.equal`) at each T."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    with torch.no_grad():
+        for T in Ts:
+            x = torch.randn((1, T, cfg.d_model), generator=gen,
+                            device=dev).to(dtype)
+            a, b = L.apply_moe(p, cfg, x), L.apply_moe(p, cfg, x)
+            same = torch.equal(a, b)
+            require(same, f"{label} {dtype} T={T}: two apply_moe calls on "
+                          f"one input differ by "
+                          f"{float((a.float() - b.float()).abs().max()):.3e}")
+            out[f"T={T}"] = same
+            print(f"[moe] {label} {str(dtype)[6:]} T={T}: apply_moe twice "
+                  f"on one input: torch.equal {same}")
+    return out
+
+
+def deepseek_moe_determinism(dev: str = "cuda") -> dict:
+    """One MoE layer of deepseek-v2-lite at full width (64 experts top-6
+    of F 1408, 2 shared), bf16 and f32, T 4 and 256."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L
+
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        cfg = get_config("deepseek-v2-lite").replace(
+            param_dtype=str(dt)[6:], compute_dtype=str(dt)[6:])
+        b = L.ParamInit(torch.Generator(device=dev).manual_seed(0), dt, dev)
+        out[str(dt)[6:]] = moe_determinism("deepseek-v2-lite", L.init_moe(
+            b, cfg), cfg, dt, dev=dev)
+    return out
+
+
+def hubert_phase(pk: dict, dev: str = "cuda") -> dict:
+    """hubert: hubert-xlarge encoder inference through `Model.forward` at
+    full width and depth (48 layers, d_model 1280, 16 heads x 80,
+    LayerNorm, gelu F 5120, learned positions, the linear audio
+    connector, non-causal attention), on 4 clips of 500 frames (10 s of
+    16 kHz audio at 20 ms frames; random frame embeddings of width 512,
+    the reference's frontend stub). bf16: exact launches a call
+    (fused_norm 97, qkv_proj 48, ffn_act 48, nothing else: non-causal
+    attention is plain, as in the reference), finite logits of the
+    expected shape, the wall and device ms of one forward, the busy
+    share, frames/s, the top ops and the peak memory. f32 at full width
+    and depth (TF32 off): clip 0 on the card against the same forward on
+    the host CPU (the kernels' plain twins), max |diff| <= 1e-3 of the
+    largest |logit|, with the per-frame argmax agreement; and clip 0
+    alone against its row of the batch of 4, <= 1e-5 of the largest
+    |logit|."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.tree import tree_leaves, tree_map
+
+    label = "hubert"
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, params = _model("hubert-xlarge", "bfloat16", dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    B, S = HUBERT_CLIPS, HUBERT_FRAMES
+    gen = torch.Generator(device=dev).manual_seed(6)
+    frames = torch.randn((B, S, cfg.frontend.frontend_dim), generator=gen,
+                         device=dev)
+    batch = {"frames": frames}
+    print(f"[hubert] hubert-xlarge: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim}, "
+          f"{cfg.mlp_type} F {cfg.d_ff}, {cfg.norm_type}, {cfg.pos_emb} "
+          f"positions, non-causal: {n_params:,} parameters "
+          f"({2 * n_params / 1e9:.2f} GB bf16) built on the card in "
+          f"{init_s:.1f} s; input {B} clips x {S} frames x "
+          f"{cfg.frontend.frontend_dim}")
+    model.forward(params, batch)                      # warm-up
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = model.forward(params, batch)
+    sync()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    n_norm, n_gqa, n_ffn = plan_counts(model)
+    want = dict.fromkeys(counts, 0)
+    want.update(fused_norm=n_norm, qkv_proj=n_gqa, ffn_act=n_ffn)
+    n_l = cfg.num_layers
+    require(counts == want and (n_norm, n_gqa, n_ffn) == (2 * n_l + 1, n_l,
+                                                          n_l),
+            f"{label}: launches a forward {counts}, planned {want}")
+    require(tuple(logits.shape) == (B, S, model.padded_vocab)
+            and bool(torch.isfinite(logits).all()),
+            f"{label}: logits {tuple(logits.shape)}, finite "
+            f"{bool(torch.isfinite(logits).all())}")
+    print(f"[hubert] launches a forward: {counts} (fused_norm 2 x "
+          f"{cfg.num_layers} + 1, qkv_proj and ffn_act one a layer, "
+          f"attn_stream 0: non-causal attention is plain); logits "
+          f"{tuple(logits.shape)}, finite")
+    res = {"layers": cfg.num_layers, "clips": B, "frames": S,
+           "params": n_params, "init_s": init_s, "launches": counts,
+           "wall_ms": wall_ms, "frames_per_s": B * S / (wall_ms / 1e3)}
+    # the work of one forward and its floor at the card's bf16 rate
+    D, F_, V = cfg.d_model, cfg.d_ff, model.padded_vocab
+    M = B * S
+    flops = (2 * M * cfg.frontend.frontend_dim * D + 2 * M * D * V
+             + cfg.num_layers * (2 * M * 4 * D * D + 2 * M * 2 * D * F_
+                                 + 4 * B * S * S * D))
+    res["flops"] = flops
+    res["floor_ms"] = 1e3 * flops / pk["bfloat16"]
+    if dev == "cuda":
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lead_in()
+            t0 = time.perf_counter()
+            model.forward(params, batch)
+            torch.cuda.synchronize()
+            prof_wall = 1e3 * (time.perf_counter() - t0)
+        ka = prof.key_averages()
+        rows = device_rows(ka)
+        dev_ms = sum(r[2] for r in rows) if rows else None
+        res.update({
+            "profile_wall_ms": prof_wall, "device_ms": dev_ms,
+            "busy_share": dev_ms / prof_wall if dev_ms else None,
+            "device_launches": sum(r[1] for r in rows),
+            "launch_check": profile_launch_check(
+                label, "forward", rows, kernels.launch_counts()),
+            "top": [{"kernel": k[:90], "launches": c, "ms": t}
+                    for k, c, t in rows[:12]],
+            "top_ops": top_ops(ka, 1)})
+        (OUT / "forward_profile_hubert.txt").write_text(
+            ka.table(sort_by="self_device_time_total", row_limit=80))
+        res["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
+        print(f"[hubert] bf16 forward of {B} x {S} frames: wall "
+              f"{wall_ms:.2f} ms ({res['frames_per_s']:.0f} frames/s, "
+              f"{B * S * 0.02 / (wall_ms / 1e3):.0f}x real time); profiled "
+              f"wall {prof_wall:.2f} ms, device {us(dev_ms, unit='ms')} in "
+              f"{res['device_launches']} launches, busy share "
+              f"{res['busy_share']}; {flops / 1e12:.2f} TFLOP, floor "
+              f"{res['floor_ms']:.2f} ms at {pk['bfloat16'] / 1e12:.0f} "
+              f"TF/s; peak device memory "
+              f"{res['peak_memory_allocated'] / 1e9:.2f} GB")
+        for r in res["top"]:
+            print(f"[profile]   {r['ms']:8.3f} ms {r['launches']:5d} "
+                  f"launches  {r['kernel']}")
+        print(f"[profile] {label}: the forward's top torch ops by the "
+              f"device time of what they launch (inclusive):")
+        for r in res["top_ops"]:
+            print(f"[profile]   {r['ms_per_step']:8.3f} ms "
+                  f"{r['calls_per_step']:6.0f} calls  {r['op']}")
+    del params, logits
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    # f32 at full width and depth: the card against the host, and clip 0
+    # alone against its row of the batch
+    cfg32, model32, p32 = _model("hubert-xlarge", "float32", dev)
+    f32 = frames.float()
+    with torch.no_grad():
+        l4 = model32.forward(p32, {"frames": f32})
+        l1 = model32.forward(p32, {"frames": f32[:1]})
+        host = tree_map(lambda t: t.cpu(), p32)
+        t0 = time.perf_counter()
+        lc = model32.forward(host, {"frames": f32[:1].cpu()})
+        host_s = time.perf_counter() - t0
+    scale = float(lc.abs().max())
+    err_host = float((l1.cpu() - lc).abs().max())
+    err_batch = float((l1 - l4[:1]).abs().max())
+    agree = float((l1.cpu().argmax(-1) == lc.argmax(-1)).float().mean())
+    res["f32"] = {"layers": cfg32.num_layers, "max_abs_logit": scale,
+                  "max_abs_err_host": err_host,
+                  "rel_err_host": err_host / scale,
+                  "argmax_agreement": agree, "host_s": host_s,
+                  "max_abs_err_batch": err_batch,
+                  "rel_err_batch": err_batch / float(l4.abs().max())}
+    print(f"[hubert] f32 ({cfg32.num_layers} layers, full width): clip 0 "
+          f"on the card vs the host CPU ({host_s:.1f} s there): max |diff| "
+          f"{err_host:.3e} of max |logit| {scale:.3f} (rel "
+          f"{err_host / scale:.3e}, limit 1e-3); per-frame argmax agreement "
+          f"{agree:.4f}; clip 0 alone vs its row of the batch of {B}: max "
+          f"|diff| {err_batch:.3e} (rel {res['f32']['rel_err_batch']:.3e}, "
+          f"limit 1e-5)")
+    require(err_host <= 1e-3 * scale, f"{label} f32: card vs host "
+            f"{err_host:.3e} > 1e-3 x {scale:.3f}")
+    require(res["f32"]["rel_err_batch"] <= 1e-5, f"{label} f32: clip 0 "
+            f"alone vs batched {err_batch:.3e}")
+    del p32, host, model32
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def llama4_phase(pk: dict, dev: str = "cuda") -> dict:
+    """llama4: the MoE determinism check (one deepseek-v2-lite MoE layer
+    at full width, bf16 and f32, T 4 and 256: apply_moe twice,
+    torch.equal), then llama4-maverick-400b at full width: the bf16 run
+    at a 2-layer cut (the dense archs' run: 4 slots, tiered W 128,
+    max_len 512, 8 text requests of 256 with 64 new; exact launches a
+    model call, fused_norm 5, qkv_proj 2, attn_stream 2 an extend,
+    paged_decode_tiered 2 a step; write-once, ledger == sim, the
+    profiles, peak memory), its decode busy beside the all-weights floor
+    and the floor of the experts 4 slots can touch, apply_moe under sync
+    debug mode "error" and its layer 0 MoE twice on one input (T 4, 256);
+    then the f32 parity run at a 1-layer cut (4 text requests of 128, 16
+    new: Engine == generate, tie rule), with the free memory before the
+    build and the peak."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+
+    out = {"moe_determinism": {"deepseek-v2-lite":
+                               deepseek_moe_determinism(dev)}}
+
+    def after(model, params, res):
+        cfg = model.cfg
+        m = cfg.moe
+        floor = res["weight_floor"]
+        bank = params["units"]["u0"]["mlp"]        # (layers, E, ., .)
+        ex_bytes = sum(bank[k].numel() * bank[k].element_size()
+                       for k in ("w_up", "w_gate", "w_down"))
+        touched = min(4 * m.top_k, m.num_experts)
+        b_touch = floor["bytes"] - ex_bytes * (
+            m.num_experts - touched) / m.num_experts
+        busy = res.get("profile", {}).get("device_ms_per_step")
+        res["touched_floor"] = {"bytes": b_touch,
+                                "ms": 1e3 * b_touch / pk["bw"],
+                                "experts_a_layer": touched}
+        print(f"[serving] llama4: decode busy {us(busy, unit='ms')} a step "
+              f"against the all-weights floor {floor['ms']:.2f} ms "
+              f"({floor['bytes'] / 1e9:.2f} GB) and the floor of the "
+              f"<= {touched} experts a layer 4 slots can touch "
+              f"{res['touched_floor']['ms']:.2f} ms ({b_touch / 1e9:.2f} "
+              f"GB): the dropless (E, T, D) experts read all "
+              f"{m.num_experts}")
+        res["sync_free"] = sync_free_check("llama4", model, params, dev)
+        p0 = {k: (v[0] if k != "shared" else
+                  {n: t[0] for n, t in v.items()})
+              for k, v in params["units"]["u0"]["mlp"].items()}
+        out["moe_determinism"]["llama4-maverick-400b"] = {
+            "bfloat16": moe_determinism("llama4-maverick-400b", p0, cfg,
+                                        torch.bfloat16, dev=dev)}
+    out["llama4"] = dense_run("llama4", pk, dev, after=after)
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    n = LLAMA_LAYERS["float32"]
+    full = get_config("llama4-maverick-400b")
+    cut = full.replace(param_dtype="float32", num_layers=n, segments=())
+    free = torch.cuda.mem_get_info()[0] if dev == "cuda" else 0
+    print(f"[parity] llama4-parity: f32, full width (d_model "
+          f"{cut.d_model}, {cut.num_heads} / {cut.num_kv_heads} heads x "
+          f"{cut.head_dim}, {cut.moe.num_experts} experts top-"
+          f"{cut.moe.top_k} of F {cut.moe.d_ff_expert} + "
+          f"{cut.moe.num_shared_experts} shared), depth cut from "
+          f"{full.num_layers} to {n} layer: {cut.param_count():,} "
+          f"parameters, {4 * cut.param_count() / 1e9:.1f} GB in f32; "
+          f"{free / 1e9:.2f} GB free on the card before the build")
+    res = _parity("llama4-parity", "llama4-maverick-400b",
+                  dict(kv_policy="tiered", kv_hot_window=64, num_layers=n,
+                       segments=()), {}, dev, n_vqa=0)
+    res.update(layers=n, free_before_build=free)
+    out["llama4-parity"] = res
     return out
 
 
@@ -3471,7 +3983,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="kernels,parity,serving,stablelm,"
                                          "starcoder2,paligemma,rwkv6,"
-                                         "zamba2")
+                                         "zamba2,hubert,llama4")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3522,8 +4034,6 @@ def main(argv=None) -> int:
         report["parity"] = timed("parity", parity_phase)
     if "serving" in phases:
         report["serving"] = timed("serving", serving_phase, pk)
-    if "deepseek-ties" in phases:
-        report["deepseek_ties"] = timed("deepseek-ties", deepseek_ties)
     if "deepseek" in phases and not {"parity", "serving"} & phases:
         report["parity"] = {"deepseek-parity": timed(
             "deepseek-parity", _parity_deepseek, "cuda")}
@@ -3537,6 +4047,18 @@ def main(argv=None) -> int:
                 f"{key}-parity", par, key)
             report.setdefault("serving", {})[key] = timed(key, dense_run,
                                                           key, pk)
+    if "hubert" in phases:
+        report.setdefault("serving", {})["hubert"] = timed(
+            "hubert", hubert_phase, pk)
+    if "llama4" in phases:
+        l4 = timed("llama4", llama4_phase, pk)
+        report.setdefault("parity", {})["llama4-parity"] = l4.pop(
+            "llama4-parity")
+        report["moe_determinism"] = l4.pop("moe_determinism")
+        report.setdefault("serving", {})["llama4"] = l4["llama4"]
+    if "deepseek-full" in phases:
+        report.setdefault("parity", {})["deepseek-parity-full"] = timed(
+            "deepseek-full", _parity_deepseek, "cuda", 27)
     launches = {k: sum(run.get("launches", {}).get(k, 0)
                        for run in report.get("serving", {}).values())
                 for k in REPLACES}

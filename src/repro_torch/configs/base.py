@@ -237,10 +237,10 @@ def _ensure_loaded():
         return
     _LOADED = True
     import importlib
-    # only the arch modules whose mixers the port runs so far (GQA and
-    # shared attention, MLA with MoE, RWKV6, Mamba2); hubert (encoder-only)
-    # and llama4 come with their paths
-    for mod in ("nemotron_4_340b", "granite_3_2b", "deepseek_v2_lite",
-                "stablelm_12b", "starcoder2_7b", "paligemma_3b",
-                "rwkv6_7b", "zamba2_1_2b", "paper_models"):
+    # every arch module of the reference, in its order
+    for mod in (
+        "starcoder2_7b", "stablelm_12b", "nemotron_4_340b", "granite_3_2b",
+        "llama4_maverick_400b", "deepseek_v2_lite", "rwkv6_7b",
+        "paligemma_3b", "hubert_xlarge", "zamba2_1_2b", "paper_models",
+    ):
         importlib.import_module(f"repro_torch.configs.{mod}")

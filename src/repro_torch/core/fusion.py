@@ -5,7 +5,8 @@ On a CUDA tensor the port calls its Hopper kernels — `fused_norm` for
 every norm, `qkv_proj` for every Q/K/V projection (in
 `models.attention.qkv_proj`), `ffn_act` for the dense FFN and
 `ffn_act_int8` for the int8 "RRAM" weight store, `attn_stream` for
-causal prefill AND every chunked-prefill extend, `paged_decode_tiered`
+causal prefill, the causal full-sequence forward AND every
+chunked-prefill extend, `paged_decode_tiered`
 for decode over the tiered store and `paged_decode_flat` for fused decode
 over a flat store — whatever ``cfg.use_pallas_kernels`` says: that flag
 names the TPU's Pallas path, and the port's main path on the card is the
@@ -25,7 +26,8 @@ Where the kernels do not apply the plain path runs on either device: an
 FFN with biases (`apply_mlp`, as the reference), flat-store decode
 without fused decode (`store_read` + softmax, the reference default),
 MLA (projections, attention and tiered decode are plain torch in the
-reference too; fused decode is GQA-only) and the MoE experts (batched
+reference too; fused decode is GQA-only), an encoder's non-causal
+attention (the reference's kernel is causal only) and the MoE experts (batched
 matmuls, as the reference's einsums). A dense-first MoE layer's FFN is a
 plain gated FFN and runs `ffn_act`.
 """
@@ -73,12 +75,14 @@ def apply_norm(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor,
-              mlp_type: str | None = None) -> torch.Tensor:
+              mlp_type: str | None = None,
+              dropless: bool = True) -> torch.Tensor:
     kind = mlp_type or cfg.mlp_type
     if kind == "moe":
         # serving routes dropless: capacity competition would couple the
-        # tokens of a batch and make chunked prefill depend on the chunking
-        return L.apply_moe(p, cfg, x, dropless=True)
+        # tokens of a batch and make chunked prefill depend on the
+        # chunking; the full-sequence forward drops past the capacity
+        return L.apply_moe(p, cfg, x, dropless=dropless)
     if kind == "rwkv_cm":
         raise ValueError("rwkv_cm is stateful; handled in model block")
     if kind not in FFN_KINDS:
@@ -96,17 +100,28 @@ def apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def apply_attention_seq(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                        positions: torch.Tensor, max_len: int, length=None
-                        ) -> tuple[torch.Tensor, dict]:
-    """Causal full-sequence attention (prefill); the post-RoPE K/V are
-    absorbed into flat or tiered stores of ``max_len`` positions.
-    ``length`` (default S) counts the valid, unpadded prompt rows."""
+                        positions: torch.Tensor, causal: bool = True,
+                        build_cache: bool = False, max_len: int = 0,
+                        length=None) -> tuple[torch.Tensor, dict | None]:
+    """Full-sequence attention (prefill, or the full forward of a decoder
+    or an encoder). Causal attention runs `attn_stream`; non-causal
+    (hubert's encoder) is the plain `gqa_scores_softmax_pv` with no mask
+    and scores in ``cfg.attn_scores_dtype``, on either device, as the
+    reference calls its kernel only when causal. With ``build_cache`` the
+    post-RoPE K/V are absorbed into flat or tiered stores of ``max_len``
+    positions, the first ``length`` (default S) valid; else no cache."""
     q, k, v = A.qkv_proj(p, cfg, x, positions)
-    o = ops.attn_stream(q, k, v, causal=True)
-    ln = x.shape[1] if length is None else length
-    cache = {kv: KT.store_from_full(t, cfg.kv_policy, cfg.kv_hot_window,
-                                    ln, max_len)
-             for kv, t in (("k", k), ("v", v))}
+    if causal:
+        o = ops.attn_stream(q, k, v, causal=True)
+    else:
+        o = A.gqa_scores_softmax_pv(
+            q, k, v, None, scores_dtype=L.torch_dtype(cfg.attn_scores_dtype))
+    cache = None
+    if build_cache:
+        ln = x.shape[1] if length is None else length
+        cache = {kv: KT.store_from_full(t, cfg.kv_policy, cfg.kv_hot_window,
+                                        ln, max_len)
+                 for kv, t in (("k", k), ("v", v))}
     return A.attn_out(p, cfg, o), cache
 
 
@@ -176,21 +191,26 @@ def apply_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
 # store functions as K/V, at inner shapes (R,) and (rope,))
 # ---------------------------------------------------------------------------
 def apply_mla_seq(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor, max_len: int, length=None
-                  ) -> tuple[torch.Tensor, dict]:
-    """Causal whole-prompt MLA (prefill, ``cfg.mla_absorbed`` picks the
-    form); the latents are absorbed into flat or tiered stores of
-    ``max_len`` positions, the first ``length`` (default S) valid."""
+                  positions: torch.Tensor, causal: bool = True,
+                  build_cache: bool = False, max_len: int = 0,
+                  length=None) -> tuple[torch.Tensor, dict | None]:
+    """Whole-sequence MLA (``cfg.mla_absorbed`` picks the form), causal
+    unless an encoder's; with ``build_cache`` the latents are absorbed
+    into flat or tiered stores of ``max_len`` positions, the first
+    ``length`` (default S) valid; else no cache."""
     S = x.shape[1]
     c_kv, k_rope = A.mla_latents(p, cfg, x, positions)
     q_nope, q_rope = A.mla_queries(p, cfg, x, positions)
-    out = A.mla_attention(p, cfg, q_nope, q_rope, c_kv, k_rope,
-                          A.causal_mask(S, S, device=x.device),
+    mask = A.causal_mask(S, S, device=x.device) if causal else None
+    out = A.mla_attention(p, cfg, q_nope, q_rope, c_kv, k_rope, mask,
                           absorbed=cfg.mla_absorbed)
-    ln = S if length is None else length
-    return out, {n: KT.store_from_full(t, cfg.kv_policy, cfg.kv_hot_window,
+    cache = None
+    if build_cache:
+        ln = S if length is None else length
+        cache = {n: KT.store_from_full(t, cfg.kv_policy, cfg.kv_hot_window,
                                        ln, max_len)
                  for n, t in (("c_kv", c_kv), ("k_rope", k_rope))}
+    return out, cache
 
 
 def apply_mla_extend(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -198,10 +218,13 @@ def apply_mla_extend(p: dict, cfg: ModelConfig, x: torch.Tensor,
                      length, commit: bool) -> tuple[torch.Tensor, dict]:
     """Chunk-resumable MLA prefill: the workspace {"c_kv_ws",
     "k_rope_ws"} of full-precision (B, max_len, .) latents takes the
-    chunk's rows at pos..pos+C-1, and the chunk's queries attend the
-    workspace causally (query i sees row j iff j <= pos + i: the exact
-    rows of `apply_mla_seq`). ``commit`` (the final chunk) folds the
-    workspace into the flat/tiered latent stores with `store_from_full`."""
+    chunk's rows at pos..pos+C-1, and the chunk's queries attend its
+    first pos + C rows causally (query i sees row j iff j <= pos + i:
+    the exact rows of `apply_mla_seq`; a first chunk is the whole-prompt
+    call's very shapes, so it rounds as `apply_mla_seq` does, as the
+    GQA extend's `attn_stream` over the same slice). ``commit`` (the
+    final chunk) folds the workspace into the flat/tiered latent stores
+    with `store_from_full`."""
     pos = int(pos)
     C = x.shape[1]
     c_kv, k_rope = A.mla_latents(p, cfg, x, positions)
@@ -210,9 +233,9 @@ def apply_mla_extend(p: dict, cfg: ModelConfig, x: torch.Tensor,
     rf = cache["k_rope_ws"].clone()
     cf[:, pos:pos + C] = c_kv.to(cf.dtype)
     rf[:, pos:pos + C] = k_rope.to(rf.dtype)
-    mask = A.causal_mask(C, cf.shape[1], offset=pos, device=x.device)
-    out = A.mla_attention(p, cfg, q_nope, q_rope, cf, rf, mask,
-                          absorbed=cfg.mla_absorbed)
+    mask = A.causal_mask(C, pos + C, offset=pos, device=x.device)
+    out = A.mla_attention(p, cfg, q_nope, q_rope, cf[:, :pos + C],
+                          rf[:, :pos + C], mask, absorbed=cfg.mla_absorbed)
     if commit:
         ln = pos + (C if length is None else int(length))
         max_len = cf.shape[1]

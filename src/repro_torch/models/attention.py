@@ -273,10 +273,10 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 def mla_attention(p: dict, cfg: ModelConfig, q_nope: torch.Tensor,
                   q_rope: torch.Tensor, c_kv: torch.Tensor,
-                  k_rope: torch.Tensor, mask: torch.Tensor,
+                  k_rope: torch.Tensor, mask: torch.Tensor | None,
                   absorbed: bool) -> torch.Tensor:
     """MLA attention from latents, scores in f32; ``mask`` (bool)
-    broadcastable to (B,H,S,L). Two forms of one function:
+    broadcastable to (B,H,S,L), or None (no mask). Two forms of one function:
 
     * expanded: per-head K_nope and V materialized from the latent, then
       plain multi-head attention;
@@ -295,7 +295,9 @@ def mla_attention(p: dict, cfg: ModelConfig, q_nope: torch.Tensor,
         k_nope = torch.einsum("blr,rhk->blhk", c_kv, p["wk_b"].to(cd))
         scores = scores + torch.einsum("bshk,blhk->bhsl", q_nope.float(),
                                        k_nope.float())
-    scores = (scores * _mla_scale(cfg)).masked_fill(~mask, NEG_INF)
+    scores = scores * _mla_scale(cfg)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     if absorbed:
         o_lat = torch.einsum("bhsl,blr->bshr", probs, c_kv.float()).to(cd)

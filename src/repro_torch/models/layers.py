@@ -1,7 +1,8 @@
 """Shared layers: parameter init helpers, norms, rotary, dense MLP, the
-RWKV6 channel mix and the dropless mixture of experts.
+RWKV6 channel mix and the mixture of experts (dropless for serving,
+capacity-dropping in the full-sequence forward).
 
-Port of the reference's `models/layers.py` for the serving path. Parameter
+Port of the reference's `models/layers.py`. Parameter
 shapes and init scales follow the reference (normal with std
 fan_in**-0.5 unless a scale is given; norm scales ones, biases zeros),
 drawn from an explicit `torch.Generator`. The reference's `jax.random`
@@ -24,40 +25,87 @@ def torch_dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else DTYPES[str(name)]
 
 
+# a leaf with more elements than this is drawn in chunks along its leading
+# axis, straight into its destination (llama4's (128, 5120, 8192) expert
+# bank would otherwise pass through two f32 temporaries of its own size);
+# every smaller leaf is drawn whole, as one `torch.randn` call. The bound
+# lies above every leaf of the other served configs (the largest,
+# paligemma-3b's 257,216 x 2048 table, has 502.5 Mi elements), so their
+# random weights are the ones a whole draw gives; llama4's expert banks
+# and its embedding table and head are chunked
+CHUNK_ELEMS = 1 << 29
+
+
 class ParamInit:
     """Draws parameters in the reference's shapes and scales from one
-    generator, in a fixed order, on ``device``."""
+    generator, in a fixed order, on ``device``.
 
-    def __init__(self, generator: torch.Generator, dtype: torch.dtype,
-                 device):
+    ``out`` (an iterator of tensors, one per leaf in the order the leaves
+    are drawn) makes every leaf land in the next of those tensors, e.g.
+    one layer's slices of a stacked unit; on the "meta" device nothing
+    is drawn and the leaves carry shapes and dtypes only."""
+
+    def __init__(self, generator: torch.Generator | None, dtype: torch.dtype,
+                 device, out=None):
         self.gen = generator
         self.dtype = dtype
-        self.device = device
+        self.device = torch.device(device)
+        self.out = out
+        # on "meta": every leaf, in the order drawn
+        self.drawn: list[torch.Tensor] | None = (
+            [] if self.device.type == "meta" else None)
+
+    def _dest(self, shape: tuple[int, ...], dtype: torch.dtype
+              ) -> torch.Tensor:
+        if self.out is None:
+            t = torch.empty(shape, dtype=dtype, device=self.device)
+            if self.drawn is not None:
+                self.drawn.append(t)
+            return t
+        t = next(self.out)
+        assert t.shape == shape and t.dtype == dtype, (t.shape, shape)
+        return t
+
+    def _randn(self, shape) -> torch.Tensor:
+        return torch.randn(shape, generator=self.gen, dtype=torch.float32,
+                           device=self.device)
 
     def normal(self, shape: tuple[int, ...],
                scale: float | None = None) -> torch.Tensor:
         fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
         std = scale if scale is not None else fan_in ** -0.5
-        x = torch.randn(shape, generator=self.gen, dtype=torch.float32,
-                        device=self.device)
-        return (x * std).to(self.dtype)
+        out = self._dest(shape, self.dtype)
+        if out.is_meta:
+            return out
+        rows = max(CHUNK_ELEMS // max(out[0].numel(), 1), 1)
+        if out.numel() <= CHUNK_ELEMS or len(shape) < 2:
+            rows = shape[0]
+        for i in range(0, shape[0], rows):
+            part = out[i:i + rows]
+            part.copy_(self._randn(part.shape).mul_(std))
+        return out
 
     def zeros(self, shape: tuple[int, ...]) -> torch.Tensor:
-        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+        return self._fill(self._dest(shape, self.dtype), 0.0)
 
     def ones(self, shape: tuple[int, ...]) -> torch.Tensor:
-        return torch.ones(shape, dtype=self.dtype, device=self.device)
+        return self._fill(self._dest(shape, self.dtype), 1.0)
 
     def int8(self, shape: tuple[int, ...]) -> torch.Tensor:
         """Uniform int8 in [-127, 127], as the reference's int8 leaves."""
-        x = torch.randint(-127, 128, shape, generator=self.gen,
-                          dtype=torch.int16, device=self.device)
-        return x.to(torch.int8)
+        out = self._dest(shape, torch.int8)
+        if not out.is_meta:
+            out.copy_(torch.randint(-127, 128, shape, generator=self.gen,
+                                    dtype=torch.int16, device=self.device))
+        return out
 
     def const(self, shape: tuple[int, ...], value: float) -> torch.Tensor:
         """A constant f32 leaf, whatever the parameter dtype."""
-        return torch.full(shape, value, dtype=torch.float32,
-                          device=self.device)
+        return self._fill(self._dest(shape, torch.float32), value)
+
+    @staticmethod
+    def _fill(t: torch.Tensor, value: float) -> torch.Tensor:
+        return t if t.is_meta else t.fill_(value)
 
 
 # ---------------------------------------------------------------------------
@@ -215,8 +263,8 @@ def apply_rwkv_cm(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # mixture of experts: top-k routing, sort-based dispatch, dropless (the
-# serving form); the capacity-dropping path and the load-balancing loss
-# belong to training
+# serving form) or capacity-dropping (the full-sequence forward); the
+# load-balancing loss belongs to training
 # ---------------------------------------------------------------------------
 TRAINING_ITEM = "ROADMAP Queue 1 item 9 (training)"
 
@@ -236,6 +284,38 @@ def init_moe(b: ParamInit, cfg: ModelConfig) -> dict:
     return p
 
 
+def moe_capacity(cfg: ModelConfig, T: int, dropless: bool) -> int:
+    """Rows an expert holds for T tokens: T when dropless (the top-k
+    experts of a token are distinct, so no expert gets more), else the
+    reference's ``max(int(T * k / E * capacity_factor), 1)``, rounded up
+    to a multiple of 128 from 128 on."""
+    if dropless:
+        return T
+    m = cfg.moe
+    cap = max(int(T * m.top_k / m.num_experts * m.capacity_factor), 1)
+    if cap >= 128:
+        cap = ((cap + 127) // 128) * 128
+    return cap
+
+
+def moe_combine(contrib: torch.Tensor, order: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """Each token's k expert rows summed in a fixed order. ``contrib``
+    (T*k, D) holds the rows in expert-sorted order, ``order`` the sort
+    permutation of the token-major (token, choice) pairs. Inverting it
+    puts every token's k rows side by side (a token has exactly k: its
+    top-k experts are distinct), and they are added choice 0, 1, ..., k-1:
+    the same sums in the same order on every run and device, with no
+    atomics and no host sync."""
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    rows = contrib[inv].view(-1, k, contrib.shape[-1])
+    out = rows[:, 0]
+    for i in range(1, k):
+        out = out + rows[:, i]
+    return out
+
+
 def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
               dropless: bool = True) -> torch.Tensor:
     """Top-k routed experts plus the shared experts, x (B,S,D) -> (B,S,D).
@@ -244,15 +324,16 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
     gates renormalised, the (token, expert) pairs stably sorted by expert
     and scattered into an (E, cap, D) buffer, the three expert products
     as batched matmuls over every expert, the rows gathered back, scaled
-    by their gates and scatter-added per token. Dropless: cap = T, the
-    worst case, so no token is dropped and routing is independent per
-    token (chunked prefill equals whole-prompt prefill). The step never
-    waits on the host: counts come from ``scatter_add_``, no ``.item()``,
-    ``bincount`` or ``nonzero``. The shared experts are the plain
-    `apply_mlp`, as in the reference."""
-    if not dropless:
-        raise NotImplementedError(
-            f"capacity-dropping MoE: {TRAINING_ITEM}; serving is dropless")
+    by their gates and summed per token (`moe_combine`, in a fixed order
+    where the reference scatter-adds). Dropless (serving): cap = T, so no
+    token is dropped and routing is independent per token (chunked
+    prefill equals whole-prompt prefill). Capacity-dropping (the
+    full-sequence forward): rows past `moe_capacity` in their expert are
+    dropped and contribute zero; the gates are not renormalised after the
+    drop, as in the reference. The step never waits on the host: counts
+    come from ``scatter_add_``, no ``.item()``, ``bincount`` or
+    ``nonzero``. The shared experts are the plain `apply_mlp`, as in the
+    reference."""
     m = cfg.moe
     cd = torch_dtype(cfg.compute_dtype)
     B, S, D = x.shape
@@ -276,27 +357,28 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
     offsets = torch.cumsum(counts, 0) - counts
     pos_in_expert = (torch.arange(T * k, device=x.device)
                      - offsets[sorted_expert])
-    # the top-k experts of a token are distinct, so an expert holds at
-    # most T rows: with cap = T every row keeps its place
-    cap = T
-    slot = sorted_expert * cap + pos_in_expert
-    buf = xf.new_zeros((E * cap, D))
+    cap = moe_capacity(cfg, T, dropless)
+    keep = pos_in_expert < cap
+    # a dropped row lands in the spare last row of the buffer
+    slot = torch.where(keep, sorted_expert * cap + pos_in_expert, E * cap)
+    buf = xf.new_zeros((E * cap + 1, D))
     buf[slot] = xf[sorted_token]
-    buf = buf.view(E, cap, D)
+    buf = buf[:-1].view(E, cap, D)
 
     h = torch.bmm(buf, p["w_up"].to(cd))
     h = F.silu(h) * torch.bmm(buf, p["w_gate"].to(cd))
     out_buf = torch.bmm(h, p["w_down"].to(cd)).view(E * cap, D)
 
-    contrib = out_buf[slot] * sorted_w[:, None].to(out_buf.dtype)
-    out = x.new_zeros((T, D)).index_add_(0, sorted_token,
-                                         contrib.to(x.dtype))
-    out = out.view(B, S, D)
+    gathered = out_buf[slot.clamp_max(E * cap - 1)]
+    gathered = torch.where(keep[:, None], gathered, 0.0)
+    contrib = gathered * sorted_w[:, None].to(out_buf.dtype)
+    out = moe_combine(contrib.to(x.dtype), order, k).reshape(B, S, D)
     if m.num_shared_experts > 0:
         out = out + apply_mlp(p["shared"], cfg, x, mlp_type="silu_gated")
     return out
 
 
 def moe_aux_loss(p: dict, cfg: ModelConfig, x: torch.Tensor):
-    """The Switch-style load-balancing loss is a training term."""
+    """The Switch-style load-balancing loss is a training term (the
+    full-sequence forward discards it, as the reference's does)."""
     raise NotImplementedError(f"moe_aux_loss: {TRAINING_ITEM}")

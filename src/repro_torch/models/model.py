@@ -1,17 +1,21 @@
-"""Config-driven decoder, PyTorch port of the reference's
-`models/model.py` for its serving modes.
+"""Config-driven model, PyTorch port of the reference's `models/model.py`.
 
-Every mixer of the reference's decoders runs: GQA attention (the paper's
-FastVLM/MobileVLM backbones, granite-3-2b and the dense archs), MLA with
-the dropless MoE (deepseek-v2-lite), RWKV6 with its channel mix
-(rwkv6-7b) and Mamba2 with one shared attention block (zamba2-1.2b: a
-single weight set under the top-level ``shared_attn``, applied by every
-``attn_shared`` unit, each with its own KV store). Parameters are a
-nested dict with the reference's leaf paths, so `bridge.params_from_jax`
-maps one tree onto the other; layers of a repeated unit stay stacked on
-a leading ``repeats`` axis and run in a Python loop where the reference
-scans. Modes:
+Every mixer of the reference runs: GQA attention (the paper's
+FastVLM/MobileVLM backbones, granite-3-2b, the dense archs, llama4's
+MoE layers and hubert-xlarge's non-causal encoder), MLA with the MoE
+(deepseek-v2-lite), RWKV6 with its channel mix (rwkv6-7b) and Mamba2
+with one shared attention block (zamba2-1.2b: a single weight set under
+the top-level ``shared_attn``, applied by every ``attn_shared`` unit,
+each with its own KV store). Parameters are a nested dict with the
+reference's leaf paths, so `bridge.params_from_jax` maps one tree onto
+the other; layers of a repeated unit stay stacked on a leading
+``repeats`` axis and run in a Python loop where the reference scans.
+Modes:
 
+  * full    — whole sequence, no caches, logits for every position
+              (`forward`: encoder inference, the training loss's
+              forward); causal unless the config is an encoder,
+              recurrences from a zero state, the MoE capacity-dropping
   * prefill — whole prompt; builds the flat/tiered KV stores
   * extend  — a chunk at absolute positions pos..pos+C-1 over the
               chunk-resumable workspace (``commit`` folds it into the
@@ -20,9 +24,10 @@ scans. Modes:
               serving backend decodes every slot in one call
 
 An attention block picks its mode from its own cache's form; a recurrent
-block (RWKV6 / Mamba2) takes its state in every mode, and its extend
-state is its decode state. Encoder-only configs and learned position
-embeddings raise NotImplementedError (ROADMAP Queue 1 item 7c).
+block (RWKV6 / Mamba2) takes its state in every mode but full, and its
+extend state is its decode state. An encoder (hubert-xlarge: audio
+frames through a linear connector, learned positions) has no cache to
+extend: `extend` and `decode_step` raise the reference's ValueError.
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ from repro_torch.tree import tree_leaves, tree_map
 
 
 SSM_MIXERS = ("rwkv6", "mamba2")
+# rows of the learned position table; later positions read its last row
+MAX_LEARNED_POS = 32_768
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,10 +107,6 @@ class Model:
         self.plan = build_plan(cfg)
         self.has_shared_attn = any(u.block.mixer == "attn_shared"
                                    for u in self.plan)
-        if cfg.is_encoder or cfg.pos_emb == "learned":
-            raise NotImplementedError(
-                "encoder-only models and learned position embeddings: "
-                "ROADMAP Queue 1 item 7c (hubert-xlarge)")
         m = cfg.vocab_pad_multiple
         self.padded_vocab = ((cfg.vocab_size + m - 1) // m) * m
         self.compute_dtype = L.torch_dtype(cfg.compute_dtype)
@@ -140,37 +143,49 @@ class Model:
                 p["mlp"] = L.init_mlp(b, cfg, mlp_type=spec.mlp)
         return p
 
+    def _init_stacked(self, b: L.ParamInit, spec: BlockSpec,
+                      repeats: int) -> dict:
+        """A repeated unit's leaves, allocated stacked once; each layer
+        is drawn straight into its slices, in the generator order of
+        drawing each layer in turn (the peak is the stacked tree)."""
+        shapes = L.ParamInit(None, b.dtype, "meta")
+        layer = self._init_block(shapes, spec)
+        bufs = [torch.empty((repeats,) + t.shape, dtype=t.dtype,
+                            device=b.device) for t in shapes.drawn]
+        index = {id(t): i for i, t in enumerate(shapes.drawn)}
+        for r in range(repeats):
+            self._init_block(L.ParamInit(b.gen, b.dtype, b.device,
+                                         out=iter([t[r] for t in bufs])),
+                             spec)
+        return tree_map(lambda t: bufs[index[id(t)]], layer)
+
     def init(self, generator: torch.Generator | None = None,
              device="cpu") -> dict:
-        """Random parameters in the reference's shapes and scales. A
-        repeated unit's leaves are allocated stacked once and filled
-        layer by layer, in the generator order of drawing each layer in
-        turn, so the peak is the stacked tree plus one layer."""
+        """Random parameters in the reference's shapes and scales (no
+        embedding table on the audio family; the learned position table
+        where ``pos_emb == "learned"``). A repeated unit's leaves are
+        filled in place (`_init_stacked`)."""
         cfg = self.cfg
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         b = L.ParamInit(generator, L.torch_dtype(cfg.param_dtype), device)
-        params: dict = {"embed": {"table": b.normal(
-            (self.padded_vocab, cfg.d_model), scale=1.0)}}
+        params: dict = {}
+        if cfg.family != "audio":
+            params["embed"] = {"table": b.normal(
+                (self.padded_vocab, cfg.d_model), scale=1.0)}
+        if cfg.pos_emb == "learned":
+            params["pos_emb"] = b.normal((MAX_LEARNED_POS, cfg.d_model),
+                                         scale=0.02)
         if cfg.frontend is not None:
             params["frontend"] = V.init_frontend(b, cfg)
         units = {}
         for ui, unit in enumerate(self.plan):
             if unit.block.mixer == "attn_shared":
                 continue          # the shared weights live at the top level
-            if unit.repeats == 1:
-                units[f"u{ui}"] = self._init_block(b, unit.block)
-            else:
-                layer = self._init_block(b, unit.block)
-                stacked = tree_map(lambda a: a.new_empty(
-                    (unit.repeats,) + a.shape), layer)
-                for r in range(unit.repeats):
-                    if r:
-                        del layer          # one layer alive at a time
-                        layer = self._init_block(b, unit.block)
-                    tree_map(lambda s, a: s[r].copy_(a), stacked, layer)
-                del layer
-                units[f"u{ui}"] = stacked
+            units[f"u{ui}"] = (self._init_block(b, unit.block)
+                               if unit.repeats == 1 else
+                               self._init_stacked(b, unit.block,
+                                                  unit.repeats))
         params["units"] = units
         if self.has_shared_attn:
             params["shared_attn"] = self._init_block(
@@ -266,13 +281,15 @@ class Model:
         cfg = self.cfg
         cd = self.compute_dtype
         dev = _device_of(params)
-        table = params["embed"]["table"]
 
         def tokens():
             ids = torch.as_tensor(batch["tokens"], device=dev).long()
-            return table[ids].to(cd)
+            return params["embed"]["table"][ids].to(cd)
 
-        if cfg.frontend is not None and "patches" in batch:
+        if cfg.family == "audio":
+            frames = torch.as_tensor(batch["frames"], device=dev)
+            x = V.apply_connector(params["frontend"], cfg, frames)
+        elif cfg.frontend is not None and "patches" in batch:
             patches = torch.as_tensor(batch["patches"], device=dev)
             x = V.apply_connector(params["frontend"], cfg, patches)
             if "tokens" in batch:
@@ -286,6 +303,9 @@ class Model:
         else:
             p = KT.pos_rows(pos, B, dev)[:, None]
             positions = p + ar if ramp else p.expand(B, Sq)
+        if cfg.pos_emb == "learned":
+            x = x + params["pos_emb"][
+                positions.clamp_max(MAX_LEARNED_POS - 1)].to(cd)
         return x, positions
 
     def _run_block(self, spec: BlockSpec, bp: dict, x: torch.Tensor,
@@ -293,24 +313,33 @@ class Model:
                    plen=None, commit: bool = False
                    ) -> tuple[torch.Tensor, dict]:
         cfg = self.cfg
+        full = mode == "full"
         h = fusion.apply_norm(bp["ln1"], cfg, x)
         if spec.mixer in SSM_MIXERS:
-            # the state rides in every mode: zeros at prefill, the extend
-            # workspace's state, the committed one at decode
+            # the state rides in every mode but full: zeros at prefill,
+            # the extend workspace's state, the committed one at decode;
+            # the full forward starts from a zero state of its own
             if spec.mixer == "rwkv6":
-                out, tm = SSM.apply_rwkv6(bp["mixer"], cfg, h, bcache["tm"])
+                out, tm = SSM.apply_rwkv6(bp["mixer"], cfg, h,
+                                          None if full else bcache["tm"])
                 new_cache = {"tm": tm}
             else:
                 out, new_cache = SSM.apply_mamba2(bp["mixer"], cfg, h,
-                                                  bcache)
-            return self._mlp_half(spec, bp, x + out, bcache, new_cache)
+                                                  None if full else bcache)
+            return self._mlp_half(spec, bp, x + out, bcache, new_cache,
+                                  full)
         mla = spec.mixer == "mla"
         first = next(iter(self._cache_inner(spec)))    # "k" or "c_kv"
-        if mode == "prefill":
-            st = bcache[first]
-            ml = st["flat"].shape[1] if "flat" in st else st["cold_q"].shape[1]
+        if mode in ("full", "prefill"):
+            ml = 0
+            if not full:
+                st = bcache[first]
+                ml = (st["flat"].shape[1] if "flat" in st
+                      else st["cold_q"].shape[1])
             seq = fusion.apply_mla_seq if mla else fusion.apply_attention_seq
-            out, new_cache = seq(bp["mixer"], cfg, h, positions, ml,
+            out, new_cache = seq(bp["mixer"], cfg, h, positions,
+                                 causal=not cfg.is_encoder,
+                                 build_cache=not full, max_len=ml,
                                  length=plen)
         elif f"{first}_ws" in bcache:   # workspace form: chunked prefill
             ext = (fusion.apply_mla_extend if mla
@@ -321,11 +350,11 @@ class Model:
             dec = (fusion.apply_mla_decode if mla
                    else fusion.apply_attention_decode)
             out, new_cache = dec(bp["mixer"], cfg, h, bcache, pos)
-        return self._mlp_half(spec, bp, x + out, bcache, new_cache)
+        return self._mlp_half(spec, bp, x + out, bcache, new_cache, full)
 
     def _mlp_half(self, spec: BlockSpec, bp: dict, x: torch.Tensor,
-                  bcache: dict, new_cache: dict
-                  ) -> tuple[torch.Tensor, dict]:
+                  bcache: dict, new_cache: dict | None, full: bool
+                  ) -> tuple[torch.Tensor, dict | None]:
         """The block's second half: pre-norm, the MLP, the residual."""
         cfg = self.cfg
         if spec.mlp is None:
@@ -333,20 +362,25 @@ class Model:
         h2 = fusion.apply_norm(bp["ln2"], cfg, x)
         if spec.mlp == "rwkv_cm":
             # stateful: the channel mix's token shift carries its last row
+            # (the full forward shifts in zeros, as at a fresh prefill)
             out, prev = L.apply_rwkv_cm(bp["mlp"], cfg, h2,
-                                        bcache["cm_x_prev"])
-            new_cache["cm_x_prev"] = prev.to(self.compute_dtype)
+                                        None if full else bcache["cm_x_prev"])
+            if not full:
+                new_cache["cm_x_prev"] = prev.to(self.compute_dtype)
             return x + out, new_cache
         # a MoE model's dense first layers are gated FFNs of width
-        # moe.d_ff_dense (their leaves say so), run by ffn_act
+        # moe.d_ff_dense (their leaves say so), run by ffn_act; the MoE
+        # drops past its capacity in the full forward only
         kind = "silu_gated" if spec.mlp == "dense_first" else spec.mlp
-        return x + fusion.apply_ffn(bp["mlp"], cfg, h2, mlp_type=kind), \
-            new_cache
+        return x + fusion.apply_ffn(bp["mlp"], cfg, h2, mlp_type=kind,
+                                    dropless=not full), new_cache
 
     def _run_unit(self, ui: int, unit: UnitSpec, params: dict,
-                  x: torch.Tensor, positions: torch.Tensor, ucache: dict,
-                  pos, mode: str, plen=None, commit: bool = False
-                  ) -> tuple[torch.Tensor, dict]:
+                  x: torch.Tensor, positions: torch.Tensor,
+                  ucache: dict | None, pos, mode: str, plen=None,
+                  commit: bool = False) -> tuple[torch.Tensor, dict | None]:
+        """One unit's layers in turn; ``ucache`` is None in the full
+        forward, which makes and returns no cache."""
         # a shared-attention unit applies the one top-level weight set
         shared = unit.block.mixer == "attn_shared"
         up = params["shared_attn"] if shared else params["units"][f"u{ui}"]
@@ -356,27 +390,35 @@ class Model:
         ncs = []
         for r in range(unit.repeats):
             bp = up if shared else tree_map(lambda a: a[r], up)
-            bc = tree_map(lambda a: a[r], ucache)
+            bc = None if ucache is None else tree_map(lambda a: a[r], ucache)
             x, nc = self._run_block(unit.block, bp, x, positions, bc, pos,
                                     mode, plen, commit)
             ncs.append(nc)
+        if ucache is None:
+            return x, None
         return x, tree_map(lambda *a: torch.stack(a), *ncs)
 
-    def _forward(self, params: dict, batch: dict, mode: str, cache: dict,
-                 pos, plen=None, commit: bool = False
-                 ) -> tuple[torch.Tensor, dict]:
-        """``mode`` is "prefill" (whole prompt from position 0) or
-        "extend" (rows at pos..); returns the last valid row's logits."""
+    def _forward(self, params: dict, batch: dict, mode: str,
+                 cache: dict | None, pos, plen=None, commit: bool = False
+                 ) -> tuple[torch.Tensor, dict | None]:
+        """``mode`` is "full" (every row's logits, no cache), "prefill"
+        (whole prompt from position 0) or "extend" (rows at pos..); the
+        last two return the last valid row's logits."""
         cfg = self.cfg
         x, positions = self._embed(params, batch, pos,
                                    ramp=(mode == "extend"))
-        new_cache = {}
+        new_cache = None if cache is None else {}
         for ui, unit in enumerate(self.plan):
-            x, new_cache[f"u{ui}"] = self._run_unit(
-                ui, unit, params, x, positions, cache[f"u{ui}"], pos, mode,
-                plen, commit)
+            x, nc = self._run_unit(
+                ui, unit, params, x, positions,
+                None if cache is None else cache[f"u{ui}"], pos, mode, plen,
+                commit)
+            if cache is not None:
+                new_cache[f"u{ui}"] = nc
         x = fusion.apply_norm(params["final_norm"], cfg, x)
-        x = x[:, -1:] if plen is None else x[:, int(plen) - 1:int(plen)]
+        if mode != "full":
+            x = (x[:, -1:] if plen is None
+                 else x[:, int(plen) - 1:int(plen)])
         if cfg.tie_embeddings:
             logits = torch.einsum("bsd,vd->bsv", x,
                                   params["embed"]["table"].to(x.dtype))
@@ -388,6 +430,13 @@ class Model:
     # ------------------------------------------------------------------
     # public entry points
     # ------------------------------------------------------------------
+    @torch.no_grad()
+    def forward(self, params: dict, batch: dict) -> torch.Tensor:
+        """The full-sequence forward: logits (B, S, V) for every position
+        of ``batch`` ("tokens", "patches" and / or "frames", as the
+        config takes), with no cache; an encoder's only entry point."""
+        return self._forward(params, batch, "full", None, None)[0]
+
     @torch.no_grad()
     def prefill(self, params: dict, batch: dict, max_len: int,
                 length=None) -> tuple[torch.Tensor, dict]:
@@ -406,7 +455,9 @@ class Model:
         at absolute positions pos.. over the workspace form (chunked
         prefill; ``commit`` on the final chunk), or one token over the
         committed stores (decode). Returns (logits of the last valid row
-        (B,1,V), new cache)."""
+        (B,1,V), new cache). An encoder has no cache: ValueError."""
+        if self.cfg.is_encoder:
+            raise ValueError("encoder-only model cannot extend a cache")
         return self._forward(params, batch, "extend", cache, pos,
                              plen=length, commit=commit)
 

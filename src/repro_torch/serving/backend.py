@@ -185,6 +185,8 @@ class LocalBackend:
                  sparse_read: float | None = None,
                  weight_stream: int | None = None):
         cfg = model.cfg
+        if cfg.is_encoder:
+            raise ValueError("encoder-only model cannot be served")
         if num_slots < 1:
             raise ValueError("backend needs at least one decode slot")
         if n_spill is None:

@@ -130,7 +130,8 @@ def test_nothing_builds_at_import():
                                   "granite-3-2b", "nemotron-4-340b",
                                   "deepseek-v2-lite", "stablelm-12b",
                                   "starcoder2-7b", "paligemma-3b",
-                                  "rwkv6-7b", "zamba2-1.2b"])
+                                  "rwkv6-7b", "zamba2-1.2b",
+                                  "hubert-xlarge", "llama4-maverick-400b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_configs_equal_field_by_field(arch, reduced):
     assert as_dict(get_config(arch, reduced=reduced)) == as_dict(
@@ -142,12 +143,9 @@ def test_registry_constants_match():
     assert PB.PAPER_MODELS == RB.PAPER_MODELS
     assert [dataclasses.astuple(s) for s in PB.LM_SHAPES] == \
         [dataclasses.astuple(s) for s in RB.LM_SHAPES]
-    # the port registers only the arch modules whose mixers it runs
-    assert set(PB.list_archs()) == {"granite-3-2b", "nemotron-4-340b",
-                                    "deepseek-v2-lite", "stablelm-12b",
-                                    "starcoder2-7b", "paligemma-3b",
-                                    "rwkv6-7b", "zamba2-1.2b",
-                                    *PB.PAPER_MODELS}
+    # the port registers every arch of the reference
+    assert set(PB.list_archs()) == set(RB.list_archs()) == {
+        *PB.ASSIGNED_ARCHS, *PB.PAPER_MODELS}
     for arch in PB.list_archs():
         assert get_config(arch).param_count() == \
             ref_get_config(arch).param_count()
@@ -173,7 +171,9 @@ def test_small_mobilevlm_is_mha_without_bias_with_untied_head():
 # ---------------------------------------------------------------------------
 # bridge
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS + ("deepseek-v2-lite",))
+@pytest.mark.parametrize("arch", ARCHS + ("deepseek-v2-lite",
+                                          "hubert-xlarge",
+                                          "llama4-maverick-400b"))
 def test_bridge_maps_every_leaf_exactly(arch):
     _, rmodel, rparams, _, model, params = build_pair(arch)
     flat_ref = {jax.tree_util.keystr(p): np.asarray(v) for p, v in

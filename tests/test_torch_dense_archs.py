@@ -125,6 +125,11 @@ def test_model_logits_match_reference(arch, kv_policy):
     BOTH rows in one batched call at their own positions: every logit
     within 1e-4 of the reference's (whose decode runs a row at a
     time)."""
+    check_model_logits(arch, kv_policy)
+
+
+def check_model_logits(arch: str, kv_policy: str) -> None:
+    """The body of `test_model_logits_match_reference`, for any arch."""
     _, _, _, pc, model, params = build_pair(arch, kv_policy)
     ref = _ref_run(arch, kv_policy)
     caches, last, pos = [], [], []
@@ -197,6 +202,11 @@ def test_engine_matches_reference_engine(arch):
     """Port and reference engines on the same stream (VQA and text on
     paligemma), 2 slots over the tiered store: identical StepPlans,
     token streams, stats and endurance reports."""
+    check_engine(arch)
+
+
+def check_engine(arch: str) -> None:
+    """The body of `test_engine_matches_reference_engine`, for any arch."""
     _, rmodel, rparams, pc, model, params = build_pair(arch)
     stream = _stream(pc, seed=5)
     eng = Engine(LocalBackend(model, params, 2, 40, device="cpu"))
@@ -225,15 +235,21 @@ def test_serve_cli_paligemma_with_images_on_cpu(capsys):
 
 
 def test_waiting_mixers_still_raise():
-    """Every mixer is ported (rwkv6 and mamba2 build); what still waits
-    is hubert-xlarge's shape: an encoder-only config or learned position
-    embeddings raise, naming ROADMAP Queue 1 item 7c."""
+    """Every mixer and config shape is ported: rwkv6 and mamba2 build, and
+    so do an encoder-only config and learned position embeddings
+    (hubert-xlarge's shape). What an encoder cannot do raises the
+    reference's ValueErrors: it cannot be served or extend a cache."""
     cfg = get_config("stablelm-12b", reduced=True)
     for mixer in ("rwkv6", "mamba2"):
         Model(cfg.replace(segments=(Segment((mixer,), 2),)))
-    for knobs in (dict(is_encoder=True), dict(pos_emb="learned")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*7c"):
-            Model(cfg.replace(**knobs))
+    Model(cfg.replace(pos_emb="learned"))
+    enc = Model(cfg.replace(is_encoder=True))
+    params = enc.init()
+    with pytest.raises(ValueError, match="cannot be served"):
+        LocalBackend(enc, params, 2, 16, device="cpu")
+    with pytest.raises(ValueError, match="cannot extend a cache"):
+        enc.extend(params, {"tokens": np.zeros((1, 2), np.int32)},
+                   enc.init_extend_cache(1, 16), 0)
 
 
 # ---------------------------------------------------------------------------

@@ -250,13 +250,27 @@ def test_apply_moe_dropless_matches_reference(shape):
 
 
 def test_moe_training_paths_raise():
-    _, pc = _cfgs()
-    pp = tree_map(_t, _moe_params(pc, seed=6))
-    x = torch.zeros(1, 2, pc.d_model)
+    """The load-balancing loss is still training's (item 9); the
+    capacity-dropping path of the full-sequence forward now runs: 2 x 9
+    alike tokens overflow an expert's capacity, and the dropped output
+    equals the reference's (dropless=False), apart from the dropless one."""
+    rc, pc = _cfgs()
+    p = _moe_params(pc, seed=6)
+    pp = tree_map(_t, p)
     with pytest.raises(NotImplementedError, match="item 9"):
-        L.apply_moe(pp, pc, x, dropless=False)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        L.moe_aux_loss(pp, pc, x)
+        L.moe_aux_loss(pp, pc, torch.zeros(1, 2, pc.d_model))
+    x = np.random.default_rng(8).standard_normal(
+        (2, 9, pc.d_model)).astype(np.float32)
+    x[:, 2:] = x[:, 2:3]
+    T = x.shape[0] * x.shape[1]
+    probs = torch.softmax(_t(x).reshape(T, -1) @ pp["router"], -1)
+    top = probs.topk(pc.moe.top_k, -1).indices.reshape(-1)
+    assert int(torch.bincount(top).max()) > L.moe_capacity(pc, T, False)
+    ref = RL.apply_moe(jax.tree.map(jnp.asarray, p), rc, jnp.asarray(x),
+                       None, dropless=False)
+    mine = L.apply_moe(pp, pc, _t(x), dropless=False)
+    _assert_close(mine, ref)
+    assert not torch.allclose(mine, L.apply_moe(pp, pc, _t(x)), atol=1e-3)
 
 
 # ---------------------------------------------------------------------------

@@ -231,14 +231,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_unported_paths_raise_not_implemented():
-    """What is still to port raises, naming its ROADMAP item: learned
-    position embeddings (hubert-xlarge's) and the sharded backend.
+    """What is still to port raises, naming its ROADMAP item: the sharded
+    backend. Learned position embeddings (hubert-xlarge's) build, and an
+    encoder is refused by the backend with the reference's ValueError.
     (Every mixer, spill lanes, the paged prefix store and weight
     streaming are ported: they work.)"""
     cfg = get_config("granite-3-2b", reduced=True)
     Model(cfg.replace(segments=(Segment(("mamba2",), 2),)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg.replace(pos_emb="learned"))
+    learned = Model(cfg.replace(pos_emb="learned"))
+    assert learned.init()["pos_emb"].shape[1] == cfg.d_model
+    enc = Model(cfg.replace(is_encoder=True))
+    with pytest.raises(ValueError, match="encoder-only"):
+        LocalBackend(enc, enc.init(), 2, 16, device="cpu")
     _, _, _, _, model, params = build_pair("granite-3-2b")
     be = LocalBackend(model, params, 2, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
