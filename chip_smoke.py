@@ -255,6 +255,29 @@ source, all started together; seven kernels), then:
      at a 1-layer cut (73.5 GB), Engine == generate (tie rule) on 4
      text requests of 128 with 16 new, the free memory before the build
      and the peak printed.
+  8. train — fastvlm-1.7b training in f32 (TF32 off), as the train CLI
+     trains. Each kernel Function of the training path (`fused_norm`,
+     `qkv_proj` with bias, `attn_stream` causal, `ffn_act` silu_gated)
+     at the training shapes (M = 8 x 256 rows; q (8, 256, 12, 128), 2
+     kv heads; F 8960): its output (the kernel) and every input gradient
+     (the twin's VJP) against autograd through the plain twin, <= 1e-4
+     of the largest element, each forward timed beside the twin, one
+     library call and its f32 bound. At a 2-layer cut (full width, B 2 x S 128):
+     the loss and every gradient leaf on the card against the host
+     CPU's, <= 1e-4 of the leaf's largest element, no leaf None,
+     non-finite or all zero, remat "none" and "full". At full width and
+     depth (28 layers, ~1.55 B parameters): six `make_train_step` steps
+     on the pipeline's VQA batches (8 x 256: 64 visual + 192 text) with
+     the CLI's AdamW at --steps 6; step 1's gradients all present and
+     finite, finite losses, exactly fused_norm 57 and qkv_proj /
+     attn_stream / ffn_act 28 launches a step (none in backward); step
+     ms, tokens/s, peak memory, 6 N T FLOP beside its f32 floor, a
+     profiled step (busy, idle share, the forward kernels against the
+     rest). Then checkpoint + resume at the cut under deterministic
+     algorithms: a `FaultTolerantLoop` with an injected failure past
+     its retry, and a fresh resume from the checkpoint, each `torch.equal`
+     to an uninterrupted run (params, mu, nu, step); save and restore
+     seconds.
   Every dense, MoE and recurrent bf16 run prints its decode busy beside
   the weight floor: every weight read once a step (the embedding table
   left out unless it is the tied head; a shared block once an
@@ -262,7 +285,8 @@ source, all started together; seven kernels), then:
 
 It prints the card (name, power limit), the kernel build time, the
 phases' results, then one JSON line {"kernels": [...]} (launches summed
-over every serving run; host_ms is call ms minus device ms) and,
+over every serving run and the train phase's six steps; host_ms is call
+ms minus device ms) and,
 last, the device JSON line. It fails
 (non-zero exit, no result lines) without a card, outside the repository,
 or when any check fails. `--phases` selects a subset (e.g. `--phases
@@ -270,7 +294,8 @@ kernels` for a quick compile check; `--phases kernels,deepseek` for the
 kernels and only the deepseek-v2-lite parity and serving runs;
 `--phases kernels,stablelm,starcoder2,paligemma` for the kernels and
 the dense archs' runs; `--phases kernels,rwkv6,zamba2` for the
-recurrent archs'; `--phases kernels,hubert,llama4` for this slice's;
+recurrent archs'; `--phases kernels,hubert,llama4` for the full-sequence
+forward's; `--phases kernels,train` for training;
 `--phases deepseek-full` for deepseek-v2-lite's f32 parity at full
 depth (27 layers, not a default phase; it runs after every other
 phase).
@@ -282,6 +307,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -3036,6 +3062,494 @@ def llama4_phase(pk: dict, dev: str = "cuda") -> dict:
     return out
 
 
+# fastvlm-1.7b training (the train phase): 8 VQA rows of 256 positions (64
+# visual + 192 text) a step, f32 (TF32 off), as the train CLI trains; the
+# card-vs-host gradient check and the resume check at a 2-layer cut
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CUT = 8, 256, 6, 2
+# the port's kernels by device name: a profiled step's forward kernels
+OWN_KERNELS = ("fused_norm_kernel", "qkv_fma_kernel", "qkv_gemv_kernel",
+               "qkv_wgmma_kernel", "attn_fma_kernel", "attn_wgmma_kernel",
+               "ffn_up_kernel", "ffn_act_kernel", "ffn_down_kernel",
+               "ffn_reduce_kernel", "ffn_stream_mma_kernel")
+
+
+def _train_model(dev: str, layers: int | None = None):
+    """fastvlm-1.7b at full width in f32 with no remat, as the train CLI
+    builds it; ``layers`` cuts the depth."""
+    knobs = dict(remat="none")
+    if layers is not None:
+        knobs.update(num_layers=layers, segments=())
+    return _model("fastvlm-1.7b", "float32", dev, **knobs)
+
+
+def _loss_grads(model, params, batch):
+    """(loss, {leaf path: gradient or None}) of `Model.loss` by autograd."""
+    import torch
+
+    from repro_torch.tree import tree_leaves_with_path
+    paths, leaves = zip(*tree_leaves_with_path(params))
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return loss.detach(), dict(zip(paths, grads))
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over the largest |want| (0 where both are 0)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    return err / scale if scale else err
+
+
+def train_kernel_grads(pk: dict, dev: str = "cuda") -> dict:
+    """Each kernel Function of the training path at fastvlm-1.7b's
+    training shapes (M = 8 x 256 = 2048 rows): its output (the kernel)
+    and every input gradient (the twin's VJP) against autograd through
+    the plain twin on the same inputs, f32, within 1e-4 of the largest
+    element; each forward must launch its kernel once and record a
+    `KernelGrad` node. On the card each kernel's forward is timed
+    beside its plain twin, one library call computing the same function
+    and its bound at the f32 peak, with the Function's forward and
+    backward together."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels
+    from repro_torch.kernels import ffn_act as FF
+    from repro_torch.kernels import fused_norm as FN
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qkv_proj as QK
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def t(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    B, S, D, H, Hkv, Dh, F_ = (TRAIN_B, TRAIN_S, D_MODEL, HEADS, KV_HEADS,
+                               HEAD_DIM, D_FF)
+    x = t(B, S, D)
+
+    def rows(plain, x, *rest, **kw):
+        return plain(x.reshape(-1, x.shape[-1]), *rest, **kw).reshape(
+            *x.shape[:-1], -1)
+    cases = {
+        "fused_norm": (
+            lambda x, s: ops.fused_norm(x, s, None, "rms"),
+            lambda x, s: rows(FN.fused_norm_plain, x, s, None, "rms"),
+            (x, 1.0 + 0.1 * t(D))),
+        "qkv_proj": (
+            ops.qkv_proj,
+            functools.partial(ops._qkv_call, QK.qkv_proj_plain),
+            (x, t(D, H, Dh, std=D ** -0.5), t(D, Hkv, Dh, std=D ** -0.5),
+             t(D, Hkv, Dh, std=D ** -0.5), t(H, Dh, std=0.1),
+             t(Hkv, Dh, std=0.1), t(Hkv, Dh, std=0.1))),
+        "attn_stream": (
+            ops.attn_stream, functools.partial(ops._attn_plain, causal=True),
+            (t(B, S, H, Dh), t(B, S, Hkv, Dh), t(B, S, Hkv, Dh))),
+        "ffn_act": (
+            lambda *a: ops.ffn_act(*a, "silu_gated"),
+            lambda x, *w: rows(FF.ffn_act_plain, x, *w, kind="silu_gated"),
+            (x, t(D, F_, std=D ** -0.5), t(D, F_, std=D ** -0.5),
+             t(F_, D, std=F_ ** -0.5))),
+    }
+    M, N = B * S, (H + 2 * Hkv) * Dh
+    # (library call on the same inputs, bytes read and written, f32 ops)
+    library = {
+        "fused_norm": (lambda x, s: F.rms_norm(x, (D,), s, 1e-6),
+                       (2 * M * D + D) * 4, 0),
+        "qkv_proj": (lambda x, *w: [torch.addmm(b.reshape(-1),
+                                                x.reshape(M, D),
+                                                wt.reshape(D, -1))
+                                    for wt, b in zip(w[:3], w[3:])],
+                     (M * D + D * N + N + M * N) * 4, 2 * M * D * N),
+        "attn_stream": (lambda q, k, v: F.scaled_dot_product_attention(
+                            q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), is_causal=True,
+                            enable_gqa=True),
+                        2 * B * (H + Hkv) * S * Dh * 4,
+                        4 * B * H * Dh * S * (S + 1) // 2),
+        "ffn_act": (lambda x, wu, wg, wd: (F.silu(x @ wu) * (x @ wg)) @ wd,
+                    (2 * M * D + 3 * D * F_) * 4, 6 * M * D * F_),
+    }
+    res = {}
+    for name, (fn, plain, inputs) in cases.items():
+        xs = [a.detach().requires_grad_(True) for a in inputs]
+        n0 = kernels.launch_counts()[name]
+        out = fn(*xs)
+        outs = out if isinstance(out, tuple) else (out,)
+        require(kernels.launch_counts()[name] == n0 + (dev == "cuda")
+                and all(type(o.grad_fn).__name__ == "KernelGradBackward"
+                        for o in outs),
+                f"train: {name}'s Function did not launch its kernel once")
+        cot = [t(*o.shape) for o in outs]
+        got = torch.autograd.grad(outs, xs, cot)
+        ys = [a.detach().requires_grad_(True) for a in inputs]
+        ref = plain(*ys)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        want = torch.autograd.grad(refs, ys, cot)
+        errs = {"out": max(_rel(o.detach(), r.detach())
+                           for o, r in zip(outs, refs))}
+        errs.update({f"grad{i}": _rel(g, w)
+                     for i, (g, w) in enumerate(zip(got, want))})
+        res[name] = {"shapes": [list(a.shape) for a in inputs], **errs}
+        print(f"[train] {name} Function at {[tuple(a.shape) for a in inputs]}"
+              f": output and input gradients vs the twin's autograd, max "
+              f"|diff| / max |ref|: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + " (limit 1e-4)")
+        require(max(errs.values()) <= 1e-4,
+                f"train: {name}'s Function vs the twin {errs}")
+        del ys, out, outs, ref, refs, got, want
+        if dev == "cuda":
+            lib, nbytes, flops = library[name]
+            b_ms, b_by = bound(pk, nbytes, flops, "float32")
+            with torch.no_grad():
+                times = {k: time_ms(functools.partial(f, *inputs), reps=10)
+                         for k, f in (("ms", fn), ("plain_ms", plain),
+                                      ("library_ms", lib))}
+
+            def fwd_bwd():
+                o = fn(*xs)
+                o = o if isinstance(o, tuple) else (o,)
+                torch.autograd.grad(o, xs, cot)
+            times["fwd_bwd_ms"] = time_ms(fwd_bwd, reps=10)
+            res[name].update(times, bound_ms=b_ms, bound_by=b_by)
+            print(f"[train] {name} f32 at M {M}: kernel {times['ms']:.3f} ms"
+                  f", plain {times['plain_ms']:.3f}, library "
+                  f"{times['library_ms']:.3f}, bound {b_ms:.3f} ({b_by}); "
+                  f"the Function's forward + backward "
+                  f"{times['fwd_bwd_ms']:.3f} ms")
+        del xs, cot
+    return res
+
+
+def train_grad_parity(dev: str = "cuda") -> dict:
+    """`Model.loss` and every gradient leaf at a 2-layer cut of
+    fastvlm-1.7b at full width (f32, B 2 x S 128: 64 visual + 64 text
+    positions of the pipeline's VQA layout) on the card against the
+    same on the host CPU (the kernels' plain twins), with remat "none"
+    and "full": each within 1e-4 of the host's largest element; no leaf
+    None, non-finite or all zero (what a kernel unseen by autograd
+    leaves)."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_map
+
+    cfg, model, params = _train_model(dev, TRAIN_CUT)
+    batch = SyntheticPipeline(cfg, DataConfig(2, 128, seed=1)).host_slice(0)
+    host = tree_map(lambda a: a.cpu(), params)
+    t0 = time.perf_counter()
+    want_loss, want = _loss_grads(model, host, batch)
+    host_s = time.perf_counter() - t0
+    res = {"layers": TRAIN_CUT, "host_s": host_s,
+           "loss_host": float(want_loss)}
+    for remat in ("none", "full"):
+        m = Model(cfg.replace(remat=remat))
+        loss, got = _loss_grads(m, params, batch)
+        bad = [".".join(p) for p, g in got.items() if g is None
+               or not bool(torch.isfinite(g).all()) or not bool(g.any())]
+        errs = {".".join(p): _rel(g, want[p]) for p, g in got.items()
+                if g is not None}
+        worst = max(errs, key=errs.get)
+        loss_err = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+        res[remat] = {"loss": float(loss), "loss_rel_err": loss_err,
+                      "max_rel_err": errs[worst], "worst_leaf": worst,
+                      "bad_leaves": bad, "leaves": len(got)}
+        print(f"[train] grads, 2-layer cut, remat {remat}: loss card "
+              f"{float(loss):.6f} host {float(want_loss):.6f} (rel "
+              f"{loss_err:.2e}); {len(got)} leaves, worst {worst} "
+              f"{errs[worst]:.2e} of its largest element (limit 1e-4); "
+              f"None / non-finite / all-zero leaves: {bad or 'none'} "
+              f"(host {host_s:.1f} s)")
+        require(not bad and errs[worst] <= 1e-4 and loss_err <= 1e-4,
+                f"train: card vs host gradients, remat {remat}: bad {bad}, "
+                f"worst {worst} {errs[worst]:.2e}, loss {loss_err:.2e}")
+        del got
+    del params, host
+    return res
+
+
+def train_run(pk: dict, dev: str = "cuda") -> dict:
+    """Six `make_train_step` steps of fastvlm-1.7b at full width and depth
+    (28 layers, f32, TF32 off) with the train CLI's AdamW at --steps 6,
+    on the pipeline's VQA batches (8 x 256). Step 1's gradients, as the
+    step hands them to AdamW: none None, all finite. Every step: a finite
+    loss and exactly 2 x 28 + 1 `fused_norm` and 28 `qkv_proj`,
+    `attn_stream` and `ffn_act` launches, nothing else (the backward runs
+    the twins' VJPs and, at remat "none", recomputes nothing). Prints the
+    step time (median of steps 2-5), tokens/s, the peak memory, 6 N T
+    FLOP and its floor at the f32 CUDA-core peak, and a profile of step
+    6 (busy ms, idle share, the forward kernels against the rest)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree import tree_leaves
+
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, params = _train_model(dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    opt = AdamWConfig(lr=3e-3, warmup_steps=max(TRAIN_STEPS // 10, 1),
+                      total_steps=TRAIN_STEPS)
+    state = adamw_init(params, opt)
+    pipe = SyntheticPipeline(cfg, DataConfig(TRAIN_B, TRAIN_S, seed=0))
+    step = ST.make_train_step(model, opt)
+    n_norm, n_gqa, n_ffn = plan_counts(model)
+    want = dict.fromkeys(kernels.launch_counts(), 0)
+    if cuda:
+        want.update(fused_norm=n_norm, qkv_proj=n_gqa, attn_stream=n_gqa,
+                    ffn_act=n_ffn)
+    require((n_norm, n_gqa, n_ffn) == (2 * cfg.num_layers + 1,
+                                       cfg.num_layers, cfg.num_layers),
+            f"train: plan counts {(n_norm, n_gqa, n_ffn)}")
+    print(f"[train] fastvlm-1.7b f32: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads x "
+          f"{cfg.head_dim}, QKV bias {cfg.use_attn_bias}, {cfg.mlp_type} F "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied {cfg.tie_embeddings}: "
+          f"{n_params:,} parameters ({4 * n_params / 1e9:.2f} GB f32; "
+          f"params + grads + mu + nu {16 * n_params / 1e9:.2f} GB) built in "
+          f"{init_s:.1f} s; {TRAIN_B} x {TRAIN_S} VQA rows a step "
+          f"({cfg.frontend.num_tokens} visual + "
+          f"{TRAIN_S - cfg.frontend.num_tokens} text)")
+    checked = {}
+    update = ST.adamw_update
+
+    def check_grads(st, grads, ocfg):
+        if not checked:
+            gs = tree_leaves(grads)
+            checked.update(leaves=len(gs), none=sum(g is None for g in gs),
+                           finite=all(bool(torch.isfinite(g).all())
+                                      for g in gs if g is not None))
+        return update(st, grads, ocfg)
+    losses, wall, counts, prof_res = [], [], [], {}
+    ST.adamw_update = check_grads
+    try:
+        for t in range(TRAIN_STEPS):
+            batch = pipe.host_slice(t)
+            kernels.reset_launch_counts()
+            prof = (profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+                    if cuda and t == TRAIN_STEPS - 1
+                    else contextlib.nullcontext())
+            with prof:
+                if cuda and t == TRAIN_STEPS - 1:
+                    lead_in()
+                sync()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                sync()
+                wall.append(time.perf_counter() - t0)
+            counts.append(kernels.launch_counts())
+            losses.append(float(m["loss"]))
+            print(f"[train] step {t + 1}: loss {losses[-1]:.4f} gnorm "
+                  f"{float(m['grad_norm']):.3f} lr {float(m['lr']):.2e} "
+                  f"{1e3 * wall[-1]:.1f} ms; launches {counts[-1]}")
+    finally:
+        ST.adamw_update = update
+    require(checked.get("none") == 0 and checked.get("finite"),
+            f"train: step 1's gradients {checked}")
+    require(all(c == want for c in counts),
+            f"train: launches a step {counts}, planned {want}")
+    require(all(math.isfinite(v) for v in losses), f"train: losses {losses}")
+    timed = sorted(wall[1:TRAIN_STEPS - 1])
+    step_s = statistics.median(timed)
+    tokens = TRAIN_B * TRAIN_S
+    flops = 6 * n_params * tokens
+    res = {"params": n_params, "init_s": init_s, "losses": losses,
+           "step_ms": [1e3 * w for w in wall], "step_ms_median": 1e3 * step_s,
+           "tokens_per_s": tokens / step_s, "flops": flops,
+           "floor_ms": 1e3 * flops / pk["float32"], "grads_step1": checked,
+           "launches": {k: sum(c[k] for c in counts) for k in want},
+           "launches_per_step": counts[0]}
+    if cuda:
+        ka = prof.key_averages()
+        rows = device_rows(ka)
+        busy = sum(r[2] for r in rows)
+        own = sum(r[2] for r in rows if any(n in r[0] for n in OWN_KERNELS))
+        prof_res = {
+            "wall_ms": 1e3 * wall[-1], "busy_ms": busy,
+            "idle_share": 1 - busy / (1e3 * wall[-1]),
+            "forward_kernels_ms": own, "other_ms": busy - own,
+            "device_launches": sum(r[1] for r in rows),
+            "launch_check": profile_launch_check(
+                "train", "step", rows, counts[-1]),
+            "top": [{"kernel": k[:90], "launches": c, "ms": ms}
+                    for k, c, ms in rows[:14]],
+            "top_ops": top_ops(ka, 1, 16)}
+        (OUT / "train_profile.txt").write_text(
+            ka.table(sort_by="self_device_time_total", row_limit=80))
+        res["profile"] = prof_res
+        res["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(f"[train] {TRAIN_STEPS} steps: losses "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + f"; step {1e3 * step_s:.1f} ms (median of steps 2-"
+          f"{TRAIN_STEPS - 1}; step 1 {1e3 * wall[0]:.1f} ms), "
+          f"{tokens / step_s:,.0f} tokens/s; {flops / 1e12:.2f} TFLOP a step "
+          f"(6 N T), floor {res['floor_ms']:.1f} ms at "
+          f"{pk['float32'] / 1e12:.0f} TF/s f32"
+          + (f"; peak device memory "
+             f"{res['peak_memory_allocated'] / 1e9:.2f} GB" if cuda else ""))
+    if prof_res:
+        print(f"[train] step {TRAIN_STEPS} profiled: wall "
+              f"{prof_res['wall_ms']:.1f} ms, device busy "
+              f"{prof_res['busy_ms']:.1f} ms in "
+              f"{prof_res['device_launches']} launches (idle share "
+              f"{prof_res['idle_share']:.3f}); the forward kernels "
+              f"{prof_res['forward_kernels_ms']:.1f} ms, everything else "
+              f"{prof_res['other_ms']:.1f} ms")
+        for r in prof_res["top"]:
+            print(f"[profile]   {r['ms']:8.3f} ms {r['launches']:5d} "
+                  f"launches  {r['kernel']}")
+        print("[profile] train: the step's top torch ops by the device time "
+              "of what they launch (inclusive):")
+        for r in prof_res["top_ops"]:
+            print(f"[profile]   {r['ms_per_step']:8.3f} ms "
+                  f"{r['calls_per_step']:6.0f} calls  {r['op']}")
+    del state, params, model
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def train_resume(dev: str = "cuda") -> dict:
+    """Checkpoint and resume at the 2-layer cut (f32, B 2 x S 128, the
+    CLI's AdamW at --steps 4), under `torch.use_deterministic_algorithms`:
+    4 uninterrupted steps against (a) `FaultTolerantLoop` checkpointing
+    every 2 steps with step 4 failing twice, past its one retry (the
+    loop restores the checkpoint taken after step 2 and redoes steps
+    3-4), and (b) a fresh state resumed from that checkpoint for steps
+    3-4 in a new loop. Params,
+    mu, nu and step must equal the uninterrupted run's; the seconds a
+    save and a restore take are printed."""
+    import shutil
+    import warnings
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.fault import FaultPolicy, FaultTolerantLoop
+    from repro_torch.tree import sorted_leaves, tree_map
+
+    cfg, model, weights = _train_model(dev, TRAIN_CUT)
+    opt = AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=4)
+    batches = SyntheticPipeline(cfg, DataConfig(2, 128, seed=2)).host_slice
+    step_fn = make_train_step(model, opt)
+
+    def fresh():
+        return adamw_init(tree_map(torch.clone, weights), opt)
+
+    ckdir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ck = CheckpointManager(ckdir, keep=3)
+    times = {"save": [], "restore": []}
+    for name in times:
+        real = getattr(ck, name)
+
+        def timed_call(*a, _real=real, _name=name, **kw):
+            t0 = time.perf_counter()
+            out = _real(*a, **kw)
+            times[_name].append(time.perf_counter() - t0)
+            return out
+        setattr(ck, name, timed_call)
+    seen = []
+
+    def flaky(state, batch):
+        seen.append(int(state.step))
+        if seen[-1] == 3 and seen.count(3) <= 2:
+            raise RuntimeError("injected failure of step 4")
+        return step_fn(state, batch)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("default")
+            want = fresh()
+            for t in range(4):
+                want, _ = step_fn(want, batches(t))
+            loop = FaultTolerantLoop(flaky, ck, FaultPolicy(
+                checkpoint_every=2, max_retries_per_step=1))
+            got, end = loop.run(fresh(), batches, 0, 4)
+            resumed, s = ck.restore(fresh(), 1)
+            got2, _ = FaultTolerantLoop(step_fn, ck, FaultPolicy(
+                checkpoint_every=100)).run(resumed, batches, s + 1, 2)
+    finally:
+        torch.use_deterministic_algorithms(was)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    nbytes = sum(a.numel() * a.element_size() for a in sorted_leaves(want))
+    res = {"steps_run": [(r.step, r.retries) for r in loop.reports],
+           "save_s": times["save"], "restore_s": times["restore"],
+           "bytes": nbytes, "warnings": sorted({str(w.message)[:160]
+                                                for w in warned})}
+    for label, st in (("fault loop", got), ("resume", got2)):
+        pairs = list(zip(sorted_leaves(st), sorted_leaves(want)))
+        exact = all(torch.equal(a, b) for a, b in pairs)
+        worst = max(_rel(a, b) for a, b in pairs)
+        res[label] = {"exact": exact, "max_rel_diff": worst}
+        print(f"[train] {label} vs uninterrupted, 4 steps at the 2-layer "
+              f"cut: torch.equal {exact} over {len(pairs)} leaves (params, "
+              f"mu, nu, step); largest diff {worst:.2e} of a leaf's largest "
+              f"element")
+    print(f"[train] checkpoint {nbytes / 1e9:.2f} GB: save "
+          + ", ".join(f"{s:.2f}" for s in times["save"]) + " s; restore "
+          + ", ".join(f"{s:.2f}" for s in times["restore"]) + " s; steps run "
+          f"{res['steps_run']}; determinism warnings: "
+          f"{res['warnings'] or 'none'}")
+    require(end == 4 and res["steps_run"] == [(0, 0), (1, 0), (2, 0),
+                                               (2, 0), (3, 0)]
+            and len(times["restore"]) == 2,
+            f"train: the fault loop ran {res['steps_run']}")
+    require(res["fault loop"]["exact"] and res["resume"]["exact"],
+            f"train: resumed states differ from the uninterrupted run's "
+            f"{res['fault loop']} {res['resume']}")
+    del weights, want, got, got2, resumed
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def train_phase(pk: dict, dev: str = "cuda") -> dict:
+    """train: the kernel Functions' backward at the training shapes, the
+    card's gradients against the host's at a 2-layer cut, six full-depth
+    steps of fastvlm-1.7b, and checkpoint + resume at the cut."""
+    import torch
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    res = {"kernel_grads": train_kernel_grads(pk, dev)}
+    gc.collect()
+    res["grad_parity"] = train_grad_parity(dev)
+    gc.collect()
+    res["run"] = train_run(pk, dev)
+    res["launches"] = res["run"]["launches"]
+    res["resume"] = train_resume(dev)
+    return res
+
+
 def _shared_head_requests(cfg, tails, gen_len: int, seed: int,
                           sys_len: int = 192):
     """VQA requests about ONE image: the same patches and the same
@@ -3983,7 +4497,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="kernels,parity,serving,stablelm,"
                                          "starcoder2,paligemma,rwkv6,"
-                                         "zamba2,hubert,llama4")
+                                         "zamba2,hubert,llama4,train",
+                    help="comma-separated phases (default: all but "
+                         "deepseek-full); e.g. kernels,train for the "
+                         "kernels and the training phase")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -4056,11 +4573,13 @@ def main(argv=None) -> int:
             "llama4-parity")
         report["moe_determinism"] = l4.pop("moe_determinism")
         report.setdefault("serving", {})["llama4"] = l4["llama4"]
+    if "train" in phases:
+        report["train"] = timed("train", train_phase, pk)
     if "deepseek-full" in phases:
         report.setdefault("parity", {})["deepseek-parity-full"] = timed(
             "deepseek-full", _parity_deepseek, "cuda", 27)
-    launches = {k: sum(run.get("launches", {}).get(k, 0)
-                       for run in report.get("serving", {}).values())
+    runs = [*report.get("serving", {}).values(), report.get("train", {})]
+    launches = {k: sum(run.get("launches", {}).get(k, 0) for run in runs)
                 for k in REPLACES}
     rows = []
     for k in REPLACES:

@@ -4,8 +4,10 @@
 arrays — the caller does the jax -> numpy step, e.g. with
 ``jax.tree.map(np.asarray, params)``) onto port tensors leaf path by leaf
 path, with no renaming: the port keeps the reference's tree layout.
-`cache_to_numpy` maps a port cache (or any tensor tree) back to numpy so
-the two packages' caches can be compared leaf by leaf.
+`tree_to_numpy` maps a port cache or parameter tree (any tensor tree)
+back to numpy so the two packages' trees can be compared leaf by leaf,
+or handed to the reference; `state_from_numpy` makes a port optimizer
+`TrainState` from a reference state's fields.
 
 bfloat16 arrays arrive as ``ml_dtypes.bfloat16``, which `torch.from_numpy`
 rejects; they travel as their uint16 bit pattern and are viewed back, so
@@ -19,6 +21,7 @@ import ml_dtypes
 import numpy as np
 import torch
 
+from repro_torch.optim import TrainState
 from repro_torch.tree import tree_map
 
 
@@ -45,6 +48,14 @@ def params_from_jax(tree, device="cpu") -> dict:
     return tree_map(lambda a: array_to_tensor(a, device), tree)
 
 
-def cache_to_numpy(cache) -> dict:
+def tree_to_numpy(tree) -> dict:
     """Port tensor tree -> the same tree with numpy leaves."""
-    return tree_map(tensor_to_array, cache)
+    return tree_map(tensor_to_array, tree)
+
+
+def state_from_numpy(fields: dict, device="cpu"):
+    """{"params", "mu", "nu", "step"} with numpy leaves (e.g. a reference
+    `TrainState`'s fields) -> a port `TrainState` on ``device``."""
+    return TrainState(*(params_from_jax(fields[k], device)
+                        for k in ("params", "mu", "nu")),
+                      step=array_to_tensor(fields["step"], device))

@@ -1,9 +1,23 @@
 """Model-layout adapters over the kernel wrappers (the reference's
 `kernels/ops.py`): the model keeps (B, S, H, D) activations and the
 store-native cache layouts; these adapt them to each kernel's layout,
-as strided views where the kernel can read them in place."""
+as strided views where the kernel can read them in place.
+
+Gradients. A kernel launched through ctypes is invisible to autograd,
+so the four kernels of the training path (`fused_norm`, `qkv_proj`,
+`attn_stream`, `ffn_act`) run inside `KernelGrad` wherever a gradient is
+needed: its forward is the kernel (the plain twin on a CPU tensor), its
+backward the VJP of the plain twin, recomputed on the saved inputs. The
+reference has no backward kernel (no `custom_vjp`: `jax.grad`
+differentiates its plain path), so none is written here. Where no
+gradient is needed (serving, `no_grad`) the wrapper is called directly
+and nothing is saved. `ffn_act_int8` and the paged decodes are never
+differentiated: training does not reach them.
+"""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -17,16 +31,63 @@ from repro_torch.kernels import qkv_proj as _qkv
 PAGED_DECODE_BLOCK = 128  # cold-page tokens per table entry (= endurance blk)
 
 
-def attn_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                causal: bool = True) -> torch.Tensor:
-    """q (B,S,H,D), k/v (B,L,Hkv,D) -> (B,S,H,D). The kernel reads the
-    transposed views in place and writes straight into the model-layout
-    output."""
+class KernelGrad(torch.autograd.Function):
+    """``kernel(*inputs)`` forward; backward through ``plain(*inputs)``,
+    the same function in plain PyTorch, recomputed under autograd on the
+    saved inputs. ``inputs`` are tensors or None; the outputs a tensor
+    or a tuple of tensors."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return kernel(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            xs = [t if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+            outs = ctx.plain(*xs)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            wrt = [x for x, n in zip(xs, need) if n]
+            got = iter(torch.autograd.grad(outs, wrt, grads,
+                                           allow_unused=True))
+        return (None, None, *(next(got) if n else None for n in need))
+
+
+def _recording(*inputs) -> bool:
+    """Whether autograd records a call on ``inputs``: grad mode on and an
+    input that requires a gradient (checked first, so the serving path,
+    under `no_grad`, pays one call)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in inputs)
+
+
+def _attn_call(q, k, v, causal):
     out = torch.empty_like(q)
     _attn.attn_stream(q.transpose(1, 2), k.transpose(1, 2),
                       v.transpose(1, 2), causal=causal,
                       out=out.transpose(1, 2))
     return out
+
+
+def _attn_plain(q, k, v, causal):
+    return _attn.attn_stream_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal).transpose(1, 2)
+
+
+def attn_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool = True) -> torch.Tensor:
+    """q (B,S,H,D), k/v (B,L,Hkv,D) -> (B,S,H,D). The kernel reads the
+    transposed views in place and writes straight into the model-layout
+    output."""
+    if _recording(q, k, v):
+        return KernelGrad.apply(functools.partial(_attn_call, causal=causal),
+                                functools.partial(_attn_plain, causal=causal),
+                                q, k, v)
+    return _attn_call(q, k, v, causal)
 
 
 def paged_decode_tiered_operands(q: torch.Tensor, k_store: dict,
@@ -90,19 +151,27 @@ def paged_decode_flat(q: torch.Tensor, k_store: dict, v_store: dict, pos, *,
     return _paged.paged_decode_flat(*args, **kw).reshape(B, H, D)[:, None]
 
 
-def qkv_proj(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
-             wv: torch.Tensor, bq=None, bk=None, bv=None):
-    """x (B,S,D); weights (D, Hx, Dh), biases (Hx, Dh) or None -> q, k, v
-    in model layout (B,S,Hx,Dh). The weights are read in place (2-D
-    views), never concatenated."""
+def _qkv_call(proj, x, wq, wk, wv, bq, bk, bv):
     D = x.shape[-1]
     lead = x.shape[:-1]
     ws = (wq, wk, wv)
     bs = (None,) * 3 if bq is None else tuple(b.reshape(-1)
                                              for b in (bq, bk, bv))
-    outs = _qkv.qkv_proj(x.reshape(-1, D), *(w.reshape(D, -1) for w in ws),
-                         *bs)
+    outs = proj(x.reshape(-1, D), *(w.reshape(D, -1) for w in ws), *bs)
     return tuple(o.reshape(*lead, *w.shape[1:]) for o, w in zip(outs, ws))
+
+
+def qkv_proj(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+             wv: torch.Tensor, bq=None, bk=None, bv=None):
+    """x (B,S,D); weights (D, Hx, Dh), biases (Hx, Dh) or None -> q, k, v
+    in model layout (B,S,Hx,Dh). The weights are read in place (2-D
+    views), never concatenated."""
+    if _recording(x, wq, wk, wv, bq, bk, bv):
+        return KernelGrad.apply(
+            functools.partial(_qkv_call, _qkv.qkv_proj),
+            functools.partial(_qkv_call, _qkv.qkv_proj_plain),
+            x, wq, wk, wv, bq, bk, bv)
+    return _qkv_call(_qkv.qkv_proj, x, wq, wk, wv, bq, bk, bv)
 
 
 def ffn_act_int8(x: torch.Tensor, w_up_q: torch.Tensor,
@@ -116,16 +185,27 @@ def ffn_act_int8(x: torch.Tensor, w_up_q: torch.Tensor,
     return out.reshape(*lead, -1)
 
 
+def _rows(fn, x, *rest, kind):
+    """``fn`` over x's rows: (..., D) -> (M, D) in, (..., N) out."""
+    return fn(x.reshape(-1, x.shape[-1]), *rest, kind=kind).reshape(
+        *x.shape[:-1], -1)
+
+
 def ffn_act(x: torch.Tensor, w_up: torch.Tensor, w_gate, w_down: torch.Tensor,
             kind: str) -> torch.Tensor:
-    lead = x.shape[:-1]
-    out = _ffn.ffn_act(x.reshape(-1, x.shape[-1]), w_up, w_gate, w_down,
-                       kind)
-    return out.reshape(*lead, -1)
+    if _recording(x, w_up, w_gate, w_down):
+        return KernelGrad.apply(
+            functools.partial(_rows, _ffn.ffn_act, kind=kind),
+            functools.partial(_rows, _ffn.ffn_act_plain, kind=kind),
+            x, w_up, w_gate, w_down)
+    return _rows(_ffn.ffn_act, x, w_up, w_gate, w_down, kind=kind)
 
 
 def fused_norm(x: torch.Tensor, scale: torch.Tensor, bias, kind: str = "rms"
                ) -> torch.Tensor:
-    lead = x.shape[:-1]
-    out = _norm.fused_norm(x.reshape(-1, x.shape[-1]), scale, bias, kind)
-    return out.reshape(*lead, -1)
+    if _recording(x, scale, bias):
+        return KernelGrad.apply(
+            functools.partial(_rows, _norm.fused_norm, kind=kind),
+            functools.partial(_rows, _norm.fused_norm_plain, kind=kind),
+            x, scale, bias)
+    return _rows(_norm.fused_norm, x, scale, bias, kind=kind)

@@ -263,10 +263,9 @@ def apply_rwkv_cm(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # mixture of experts: top-k routing, sort-based dispatch, dropless (the
-# serving form) or capacity-dropping (the full-sequence forward); the
-# load-balancing loss belongs to training
+# serving form) or capacity-dropping (the full-sequence forward), and
+# the load-balancing loss the training loss adds
 # ---------------------------------------------------------------------------
-TRAINING_ITEM = "ROADMAP Queue 1 item 9 (training)"
 
 
 def init_moe(b: ParamInit, cfg: ModelConfig) -> dict:
@@ -378,7 +377,12 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return out
 
 
-def moe_aux_loss(p: dict, cfg: ModelConfig, x: torch.Tensor):
-    """The Switch-style load-balancing loss is a training term (the
-    full-sequence forward discards it, as the reference's does)."""
-    raise NotImplementedError(f"moe_aux_loss: {TRAINING_ITEM}")
+def moe_aux_loss(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balancing loss of one MoE layer on x (B,S,D):
+    E * sum_e (share of tokens whose top-1 is e) * (mean router
+    probability of e), from the router's f32 softmax."""
+    m = cfg.moe
+    probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                          @ p["router"].float(), dim=-1)
+    top1 = F.one_hot(probs.argmax(-1), m.num_experts).float()
+    return m.num_experts * (top1.mean(0) * probs.mean(0)).sum()

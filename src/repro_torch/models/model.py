@@ -13,9 +13,10 @@ the other; layers of a repeated unit stay stacked on a leading
 Modes:
 
   * full    — whole sequence, no caches, logits for every position
-              (`forward`: encoder inference, the training loss's
-              forward); causal unless the config is an encoder,
-              recurrences from a zero state, the MoE capacity-dropping
+              (`forward`: encoder inference; `loss`: training);
+              causal unless the config is an encoder, recurrences from
+              a zero state, the MoE capacity-dropping with its
+              load-balancing term
   * prefill — whole prompt; builds the flat/tiered KV stores
   * extend  — a chunk at absolute positions pos..pos+C-1 over the
               chunk-resumable workspace (``commit`` folds it into the
@@ -28,17 +29,26 @@ block (RWKV6 / Mamba2) takes its state in every mode but full, and its
 extend state is its decode state. An encoder (hubert-xlarge: audio
 frames through a linear connector, learned positions) has no cache to
 extend: `extend` and `decode_step` raise the reference's ValueError.
+
+Training (`loss`) differentiates the full forward with autograd; the
+kernels run inside `kernels.ops.KernelGrad`, whose backward is their
+plain twins' VJP. ``cfg.remat`` recomputes each block in backward
+("full"), or all but its matmul products ("save_dots"), as the
+reference's `jax.checkpoint` policies do.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import fusion, kv_tiers as KT
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
@@ -50,6 +60,14 @@ from repro_torch.tree import tree_leaves, tree_map
 SSM_MIXERS = ("rwkv6", "mamba2")
 # rows of the learned position table; later positions read its last row
 MAX_LEARNED_POS = 32_768
+# the matmul products "save_dots" keeps (jax's `checkpoint_dots`)
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+           torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,12 +178,16 @@ class Model:
         return tree_map(lambda t: bufs[index[id(t)]], layer)
 
     def init(self, generator: torch.Generator | None = None,
-             device="cpu") -> dict:
+             device=None) -> dict:
         """Random parameters in the reference's shapes and scales (no
         embedding table on the audio family; the learned position table
-        where ``pos_emb == "learned"``). A repeated unit's leaves are
-        filled in place (`_init_stacked`)."""
+        where ``pos_emb == "learned"``), on ``device``: by default the
+        generator's, else the card (`resolve_device`). A repeated unit's
+        leaves are filled in place (`_init_stacked`)."""
         cfg = self.cfg
+        if device is None:
+            device = (generator.device if generator is not None
+                      else resolve_device(None))
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         b = L.ParamInit(generator, L.torch_dtype(cfg.param_dtype), device)
@@ -311,7 +333,9 @@ class Model:
     def _run_block(self, spec: BlockSpec, bp: dict, x: torch.Tensor,
                    positions: torch.Tensor, bcache: dict, pos, mode: str,
                    plen=None, commit: bool = False
-                   ) -> tuple[torch.Tensor, dict]:
+                   ) -> tuple[torch.Tensor, dict | None, torch.Tensor | float]:
+        """(x, the block's new cache, its auxiliary loss: a MoE layer's
+        load-balancing term in the full forward, else 0.0)."""
         cfg = self.cfg
         full = mode == "full"
         h = fusion.apply_norm(bp["ln1"], cfg, x)
@@ -354,11 +378,11 @@ class Model:
 
     def _mlp_half(self, spec: BlockSpec, bp: dict, x: torch.Tensor,
                   bcache: dict, new_cache: dict | None, full: bool
-                  ) -> tuple[torch.Tensor, dict | None]:
+                  ) -> tuple[torch.Tensor, dict | None, torch.Tensor | float]:
         """The block's second half: pre-norm, the MLP, the residual."""
         cfg = self.cfg
         if spec.mlp is None:
-            return x, new_cache
+            return x, new_cache, 0.0
         h2 = fusion.apply_norm(bp["ln2"], cfg, x)
         if spec.mlp == "rwkv_cm":
             # stateful: the channel mix's token shift carries its last row
@@ -367,52 +391,79 @@ class Model:
                                         None if full else bcache["cm_x_prev"])
             if not full:
                 new_cache["cm_x_prev"] = prev.to(self.compute_dtype)
-            return x + out, new_cache
+            return x + out, new_cache, 0.0
         # a MoE model's dense first layers are gated FFNs of width
         # moe.d_ff_dense (their leaves say so), run by ffn_act; the MoE
         # drops past its capacity in the full forward only
         kind = "silu_gated" if spec.mlp == "dense_first" else spec.mlp
+        aux = (L.moe_aux_loss(bp["mlp"], cfg, h2)
+               if full and spec.mlp == "moe" else 0.0)
         return x + fusion.apply_ffn(bp["mlp"], cfg, h2, mlp_type=kind,
-                                    dropless=not full), new_cache
+                                    dropless=not full), new_cache, aux
+
+    def _block_fn(self, mode: str):
+        """`_run_block`, checkpointed in the full forward where autograd
+        records and ``cfg.remat`` asks: "full" recomputes the whole block
+        in backward, "save_dots" all but its matmul products (the kernel
+        Functions rerun in either)."""
+        remat = self.cfg.remat
+        if mode != "full" or remat == "none" or not torch.is_grad_enabled():
+            return self._run_block
+        kw = dict(use_reentrant=False)
+        if remat == "save_dots":
+            kw["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots)
+        return lambda *a: ckpt.checkpoint(self._run_block, *a, **kw)
 
     def _run_unit(self, ui: int, unit: UnitSpec, params: dict,
                   x: torch.Tensor, positions: torch.Tensor,
                   ucache: dict | None, pos, mode: str, plen=None,
-                  commit: bool = False) -> tuple[torch.Tensor, dict | None]:
-        """One unit's layers in turn; ``ucache`` is None in the full
-        forward, which makes and returns no cache."""
+                  commit: bool = False
+                  ) -> tuple[torch.Tensor, dict | None, torch.Tensor | float]:
+        """One unit's layers in turn, and their auxiliary losses summed;
+        ``ucache`` is None in the full forward, which makes and returns
+        no cache."""
         # a shared-attention unit applies the one top-level weight set
         shared = unit.block.mixer == "attn_shared"
         up = params["shared_attn"] if shared else params["units"][f"u{ui}"]
+        block = self._block_fn(mode)
         if unit.repeats == 1:
-            return self._run_block(unit.block, up, x, positions, ucache,
-                                   pos, mode, plen, commit)
-        ncs = []
+            return block(unit.block, up, x, positions, ucache, pos, mode,
+                         plen, commit)
+        # the stacked leaves split once: in backward, unbind's gradient is
+        # one stack a leaf, where indexing each layer would add a zero
+        # tensor of the whole stacked leaf a layer
+        layers = up if shared else tree_map(torch.unbind, up)
+        ncs, aux_t = [], 0.0
         for r in range(unit.repeats):
-            bp = up if shared else tree_map(lambda a: a[r], up)
+            bp = up if shared else tree_map(lambda a: a[r], layers)
             bc = None if ucache is None else tree_map(lambda a: a[r], ucache)
-            x, nc = self._run_block(unit.block, bp, x, positions, bc, pos,
-                                    mode, plen, commit)
+            x, nc, aux = block(unit.block, bp, x, positions, bc, pos, mode,
+                               plen, commit)
             ncs.append(nc)
+            aux_t = aux_t + aux
         if ucache is None:
-            return x, None
-        return x, tree_map(lambda *a: torch.stack(a), *ncs)
+            return x, None, aux_t
+        return x, tree_map(lambda *a: torch.stack(a), *ncs), aux_t
 
     def _forward(self, params: dict, batch: dict, mode: str,
                  cache: dict | None, pos, plen=None, commit: bool = False
-                 ) -> tuple[torch.Tensor, dict | None]:
+                 ) -> tuple[torch.Tensor, dict | None, torch.Tensor | float]:
         """``mode`` is "full" (every row's logits, no cache), "prefill"
         (whole prompt from position 0) or "extend" (rows at pos..); the
-        last two return the last valid row's logits."""
+        last two return the last valid row's logits. The third result
+        sums the MoE layers' load-balancing terms (full mode only)."""
         cfg = self.cfg
         x, positions = self._embed(params, batch, pos,
                                    ramp=(mode == "extend"))
         new_cache = None if cache is None else {}
+        aux_total = 0.0
         for ui, unit in enumerate(self.plan):
-            x, nc = self._run_unit(
+            x, nc, aux = self._run_unit(
                 ui, unit, params, x, positions,
                 None if cache is None else cache[f"u{ui}"], pos, mode, plen,
                 commit)
+            aux_total = aux_total + aux
             if cache is not None:
                 new_cache[f"u{ui}"] = nc
         x = fusion.apply_norm(params["final_norm"], cfg, x)
@@ -425,7 +476,7 @@ class Model:
         else:
             logits = torch.einsum("bsd,dv->bsv", x,
                                   params["lm_head"].to(x.dtype))
-        return logits, new_cache
+        return logits, new_cache, aux_total
 
     # ------------------------------------------------------------------
     # public entry points
@@ -437,6 +488,34 @@ class Model:
         config takes), with no cache; an encoder's only entry point."""
         return self._forward(params, batch, "full", None, None)[0]
 
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """Mean next-token cross-entropy over ``batch["labels"]`` (f32
+        logsumexp), weighted by ``batch["loss_mask"]`` (default all ones)
+        and divided by max(sum(mask), 1), plus 0.01 x the MoE layers'
+        load-balancing terms. Differentiable: gradients reach every
+        float leaf of ``params`` that requires them. Raises TypeError
+        where autograd records and a leaf is not floating point (the
+        int8 FFN store), as the reference's `jax.value_and_grad` does."""
+        if torch.is_grad_enabled():
+            bad = [t.dtype for t in tree_leaves(params)
+                   if not t.is_floating_point()]
+            if bad:
+                raise TypeError(
+                    f"loss: gradients need float parameters, got "
+                    f"{sorted(set(map(str, bad)))} leaves (the int8 FFN "
+                    f"store is not trainable)")
+        logits, _, aux = self._forward(params, batch, "full", None, None)
+        dev = logits.device
+        labels = torch.as_tensor(batch["labels"], device=dev).long()
+        lf = logits.float()
+        ll = (lf.gather(-1, labels[..., None])[..., 0]
+              - torch.logsumexp(lf, dim=-1))
+        mask = batch.get("loss_mask")
+        mask = (torch.ones_like(ll) if mask is None else
+                torch.as_tensor(mask, device=dev).to(ll.dtype))
+        loss = -(ll * mask).sum() / mask.sum().clamp_min(1.0)
+        return loss + 0.01 * aux
+
     @torch.no_grad()
     def prefill(self, params: dict, batch: dict, max_len: int,
                 length=None) -> tuple[torch.Tensor, dict]:
@@ -445,7 +524,7 @@ class Model:
         first = next(v for v in batch.values())
         cache = self.init_cache(len(first), max_len, _device_of(params))
         return self._forward(params, batch, "prefill", cache, None,
-                             plen=length)
+                             plen=length)[:2]
 
     @torch.no_grad()
     def extend(self, params: dict, batch: dict, cache: dict, pos,
@@ -459,7 +538,7 @@ class Model:
         if self.cfg.is_encoder:
             raise ValueError("encoder-only model cannot extend a cache")
         return self._forward(params, batch, "extend", cache, pos,
-                             plen=length, commit=commit)
+                             plen=length, commit=commit)[:2]
 
     def decode_step(self, params: dict, tokens, cache: dict, pos
                     ) -> tuple[torch.Tensor, dict]:

@@ -178,7 +178,7 @@ def test_bridge_maps_every_leaf_exactly(arch):
     _, rmodel, rparams, _, model, params = build_pair(arch)
     flat_ref = {jax.tree_util.keystr(p): np.asarray(v) for p, v in
                 jax.tree_util.tree_flatten_with_path(rparams)[0]}
-    back = bridge.cache_to_numpy(params)
+    back = bridge.tree_to_numpy(params)
     flat_back = {jax.tree_util.keystr(p): v for p, v in
                  jax.tree_util.tree_flatten_with_path(back)[0]}
     assert flat_ref.keys() == flat_back.keys()
@@ -188,7 +188,7 @@ def test_bridge_maps_every_leaf_exactly(arch):
     own = model.init(torch.Generator().manual_seed(0))
     own_flat = {jax.tree_util.keystr(p): v for p, v in
                 jax.tree_util.tree_flatten_with_path(
-                    bridge.cache_to_numpy(own))[0]}
+                    bridge.tree_to_numpy(own))[0]}
     assert {k: (v.shape, v.dtype) for k, v in own_flat.items()} == \
         {k: (v.shape, v.dtype) for k, v in flat_ref.items()}
 
@@ -204,7 +204,7 @@ def test_bridge_carries_int8_ffn_tree_as_is():
     own init draws the reference's leaves, dtypes and scale values."""
     _, _, rparams, pc, model, params = build_pair(
         "mobilevlm-small", ffn_weight_store="int8")
-    ref, port = _flat(rparams), _flat(bridge.cache_to_numpy(params))
+    ref, port = _flat(rparams), _flat(bridge.tree_to_numpy(params))
     assert ref.keys() == port.keys()
     mlp = [k for k in ref if "['mlp']" in k]
     assert {k.rsplit("[", 1)[1] for k in mlp} == {
@@ -215,7 +215,7 @@ def test_bridge_carries_int8_ffn_tree_as_is():
         np.testing.assert_array_equal(port[k], ref[k], err_msg=k)
     assert all(ref[k].dtype == (np.int8 if k.endswith("_q']")
                                 else np.float32) for k in mlp)
-    own = _flat(bridge.cache_to_numpy(
+    own = _flat(bridge.tree_to_numpy(
         model.init(torch.Generator().manual_seed(0))))
     assert {k: (v.shape, v.dtype) for k, v in own.items()} == \
         {k: (v.shape, v.dtype) for k, v in ref.items()}

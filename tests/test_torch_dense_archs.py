@@ -244,7 +244,7 @@ def test_waiting_mixers_still_raise():
         Model(cfg.replace(segments=(Segment((mixer,), 2),)))
     Model(cfg.replace(pos_emb="learned"))
     enc = Model(cfg.replace(is_encoder=True))
-    params = enc.init()
+    params = enc.init(device="cpu")
     with pytest.raises(ValueError, match="cannot be served"):
         LocalBackend(enc, params, 2, 16, device="cpu")
     with pytest.raises(ValueError, match="cannot extend a cache"):

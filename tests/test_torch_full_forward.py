@@ -87,7 +87,7 @@ def _port_pair(arch: str):
     rc, pc = rc.replace(**F32), pc.replace(**F32)
     model = Model(pc)
     params = model.init(torch.Generator().manual_seed(0))
-    rparams = jax.tree.map(jnp.asarray, bridge.cache_to_numpy(params))
+    rparams = jax.tree.map(jnp.asarray, bridge.tree_to_numpy(params))
     want = np.asarray(RefModel(rc).forward(rparams, _full_batch(pc)))
     return pc, model, params, want
 

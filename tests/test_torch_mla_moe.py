@@ -250,18 +250,21 @@ def test_apply_moe_dropless_matches_reference(shape):
 
 
 def test_moe_training_paths_raise():
-    """The load-balancing loss is still training's (item 9); the
-    capacity-dropping path of the full-sequence forward now runs: 2 x 9
-    alike tokens overflow an expert's capacity, and the dropped output
-    equals the reference's (dropless=False), apart from the dropless one."""
+    """The training paths of the MoE: the load-balancing loss (ported
+    with training, item 9) equals the reference's on 2 x 9 alike tokens,
+    which overflow an expert's capacity in the full-sequence forward's
+    capacity-dropping path, whose dropped output equals the reference's
+    (dropless=False), apart from the dropless one."""
     rc, pc = _cfgs()
     p = _moe_params(pc, seed=6)
     pp = tree_map(_t, p)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        L.moe_aux_loss(pp, pc, torch.zeros(1, 2, pc.d_model))
     x = np.random.default_rng(8).standard_normal(
         (2, 9, pc.d_model)).astype(np.float32)
     x[:, 2:] = x[:, 2:3]
+    np.testing.assert_allclose(
+        float(L.moe_aux_loss(pp, pc, _t(x))),
+        float(RL.moe_aux_loss(jax.tree.map(jnp.asarray, p), rc,
+                              jnp.asarray(x))), rtol=1e-6)
     T = x.shape[0] * x.shape[1]
     probs = torch.softmax(_t(x).reshape(T, -1) @ pp["router"], -1)
     top = probs.topk(pc.moe.top_k, -1).indices.reshape(-1)

@@ -239,10 +239,10 @@ def test_unported_paths_raise_not_implemented():
     cfg = get_config("granite-3-2b", reduced=True)
     Model(cfg.replace(segments=(Segment(("mamba2",), 2),)))
     learned = Model(cfg.replace(pos_emb="learned"))
-    assert learned.init()["pos_emb"].shape[1] == cfg.d_model
+    assert learned.init(device="cpu")["pos_emb"].shape[1] == cfg.d_model
     enc = Model(cfg.replace(is_encoder=True))
     with pytest.raises(ValueError, match="encoder-only"):
-        LocalBackend(enc, enc.init(), 2, 16, device="cpu")
+        LocalBackend(enc, enc.init(device="cpu"), 2, 16, device="cpu")
     _, _, _, _, model, params = build_pair("granite-3-2b")
     be = LocalBackend(model, params, 2, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
