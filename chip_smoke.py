@@ -278,6 +278,20 @@ source, all started together; seven kernels), then:
      its retry, and a fresh resume from the checkpoint, each `torch.equal`
      to an uninterrupted run (params, mu, nu, step); save and restore
      seconds.
+  9. sharded — the serve path through `make_backend("sharded",
+     mesh=get_mesh("1x1"))` over NCCL at world size 1 (the phase fails
+     if NCCL cannot initialise): fastvlm-1.7b at full width and depth,
+     bf16, tiered (W 128), 4 slots, max_len 512, 2 VQA + 2 text
+     requests, 64 new tokens each, first on `LocalBackend` (the oracle):
+     every pool leaf against its `cache_shardings` local shape, token
+     streams identical to the local ones, exact launches, one decode
+     step's launches and collectives (by kind and per layer, from
+     `repro_torch.sharding`'s counter), the NCCL kernels' device time in
+     a profiled window of 4 decode steps, decode p50 / p95 beside the
+     local run's, peak memory. The kernel phase holds the sharded
+     executor's 2- and 4-way shard shapes (fastvlm-1.7b, stablelm-12b)
+     against their twins too.
+  Decode profiles cover 4 steady steps.
   Every dense, MoE and recurrent bf16 run prints its decode busy beside
   the weight floor: every weight read once a step (the embedding table
   left out unless it is the tied head; a shared block once an
@@ -1241,6 +1255,109 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                      ffn_form(M, dt), row)
         del wf
 
+    def tp_widths(dt):
+        """The sharded executor's per-rank shard shapes at a 2-way and a
+        4-way 'model' split (the local query heads, the kv heads those
+        read, the local FFN width), in ``dt`` against the plain twins,
+        the form that ran asserted; bf16 rows timed beside their bound
+        and the library call. fastvlm-1.7b: heads 12 -> 6 / 3, kv 2 -> 1
+        (at 4 ways its 2 kv heads are replicated: the rank projects both
+        and reads one, G 3), F 8960 -> 4480 / 2240; stablelm-12b: heads
+        32 -> 16 / 8, kv 8 -> 4 / 2, F 13824 -> 6912 / 3456. Each through
+        qkv_proj (M 4: GEMV; 256: GEMM), ffn_act (M 4: stream; 256:
+        wgmma), paged_decode_tiered (4 slots, ctx ~300) and attn_stream
+        (causal S = L = 256)."""
+        tdt = getattr(torch, dt)
+        es = torch.tensor([], dtype=tdt).element_size()
+        bf = dt == "bfloat16"
+        for (arch, D_, H_, Hk_, Dh, F_, bias) in (
+                ("fastvlm", D_MODEL, 12, 2, 128, D_FF, True),
+                ("stablelm", 5120, 32, 8, 160, 13824, False)):
+            for m in (2, 4):
+                hl, fl = H_ // m, F_ // m
+                kv_split = Hk_ % m == 0
+                hkl = Hk_ // m if kv_split else max(hl * Hk_ // H_, 1)
+                ns = (hl * Dh,) + ((hkl if kv_split else Hk_) * Dh,) * 2
+                tag = f"{arch}/{m}"
+                # ---- qkv_proj at the local N ---------------------------
+                ws = [randn(D_, n, dtype=tdt, std=0.5 * D_ ** -0.5)
+                      for n in ns]
+                bs = ([randn(n, dtype=tdt, std=0.1) for n in ns] if bias
+                      else [None] * 3)
+                wcat = torch.cat(ws, 1)
+                bcat = (torch.cat(bs) if bias else
+                        torch.zeros(wcat.shape[1], dtype=tdt, device=dev))
+                N = sum(ns)
+                for M in (4, 256):
+                    x = randn(M, D_, dtype=tdt)
+                    want_v = QK.kernel_variant(M, tdt)
+                    require(want_v == ("gemv" if M <= 4 else
+                                       "wgmma" if bf else "fma"),
+                            f"qkv_proj {tag} M={M}: form {want_v}")
+                    record("qkv_proj", f"{tag} M={M} N={ns} ({want_v})", dt,
+                           max(max_err(a, b) for a, b in zip(
+                               QK.qkv_proj(x, *ws, *bs),
+                               QK.qkv_proj_plain(x, *ws, *bs))))
+                    if bf:
+                        extra_row(
+                            "qkv_proj", f"{tag} shard x ({M}, {D_}), N {ns}"
+                            f"{' bias' if bias else ''} ({want_v})",
+                            lambda: QK.qkv_proj(x, *ws, *bs),
+                            lambda: QK.qkv_proj_plain(x, *ws, *bs),
+                            lambda: torch.addmm(bcat, x, wcat),
+                            (M * D_ + D_ * N + M * N + (N if bias else 0))
+                            * es, 2 * M * D_ * N, dt)
+                del ws, wcat
+                # ---- ffn_act at the local F ----------------------------
+                wf = (randn(D_, fl, dtype=tdt, std=0.5 * D_ ** -0.5),
+                      randn(D_, fl, dtype=tdt, std=0.5 * D_ ** -0.5),
+                      randn(fl, D_, dtype=tdt, std=fl ** -0.5))
+                for M in (4, 256):
+                    x = randn(M, D_, dtype=tdt)
+                    row = ((3 * D_ * fl * es, chain_of(x, *wf)) if bf
+                           else None)
+                    ffn_case("ffn_act", x, wf, "silu_gated", dt,
+                             f"{tag} shard M={M} D={D_} F={fl}",
+                             ffn_form(M, dt), row)
+                del wf
+                # ---- paged_decode_tiered at the local heads ------------
+                g = hl // hkl
+                targs = tiered_args(B, hkl, g, Dh, (318, 300, 257, 290))
+                err, rel = decode_errs(PD.paged_decode_tiered(*targs),
+                                       PD.paged_decode_tiered_plain(*targs))
+                record("paged_decode_tiered", f"{tag} Hkv={hkl} G={g} "
+                       f"D={Dh} ctx~300, split "
+                       f"{PD.tiered_split(B, hkl, sms, False)}", dt, err,
+                       rel=rel)
+                if bf:
+                    results["extra_rows"].append(dict(
+                        tiered_row(targs, f"{tag} shard B {B}, Hkv {hkl}, "
+                                          f"G {g}, Dh {Dh}, W {W}, max_len "
+                                          f"{ML}, ctx [318, 300, 257, 290]"),
+                        name="paged_decode_tiered"))
+                del targs
+                # ---- attn_stream at the local heads --------------------
+                q = randn(1, hl, 256, Dh, dtype=tdt)
+                k = randn(1, hkl, 256, Dh, dtype=tdt)
+                v = randn(1, hkl, 256, Dh, dtype=tdt, std=0.4)
+                form = "wgmma" if bf else "fma"
+                require(AS.kernel_variant(tdt, Dh) == form,
+                        f"attn_stream {tag} {dt}: form")
+                record("attn_stream", f"{tag} H={hl} Hkv={hkl} Dh={Dh} "
+                       f"S=L=256 ({form})", dt,
+                       max_err(AS.attn_stream(q, k, v, causal=True),
+                               AS.attn_stream_plain(q, k, v, True)))
+                if bf:
+                    extra_row(
+                        "attn_stream", f"{tag} shard q (1, {hl}, 256, {Dh}),"
+                        f" kv heads {hkl}, causal, split "
+                        f"{AS.kv_split(1, hl, 256, 256, sms)}",
+                        lambda: AS.attn_stream(q, k, v, causal=True),
+                        lambda: AS.attn_stream_plain(q, k, v, True),
+                        sdpa_of(q, k, v), (2 * hl + 2 * hkl) * 256 * Dh * es,
+                        4 * hl * Dh * 256 * 257 // 2, dt)
+                del q, k, v
+
     def slice12_widths(dt):
         """The kernels of the hubert-xlarge and llama4-maverick-400b paths
         at their shapes, in ``dt`` against the plain twin, the form that
@@ -1851,6 +1968,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         dense_widths(dt)
         ssm_widths(dt)
         slice12_widths(dt)
+        tp_widths(dt)
 
     # ragged / odd shapes, f32
     tdt = torch.float32
@@ -2101,7 +2219,7 @@ def routing_log(who: dict):
 
     moe, log = L.apply_moe, {}
 
-    def probe(p, cfg, x, dropless=True):
+    def probe(p, cfg, x, dropless=True, tp=None):
         k = cfg.moe.top_k
         probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
                               @ p["router"].float(), dim=-1)
@@ -2114,7 +2232,7 @@ def routing_log(who: dict):
                 log.setdefault(rid, {}).setdefault(
                     int(who["pos"][b]) + s_, []).append(
                     (tuple(ex[b * S + s_]), gap[b * S + s_]))
-        return moe(p, cfg, x, dropless)
+        return moe(p, cfg, x, dropless, tp=tp)
     L.apply_moe = probe
     try:
         yield log
@@ -4215,7 +4333,7 @@ def device_rows(ka) -> list:
 
 
 def profile_decode(label, model, params, cfg, text_with_image, bknobs,
-                   dev: str = "cuda", n_steps: int = 8) -> dict:
+                   dev: str = "cuda", n_steps: int = 4) -> dict:
     """Device time by kernel over ``n_steps`` steady decode steps of 4
     slots (prompts of 256, max_len 512), from torch.profiler; the idle
     share is 1 - kernel time / wall time of the window. Runs after the
@@ -4493,11 +4611,187 @@ def profile_prefill(label, model, params, cfg, bknobs, dev: str = "cuda",
     return out
 
 
+def _steady(engine, reqs) -> None:
+    """Admit ``reqs`` and step until every one decodes (no prefill left),
+    then two more steps: the decode-only steady state."""
+    for r in reqs:
+        engine.submit(r)
+    while engine._inflight is not None or engine.scheduler.pending \
+            or int(engine._active.sum()) < len(reqs):
+        engine.step()
+    for _ in range(2):
+        engine.step()
+
+
+def _decode_window(engine, n_steps: int, dev: str = "cuda") -> dict:
+    """``n_steps`` steady decode steps under torch.profiler: wall and
+    device ms a step, and the NCCL kernels' share (on the CPU the rows
+    are empty and read 0)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if dev == "cuda" else [])
+    with profile(activities=acts) as prof:
+        if dev == "cuda":
+            lead_in()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            engine.step()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = device_rows(prof.key_averages()) if dev == "cuda" else []
+    nccl = [(k, c, t) for k, c, t in rows if "nccl" in k.lower()]
+    dev_ms = sum(t for _, _, t in rows)
+    return {"steps": n_steps, "wall_ms_per_step": wall_ms / n_steps,
+            "device_ms_per_step": dev_ms / n_steps,
+            "nccl_ms_per_step": sum(t for _, _, t in nccl) / n_steps,
+            "nccl_launches_per_step": sum(c for _, c, _ in nccl) / n_steps,
+            "nccl_kernels": sorted({k[:60] for k, _, _ in nccl}),
+            "idle_share": 1 - dev_ms / wall_ms if rows else None}
+
+
+def sharded_phase(pk: dict, dev: str = "cuda") -> dict:
+    """sharded: the serve path through `make_backend("sharded",
+    mesh=get_mesh("1x1"))` over NCCL at world size 1 (gloo on the CPU
+    rehearsal): fastvlm-1.7b at full width and depth (28 layers, GQA G 6,
+    QKV bias, tied head), bf16, tiered store (W 128), 4 slots, max_len
+    512, 2 VQA (64 visual + 192 text) and 2 text requests of 256, 64 new
+    tokens each. First the same requests on `LocalBackend` (the oracle,
+    its decode p50 / p95), then the sharded backend: every pool leaf's
+    shape against `cache_shardings`' local shape, the token streams
+    equal to the local ones exactly, the exact launch check, one decode
+    step's launches and collectives (by kind, per layer), a profiled
+    window of 4 decode steps (the NCCL kernels' device time; the local
+    path's decode profile is the serving phase's fastvlm run), and the
+    peak device memory."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch import sharding as S
+    from repro_torch.launch.mesh import get_mesh
+    from repro_torch.serving import LocalBackend, make_backend
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+
+    cuda = dev == "cuda"
+    mesh = get_mesh("1x1", device=dev)
+    want_pg = "nccl" if cuda else "gloo"
+    require(dist.get_backend() == want_pg, f"sharded: process group runs "
+            f"{dist.get_backend()}, not {want_pg}")
+    label, arch, knobs, _, twi, needs = RUNS[0]
+    cfg, model, params = _model(arch, "bfloat16", dev, **knobs)
+    max_len, gen_len, n_steps = 512, 64, 4
+
+    def reqs(gen=gen_len, seed=2):
+        return _requests(cfg, n_vqa=2, n_text=2, text_with_image=twi,
+                         text_len=256, gen_len=gen, seed=seed)
+
+    def serve(backend, what):
+        engine, step_s, sync = timed_engine(backend, dev)
+        sync()
+        kernels.reset_launch_counts()
+        S.reset_counts()
+        t0 = time.perf_counter()
+        done = engine.run(reqs())
+        sync()
+        wall = time.perf_counter() - t0
+        res = check_run(what, cfg, backend.model, engine, done, 4,
+                        kernels.launch_counts(), needs)
+        timing(what, done, wall, step_s, max_len, res)
+        res["collectives_run"] = S.counts_by_kind()
+        toks = [list(r.generated) for r in sorted(done, key=lambda r: r.rid)]
+        return res, toks
+
+    def window(backend, what):
+        """One decode step's launches and collectives, then a profiled
+        window of ``n_steps`` decode steps, at the steady state."""
+        from repro_torch.serving import Engine
+        engine = Engine(backend)
+        _steady(engine, reqs(gen=4 * n_steps, seed=3))
+        kernels.reset_launch_counts()
+        S.reset_counts()
+        engine.step()
+        if cuda:
+            torch.cuda.synchronize()
+        step = {"launches": kernels.launch_counts(),
+                "collectives": S.counts_by_kind(),
+                "collectives_per_layer": {
+                    k: n / cfg.num_layers
+                    for k, n in S.counts_by_kind("u").items()},
+                "collectives_outside_layers": {
+                    sc: S.counts_by_kind(sc) for sc in ("embed", "head",
+                                                        "data")}}
+        prof = _decode_window(engine, n_steps, dev)
+        print(f"[sharded] {what}: one decode step launches "
+              f"{step['launches']}; collectives {step['collectives']} "
+              f"(a layer: {step['collectives_per_layer']}; outside the "
+              f"layers {step['collectives_outside_layers']})")
+        print(f"[sharded] {what}: profiled decode ({n_steps} steps): wall "
+              f"{prof['wall_ms_per_step']:.3f} ms a step, device busy "
+              f"{prof['device_ms_per_step']:.3f} ms, NCCL kernels "
+              f"{prof['nccl_ms_per_step']:.3f} ms in "
+              f"{prof['nccl_launches_per_step']:.0f} launches a step "
+              f"{prof['nccl_kernels']}, idle share {prof['idle_share']}")
+        return dict(step, profile=prof)
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    local = LocalBackend(model, params, 4, max_len, device=dev)
+    res_l, toks_l = serve(local, f"{label} local")
+    del local
+    gc.collect()
+    sharded = make_backend("sharded", model, params, num_slots=4,
+                           max_len=max_len, device=dev, mesh=mesh)
+    shapes, _ = sharded.model.cache_spec(4, max_len)
+    state = sharded.init_pool()
+    leaf_rows = []
+    for (path, t), spec, (_, full) in zip(
+            tree_leaves_with_path(state.cache),
+            tree_leaves(sharded._pool_specs), tree_leaves_with_path(shapes)):
+        want = S.local_shape(spec, tuple(full.shape), mesh)
+        leaf_rows.append({"leaf": ".".join(path), "shape": tuple(t.shape),
+                          "spec": spec, "local_shape": want})
+        print(f"[sharded] pool {'.'.join(path):16s} {tuple(t.shape)} "
+              f"spec {spec} -> local {want}")
+        require(tuple(t.shape) == want, f"sharded: pool leaf {path} "
+                f"{tuple(t.shape)} != its local shape {want}")
+    del state
+    res_s, toks_s = serve(sharded, f"{label} sharded 1x1")
+    differ = [(i, j) for i, (a, b) in enumerate(zip(toks_l, toks_s))
+              for j, (x, y) in enumerate(zip(a, b)) if x != y]
+    print(f"[sharded] token streams vs LocalBackend: "
+          f"{'IDENTICAL' if not differ else f'{len(differ)} differ'}")
+    require(toks_s == toks_l, f"sharded: token streams part from "
+            f"LocalBackend's at (request, step) {differ[:4]}")
+    res_s["window"] = window(sharded, "sharded 1x1")
+    res_s["pool_leaves"] = leaf_rows
+    res_s["local"] = {k: res_l[k] for k in (
+        "decode_step_p50_ms", "decode_step_p95_ms", "tok_per_s",
+        "ttft_p50_ms", "ttft_p95_ms")}
+    res_s["tokens_identical"] = True
+    if cuda:
+        res_s["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[sharded] peak device memory {res_s['peak_gb']:.2f} GB "
+              f"(both backends share the weights)")
+    print(f"[sharded] decode step p50 / p95: sharded "
+          f"{res_s['decode_step_p50_ms']:.2f} / "
+          f"{res_s['decode_step_p95_ms']:.2f} ms, local "
+          f"{res_l['decode_step_p50_ms']:.2f} / "
+          f"{res_l['decode_step_p95_ms']:.2f} ms")
+    res_s.pop("finished", None)
+    del sharded, params
+    dist.destroy_process_group()
+    return res_s
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="kernels,parity,serving,stablelm,"
                                          "starcoder2,paligemma,rwkv6,"
-                                         "zamba2,hubert,llama4,train",
+                                         "zamba2,hubert,llama4,train,"
+                                         "sharded",
                     help="comma-separated phases (default: all but "
                          "deepseek-full); e.g. kernels,train for the "
                          "kernels and the training phase")
@@ -4575,6 +4869,9 @@ def main(argv=None) -> int:
         report.setdefault("serving", {})["llama4"] = l4["llama4"]
     if "train" in phases:
         report["train"] = timed("train", train_phase, pk)
+    if "sharded" in phases:
+        report.setdefault("serving", {})["sharded"] = timed(
+            "sharded", sharded_phase, pk)
     if "deepseek-full" in phases:
         report.setdefault("parity", {})["deepseek-parity-full"] = timed(
             "deepseek-full", _parity_deepseek, "cuda", 27)

@@ -7,7 +7,8 @@ path, with no renaming: the port keeps the reference's tree layout.
 `tree_to_numpy` maps a port cache or parameter tree (any tensor tree)
 back to numpy so the two packages' trees can be compared leaf by leaf,
 or handed to the reference; `state_from_numpy` makes a port optimizer
-`TrainState` from a reference state's fields.
+`TrainState` from a reference state's fields; `shard_params` cuts a full
+parameter tree to one rank's shards of a mesh.
 
 bfloat16 arrays arrive as ``ml_dtypes.bfloat16``, which `torch.from_numpy`
 rejects; they travel as their uint16 bit pattern and are viewed back, so
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.optim import TrainState
+from repro_torch.sharding import shard
 from repro_torch.tree import tree_map
 
 
@@ -59,3 +61,11 @@ def state_from_numpy(fields: dict, device="cpu"):
     return TrainState(*(params_from_jax(fields[k], device)
                         for k in ("params", "mu", "nu")),
                       step=array_to_tensor(fields["step"], device))
+
+
+def shard_params(params: dict, specs: dict, mesh) -> dict:
+    """A full parameter tree -> this rank's contiguous block of every
+    leaf under ``specs`` (`Model.param_shardings(rules)`) on ``mesh``;
+    a leaf the specs replicate is kept as it is (no copy)."""
+    return tree_map(lambda t, s: shard(t, s, mesh).contiguous(), params,
+                    specs)

@@ -68,6 +68,12 @@ def _sparse_read_tau(cfg: ModelConfig) -> float:
         return 0.0
 
 
+def _reduce(out: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel output's partial sums, summed over 'model' under
+    ``tp`` (the MLA latents are replicated, its heads split)."""
+    return out if tp is None else tp.all_reduce(out)
+
+
 def apply_norm(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm_type == "rmsnorm":
         return ops.fused_norm(x, p["scale"], None, kind="rms")
@@ -76,58 +82,70 @@ def apply_norm(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor,
               mlp_type: str | None = None,
-              dropless: bool = True) -> torch.Tensor:
+              dropless: bool = True, tp=None) -> torch.Tensor:
+    """The FFN half of a block; under ``tp`` (a `models.tp.TP`) the
+    leaves are the rank's hidden-dim (or expert) shard and the partial
+    sums leave in one all-reduce (FFNOut), a bias added after it."""
     kind = mlp_type or cfg.mlp_type
     if kind == "moe":
         # serving routes dropless: capacity competition would couple the
         # tokens of a batch and make chunked prefill depend on the
         # chunking; the full-sequence forward drops past the capacity
-        return L.apply_moe(p, cfg, x, dropless=dropless)
+        return L.apply_moe(p, cfg, x, dropless=dropless, tp=tp)
     if kind == "rwkv_cm":
         raise ValueError("rwkv_cm is stateful; handled in model block")
     if kind not in FFN_KINDS:
         raise ValueError(f"unknown mlp kind {kind!r}")
     if "b_up" in p:
-        return L.apply_mlp(p, cfg, x, mlp_type=kind)
+        return L.apply_mlp(p, cfg, x, mlp_type=kind, tp=tp)
     if "w_up_q" in p:
-        return ops.ffn_act_int8(x, p["w_up_q"], p["w_up_scale"],
-                                p.get("w_gate_q"), p.get("w_gate_scale"),
-                                p["w_down_q"], p["w_down_scale"], kind)
-    gate = p.get("w_gate")
-    return ops.ffn_act(x, p["w_up"].to(x.dtype),
-                       None if gate is None else gate.to(x.dtype),
-                       p["w_down"].to(x.dtype), kind)
+        out = ops.ffn_act_int8(x, p["w_up_q"], p["w_up_scale"],
+                               p.get("w_gate_q"), p.get("w_gate_scale"),
+                               p["w_down_q"], p["w_down_scale"], kind)
+    else:
+        gate = p.get("w_gate")
+        out = ops.ffn_act(x, p["w_up"].to(x.dtype),
+                          None if gate is None else gate.to(x.dtype),
+                          p["w_down"].to(x.dtype), kind)
+    return out if tp is None else tp.all_reduce(out)
 
 
 def apply_attention_seq(p: dict, cfg: ModelConfig, x: torch.Tensor,
                         positions: torch.Tensor, causal: bool = True,
                         build_cache: bool = False, max_len: int = 0,
-                        length=None) -> tuple[torch.Tensor, dict | None]:
+                        length=None, tp=None
+                        ) -> tuple[torch.Tensor, dict | None]:
     """Full-sequence attention (prefill, or the full forward of a decoder
     or an encoder). Causal attention runs `attn_stream`; non-causal
     (hubert's encoder) is the plain `gqa_scores_softmax_pv` with no mask
     and scores in ``cfg.attn_scores_dtype``, on either device, as the
     reference calls its kernel only when causal. With ``build_cache`` the
     post-RoPE K/V are absorbed into flat or tiered stores of ``max_len``
-    positions, the first ``length`` (default S) valid; else no cache."""
+    positions, the first ``length`` (default S) valid; else no cache.
+    Under ``tp`` the queries are the rank's heads and the stores get
+    every kv head."""
     q, k, v = A.qkv_proj(p, cfg, x, positions)
+    kr, vr = (k, v) if tp is None else (tp.kv_local(k), tp.kv_local(v))
     if causal:
-        o = ops.attn_stream(q, k, v, causal=True)
+        o = ops.attn_stream(q, kr, vr, causal=True)
     else:
         o = A.gqa_scores_softmax_pv(
-            q, k, v, None, scores_dtype=L.torch_dtype(cfg.attn_scores_dtype))
+            q, kr, vr, None,
+            scores_dtype=L.torch_dtype(cfg.attn_scores_dtype))
     cache = None
     if build_cache:
+        if tp is not None:
+            k, v = tp.kv_full(k), tp.kv_full(v)
         ln = x.shape[1] if length is None else length
         cache = {kv: KT.store_from_full(t, cfg.kv_policy, cfg.kv_hot_window,
                                         ln, max_len)
                  for kv, t in (("k", k), ("v", v))}
-    return A.attn_out(p, cfg, o), cache
+    return A.attn_out(p, cfg, o, tp), cache
 
 
 def apply_attention_extend(p: dict, cfg: ModelConfig, x: torch.Tensor,
                            positions: torch.Tensor, cache: dict, pos: int,
-                           length, commit: bool
+                           length, commit: bool, tp=None
                            ) -> tuple[torch.Tensor, dict]:
     """Chunk-resumable prefill attention (serving `Model.extend`).
 
@@ -138,16 +156,23 @@ def apply_attention_extend(p: dict, cfg: ModelConfig, x: torch.Tensor,
     j iff j <= pos + i, the reference's extend mask, so the serving
     engine's prefill runs the kernel too. ``commit`` (the final chunk)
     folds the workspace into the flat/tiered stores with the same
-    `store_from_full` whole-prompt prefill uses."""
+    `store_from_full` whole-prompt prefill uses. Under ``tp`` the
+    workspace holds every kv head (the chunk's rows gathered to it) and
+    the local queries attend their own."""
     pos = int(pos)
     q, k, v = A.qkv_proj(p, cfg, x, positions)
+    if tp is not None:
+        k, v = tp.kv_full(k), tp.kv_full(v)
     C = x.shape[1]
     kf = cache["k_ws"].clone()
     vf = cache["v_ws"].clone()
     kf[:, pos:pos + C] = k.to(kf.dtype)
     vf[:, pos:pos + C] = v.to(vf.dtype)
-    o = ops.attn_stream(q, kf[:, :pos + C], vf[:, :pos + C], causal=True)
-    out = A.attn_out(p, cfg, o)
+    kr, vr = kf[:, :pos + C], vf[:, :pos + C]
+    if tp is not None:
+        kr, vr = tp.kv_read(kr, 2), tp.kv_read(vr, 2)
+    o = ops.attn_stream(q, kr, vr, causal=True)
+    out = A.attn_out(p, cfg, o, tp)
     if commit:
         ln = pos + (C if length is None else int(length))
         max_len = kf.shape[1]
@@ -161,29 +186,36 @@ def apply_attention_extend(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def apply_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                           cache: dict, pos) -> tuple[torch.Tensor, dict]:
+                           cache: dict, pos, tp=None
+                           ) -> tuple[torch.Tensor, dict]:
     """One-token decode over flat or tiered stores. ``pos`` is an int or
-    a (B,) tensor of per-row positions (the batched serving decode)."""
+    a (B,) tensor of per-row positions (the batched serving decode).
+    Under ``tp`` the new rows of every kv head are appended to the
+    full-headed stores and the kernels read the local queries' heads."""
     B = x.shape[0]
     positions = KT.pos_rows(pos, B, x.device)[:, None]
     q, k_new, v_new = A.qkv_proj(p, cfg, x, positions)
+    if tp is not None:
+        k_new, v_new = tp.kv_full(k_new), tp.kv_full(v_new)
     ck = KT.store_append(cache["k"], k_new, pos)
     cv = KT.store_append(cache["v"], v_new, pos)
+    rk, rv = (ck, cv) if tp is None else (tp.store_read(ck),
+                                          tp.store_read(cv))
     fused = _use_fused_decode(cfg)
     if "hot" in ck:
         o = ops.paged_decode_tiered(
-            q, ck, cv, pos, tau=_sparse_read_tau(cfg) if fused else 0.0)
+            q, rk, rv, pos, tau=_sparse_read_tau(cfg) if fused else 0.0)
     elif fused:
-        o = ops.paged_decode_flat(q, ck, cv, pos)
+        o = ops.paged_decode_flat(q, rk, rv, pos)
     else:
         cd = L.torch_dtype(cfg.compute_dtype)
-        kv, valid = KT.store_read(ck, pos, cd)
-        vv, _ = KT.store_read(cv, pos, cd)
+        kv, valid = KT.store_read(rk, pos, cd)
+        vv, _ = KT.store_read(rv, pos, cd)
         mask = valid[None, None, None, :] if valid.dim() == 1 \
             else valid[:, None, None, :]
         o = A.gqa_scores_softmax_pv(
             q, kv, vv, mask, scores_dtype=L.torch_dtype(cfg.attn_scores_dtype))
-    return A.attn_out(p, cfg, o), {"k": ck, "v": cv}
+    return A.attn_out(p, cfg, o, tp), {"k": ck, "v": cv}
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +225,7 @@ def apply_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
 def apply_mla_seq(p: dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, causal: bool = True,
                   build_cache: bool = False, max_len: int = 0,
-                  length=None) -> tuple[torch.Tensor, dict | None]:
+                  length=None, tp=None) -> tuple[torch.Tensor, dict | None]:
     """Whole-sequence MLA (``cfg.mla_absorbed`` picks the form), causal
     unless an encoder's; with ``build_cache`` the latents are absorbed
     into flat or tiered stores of ``max_len`` positions, the first
@@ -202,8 +234,8 @@ def apply_mla_seq(p: dict, cfg: ModelConfig, x: torch.Tensor,
     c_kv, k_rope = A.mla_latents(p, cfg, x, positions)
     q_nope, q_rope = A.mla_queries(p, cfg, x, positions)
     mask = A.causal_mask(S, S, device=x.device) if causal else None
-    out = A.mla_attention(p, cfg, q_nope, q_rope, c_kv, k_rope, mask,
-                          absorbed=cfg.mla_absorbed)
+    out = _reduce(A.mla_attention(p, cfg, q_nope, q_rope, c_kv, k_rope,
+                                  mask, absorbed=cfg.mla_absorbed), tp)
     cache = None
     if build_cache:
         ln = S if length is None else length
@@ -215,7 +247,8 @@ def apply_mla_seq(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def apply_mla_extend(p: dict, cfg: ModelConfig, x: torch.Tensor,
                      positions: torch.Tensor, cache: dict, pos: int,
-                     length, commit: bool) -> tuple[torch.Tensor, dict]:
+                     length, commit: bool, tp=None
+                     ) -> tuple[torch.Tensor, dict]:
     """Chunk-resumable MLA prefill: the workspace {"c_kv_ws",
     "k_rope_ws"} of full-precision (B, max_len, .) latents takes the
     chunk's rows at pos..pos+C-1, and the chunk's queries attend its
@@ -234,8 +267,9 @@ def apply_mla_extend(p: dict, cfg: ModelConfig, x: torch.Tensor,
     cf[:, pos:pos + C] = c_kv.to(cf.dtype)
     rf[:, pos:pos + C] = k_rope.to(rf.dtype)
     mask = A.causal_mask(C, pos + C, offset=pos, device=x.device)
-    out = A.mla_attention(p, cfg, q_nope, q_rope, cf[:, :pos + C],
-                          rf[:, :pos + C], mask, absorbed=cfg.mla_absorbed)
+    out = _reduce(A.mla_attention(p, cfg, q_nope, q_rope, cf[:, :pos + C],
+                                  rf[:, :pos + C], mask,
+                                  absorbed=cfg.mla_absorbed), tp)
     if commit:
         ln = pos + (C if length is None else int(length))
         max_len = cf.shape[1]
@@ -247,7 +281,7 @@ def apply_mla_extend(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def apply_mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                     cache: dict, pos) -> tuple[torch.Tensor, dict]:
+                     cache: dict, pos, tp=None) -> tuple[torch.Tensor, dict]:
     """One-token MLA decode over the latent stores; ``pos`` is an int or
     a (B,) tensor of per-row positions. Fused decode is GQA-only (MLA's
     two-latent score sum does not fit the paged kernels), so MLA stays
@@ -268,4 +302,4 @@ def apply_mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
         r_all, _ = KT.store_read(cr, pos, cd)
         out = A.mla_attention(p, cfg, q_nope, q_rope, c_all, r_all,
                               A._valid4(valid), absorbed=cfg.mla_absorbed)
-    return out, {"c_kv": cc, "k_rope": cr}
+    return _reduce(out, tp), {"c_kv": cc, "k_rope": cr}

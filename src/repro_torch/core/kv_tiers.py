@@ -53,6 +53,19 @@ def init_tiered(batch: int, max_len: int, inner: tuple[int, ...],
     }
 
 
+def tiered_logical(inner_logical: tuple) -> dict:
+    """Logical axes of a tiered store: the hot ring's heads and the cold
+    tier's sequence are what the rules shard."""
+    seq_ax = ("batch", "kv_seq_shard") + inner_logical
+    return {
+        "hot": ("batch", None) + inner_logical,
+        "cold_q": seq_ax,
+        "cold_scale": ("batch", "kv_seq_shard") + inner_logical[:-1]
+        + (None,),
+        "writes": ("batch", None),
+    }
+
+
 def n_endurance_blocks(max_len: int) -> int:
     return (max_len + ENDURANCE_BLOCK - 1) // ENDURANCE_BLOCK
 
@@ -177,6 +190,12 @@ def store_init(batch: int, max_len: int, inner: tuple[int, ...],
         return init_tiered(batch, max_len, inner, hot_window, dtype, device)
     return {"flat": torch.zeros((batch, max_len) + inner, dtype=dtype,
                                 device=device)}
+
+
+def store_logical(inner_logical: tuple, policy: str) -> dict:
+    if policy == "tiered":
+        return tiered_logical(inner_logical)
+    return {"flat": ("batch", "kv_seq_shard") + inner_logical}
 
 
 def store_from_full(full: torch.Tensor, policy: str, hot_window: int,

@@ -17,8 +17,17 @@ engine, on the card unless ``--device`` says otherwise.
         --reduced --device cpu --requests 6 --image-every 1 \
         --shared-prefix 8 --prefix-cache --weight-stream 1
 
+    # the sharded executor on a 1 x 1 mesh (NCCL, world size 1), and over
+    # N ranks under torchrun (one card a rank; --mesh DxM with D * M = N)
+    PYTHONPATH=src python -m repro_torch.launch.serve --backend sharded \
+        --mesh 1x1
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --backend sharded --mesh 1x4
+
 Weights are random, drawn from ``--seed`` at the config's published
-widths (``--reduced`` for the tiny test twins). `generate` below is the
+widths (``--reduced`` for the tiny test twins); under ``--backend
+sharded`` every rank draws the same full tree and keeps its shards, and
+only rank 0 prints. `generate` below is the
 single-request oracle (prefill + greedy decode steps); the engine's
 batched decode is held to it token for token.
 """
@@ -90,6 +99,14 @@ def main(argv=None):
                          "exists for (0 = fully distinct prompts)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; no CPU fallback)")
+    ap.add_argument("--backend", default="local",
+                    choices=["local", "sharded"],
+                    help="executor: one device, or the sharded backend "
+                         "over --mesh (NCCL on cuda, gloo on cpu)")
+    ap.add_argument("--mesh", default="local",
+                    help="mesh of the sharded backend: local | production "
+                         "| multipod | DxM (D * M ranks; under torchrun "
+                         "the launched group)")
     ap.add_argument("--dtype", default=None,
                     choices=["float32", "bfloat16"],
                     help="param and compute dtype (default: the config's)")
@@ -173,7 +190,18 @@ def main(argv=None):
                          "(0 = only at exit) — enables telemetry")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    mesh = None
+    if args.backend == "sharded":
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import get_mesh
+        mesh = get_mesh(args.mesh, device=args.device)
+        dev = mesh.device
+        rank0 = dist.get_rank() == 0
+    else:
+        dev = resolve_device(args.device)
+        rank0 = True
+    say = print if rank0 else (lambda *a, **k: None)
     cfg = get_config(args.arch, reduced=args.reduced)
     dtype = args.dtype or cfg.compute_dtype
     cfg = cfg.replace(param_dtype=dtype, compute_dtype=dtype, remat="none",
@@ -184,9 +212,9 @@ def main(argv=None):
     vis = (cfg.frontend.num_tokens
            if args.image_every and cfg.frontend is not None else 0)
     max_len = args.max_len or (max(args.prompt_len, vis + 1) + args.gen)
-    backend = make_backend("local", model, params,
+    backend = make_backend(args.backend, model, params,
                            num_slots=args.concurrency, max_len=max_len,
-                           device=dev, n_spill=args.spill_lanes,
+                           device=dev, mesh=mesh, n_spill=args.spill_lanes,
                            spill_compress=args.spill_compress,
                            fused_decode=args.fused_decode,
                            sparse_read=args.sparse_read,
@@ -195,9 +223,11 @@ def main(argv=None):
     # hub on; otherwise the Engine installs the no-op NullTelemetry
     want_tel = (args.trace_out or args.metrics_out or args.snapshots_out
                 or args.stats_every)
+    # every rank keeps its hub (the engines stay identical); only rank 0
+    # persists the snapshots, so ranks do not interleave lines in one file
     tel = Telemetry(stats_every=args.stats_every,
-                    snapshot_path=args.snapshots_out,
-                    printer=print) if want_tel else None
+                    snapshot_path=args.snapshots_out if rank0 else None,
+                    printer=say) if want_tel else None
     # None consults the env knobs, an explicit 0 disables
     engine = Engine(backend, chunk_tokens=args.chunk_tokens,
                     token_budget=args.token_budget,
@@ -229,8 +259,9 @@ def main(argv=None):
     m = aggregate_metrics(done, wall)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else str(dev))
-    print(f"[serve] arch={args.arch} kv={args.kv_policy} dtype={dtype} "
-          f"device={where} slots={args.concurrency}: {m['requests']} "
+    on = "" if mesh is None else f" mesh={mesh.shape} (sharded)"
+    say(f"[serve] arch={args.arch} kv={args.kv_policy} dtype={dtype} "
+          f"device={where}{on} slots={args.concurrency}: {m['requests']} "
           f"requests, {m['total_tokens']} tokens in {wall:.2f}s "
           f"({m['tok_per_s']:.1f} tok/s incl. kernel build; "
           f"ttft p95 {m.get('ttft_p95_s', 0.0) * 1e3:.0f} ms, "
@@ -239,26 +270,26 @@ def main(argv=None):
              if backend.fused_decode else ""))
     s = engine.stats
     if args.chunk_tokens:
-        print(f"[serve] chunked prefill: {s['prefill_chunks']} chunks / "
+        say(f"[serve] chunked prefill: {s['prefill_chunks']} chunks / "
               f"{s['extend_calls']} extend calls over {s['steps']} steps")
     if s["evictions"] or s["idle_offloads"]:
         lane_kind = ("int8-compressed" if backend.spill_compress
                      else "verbatim")
-        print(f"[serve] spill ({lane_kind} lanes, "
+        say(f"[serve] spill ({lane_kind} lanes, "
               f"{backend.spill_lane_bytes():,} B each): "
               f"{s['evictions']} preemptions / {s['idle_offloads']} idle "
               f"offloads / {s['restores']} restores (restore latency p95 "
               f"{m.get('restore_latency_p95_s', 0.0) * 1e3:.1f} ms)")
     if engine.block_pool is not None:
         bp = engine.block_pool
-        print(f"[serve] prefix cache: {m.get('prefix_hits', 0)} hits / "
+        say(f"[serve] prefix cache: {m.get('prefix_hits', 0)} hits / "
               f"{m.get('prefix_hit_tokens', 0)} tokens skipped "
               f"(hit rate {m.get('prefix_hit_rate', 0.0):.2f}); "
               f"{bp.stats['cow_copies']} CoW copies, "
               f"{bp.used_blocks}/{bp.num_blocks} blocks live")
     if args.kv_policy == "tiered":
         rep = engine.endurance_report()
-        print(f"[serve] endurance: max writes/cold-slot="
+        say(f"[serve] endurance: max writes/cold-slot="
               f"{rep['max_writes_per_cold_slot']:.2f} (write-once "
               f"{'OK' if rep['write_once_ok'] else 'VIOLATED'})")
     # priced with the backend's resolved config and knobs: the CHIME
@@ -274,31 +305,32 @@ def main(argv=None):
         note = (f" [weight stream W={backend.weight_stream}: "
                 f"{dram_w / 2**20:.1f} MiB DRAM working set, "
                 f"{rram_w / 2**20:.1f} MiB streamed from RRAM]")
-    print(f"[serve] simulated on {sim['platform']}: "
+    say(f"[serve] simulated on {sim['platform']}: "
           f"{sim['sim_tokens_per_j']:.1f} tok/J, "
           f"{sim['sim_energy_j']:.3f} J total{note}")
-    if tel is not None:
+    if tel is not None and rank0:
         if args.trace_out:
             tel.write_chrome_trace(args.trace_out)
-            print(f"[serve] telemetry: Perfetto trace -> {args.trace_out}")
+            say(f"[serve] telemetry: Perfetto trace -> {args.trace_out}")
         if args.metrics_out:
             tel.write_prometheus(args.metrics_out)
-            print(f"[serve] telemetry: Prometheus exposition -> "
+            say(f"[serve] telemetry: Prometheus exposition -> "
                   f"{args.metrics_out}")
         if args.snapshots_out:
-            print(f"[serve] telemetry: JSONL snapshots -> "
+            say(f"[serve] telemetry: JSONL snapshots -> "
                   f"{args.snapshots_out}")
         led = tel.ledger.totals() if tel.ledger is not None else {}
         if led:
             split = led["sim_energy_split_j"]
             drift = abs(led["sim_energy_j"] - sim["sim_energy_j"])
-            print(f"[serve] ledger: dram={split.get('dram', 0.0):.4g} J "
+            say(f"[serve] ledger: dram={split.get('dram', 0.0):.4g} J "
                   f"rram={split.get('rram', 0.0):.4g} J "
                   f"compute={split.get('compute', 0.0):.4g} J "
                   f"(reconciles with simulated_efficiency: "
                   f"{'EXACT' if drift == 0.0 else f'drift {drift:.3g} J'})")
+    if tel is not None:
         tel.close()
-    print("[serve] sample token ids:", done[0].generated[:12])
+    say("[serve] sample token ids:", done[0].generated[:12])
     return done
 
 

@@ -50,7 +50,8 @@ def main(argv=None):
 
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh: ROADMAP Queue 1 item 10 (multi-device)")
+            "--production-mesh: ROADMAP Queue 1 item 10b (multi-device "
+            "training)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced).replace(
         param_dtype="float32", compute_dtype="float32", remat="none")

@@ -18,23 +18,26 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kv_tiers as KT
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamInit, apply_rope, torch_dtype
+from repro_torch.models.layers import (ParamInit, apply_rope, embed_axis,
+                                       torch_dtype)
 
 NEG_INF = -2.0 ** 20
 
 
 def init_attn(b: ParamInit, cfg: ModelConfig) -> dict:
+    e = embed_axis(cfg)
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
-        "wq": b.normal((cfg.d_model, cfg.num_heads, cfg.head_dim)),
-        "wk": b.normal((cfg.d_model, cfg.num_kv_heads, cfg.head_dim)),
-        "wv": b.normal((cfg.d_model, cfg.num_kv_heads, cfg.head_dim)),
-        "wo": b.normal((cfg.num_heads, cfg.head_dim, cfg.d_model)),
+        "wq": b.normal((cfg.d_model, H, Dh), (e, "heads", None)),
+        "wk": b.normal((cfg.d_model, Hkv, Dh), (e, "kv_heads", None)),
+        "wv": b.normal((cfg.d_model, Hkv, Dh), (e, "kv_heads", None)),
+        "wo": b.normal((H, Dh, cfg.d_model), ("heads", None, e)),
     }
     if cfg.use_attn_bias:
-        p["bq"] = b.zeros((cfg.num_heads, cfg.head_dim))
-        p["bk"] = b.zeros((cfg.num_kv_heads, cfg.head_dim))
-        p["bv"] = b.zeros((cfg.num_kv_heads, cfg.head_dim))
-        p["bo"] = b.zeros((cfg.d_model,))
+        p["bq"] = b.zeros((H, Dh), ("heads", None))
+        p["bk"] = b.zeros((Hkv, Dh), ("kv_heads", None))
+        p["bv"] = b.zeros((Hkv, Dh), ("kv_heads", None))
+        p["bo"] = b.zeros((cfg.d_model,), (None,))
     return p
 
 
@@ -97,9 +100,20 @@ def attend_flat(cfg, q: torch.Tensor, cache: dict, pos) -> torch.Tensor:
     return gqa_scores_softmax_pv(q, k, cache["v"], _valid4(valid))
 
 
-def attn_out(p: dict, cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:
+def flat_cache_logical() -> dict:
+    ax = ("batch", "kv_seq_shard", "kv_heads", None)
+    return {"k": ax, "v": ax}
+
+
+def attn_out(p: dict, cfg: ModelConfig, o: torch.Tensor,
+             tp=None) -> torch.Tensor:
+    """The output projection; under ``tp`` (row-parallel over the local
+    heads) the partial sums leave in one all-reduce (AttnOut) and the
+    bias is added once, after it."""
     out = torch.einsum("bshk,hkd->bsd", o,
                        p["wo"].to(torch_dtype(cfg.compute_dtype)))
+    if tp is not None:
+        out = tp.all_reduce(out)
     if "bo" in p:
         out = out + p["bo"].to(out.dtype)
     return out
@@ -208,20 +222,24 @@ def attend_tiered(cfg, q: torch.Tensor, k_store: dict, v_store: dict,
 def init_mla(b: ParamInit, cfg: ModelConfig) -> dict:
     m = cfg.mla
     H = cfg.num_heads
+    e = embed_axis(cfg)
     qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
     p = {}
     if m.q_lora_rank:
-        p["wq_a"] = b.normal((cfg.d_model, m.q_lora_rank))
-        p["q_norm_scale"] = b.ones((m.q_lora_rank,))
-        p["wq_b"] = b.normal((m.q_lora_rank, H, qk_dim))
+        p["wq_a"] = b.normal((cfg.d_model, m.q_lora_rank), (e, None))
+        p["q_norm_scale"] = b.ones((m.q_lora_rank,), (None,))
+        p["wq_b"] = b.normal((m.q_lora_rank, H, qk_dim),
+                             (None, "heads", None))
     else:
-        p["wq"] = b.normal((cfg.d_model, H, qk_dim))
-    p["wkv_a"] = b.normal((cfg.d_model, m.kv_lora_rank))
-    p["kv_norm_scale"] = b.ones((m.kv_lora_rank,))
-    p["wk_rope"] = b.normal((cfg.d_model, m.qk_rope_head_dim))
-    p["wk_b"] = b.normal((m.kv_lora_rank, H, m.qk_nope_head_dim))
-    p["wv_b"] = b.normal((m.kv_lora_rank, H, m.v_head_dim))
-    p["wo"] = b.normal((H, m.v_head_dim, cfg.d_model))
+        p["wq"] = b.normal((cfg.d_model, H, qk_dim), (e, "heads", None))
+    p["wkv_a"] = b.normal((cfg.d_model, m.kv_lora_rank), (e, None))
+    p["kv_norm_scale"] = b.ones((m.kv_lora_rank,), (None,))
+    p["wk_rope"] = b.normal((cfg.d_model, m.qk_rope_head_dim), (e, None))
+    p["wk_b"] = b.normal((m.kv_lora_rank, H, m.qk_nope_head_dim),
+                         (None, "heads", None))
+    p["wv_b"] = b.normal((m.kv_lora_rank, H, m.v_head_dim),
+                         (None, "heads", None))
+    p["wo"] = b.normal((H, m.v_head_dim, cfg.d_model), ("heads", None, e))
     return p
 
 
@@ -348,3 +366,8 @@ def mla_attend_tiered(p: dict, cfg: ModelConfig, q_nope: torch.Tensor,
     o_lat = merge_partials(parts, cd)                       # (B,S,H,R)
     o = torch.einsum("bshr,rhv->bshv", o_lat, p["wv_b"].to(cd))
     return torch.einsum("bshv,hvd->bsd", o, p["wo"].to(cd))
+
+
+def mla_cache_logical() -> dict:
+    return {"c_kv": ("batch", "kv_seq_shard", None),
+            "k_rope": ("batch", "kv_seq_shard", None)}

@@ -43,7 +43,11 @@ class ParamInit:
     ``out`` (an iterator of tensors, one per leaf in the order the leaves
     are drawn) makes every leaf land in the next of those tensors, e.g.
     one layer's slices of a stacked unit; on the "meta" device nothing
-    is drawn and the leaves carry shapes and dtypes only."""
+    is drawn and the leaves carry shapes and dtypes only.
+
+    Every leaf is drawn with its logical axes (one name or None per
+    dimension, the reference's `ParamBuilder.param` tuples); `axes_tree`
+    maps a tree of drawn leaves onto the tree of those tuples."""
 
     def __init__(self, generator: torch.Generator | None, dtype: torch.dtype,
                  device, out=None):
@@ -54,6 +58,20 @@ class ParamInit:
         # on "meta": every leaf, in the order drawn
         self.drawn: list[torch.Tensor] | None = (
             [] if self.device.type == "meta" else None)
+        self.axes: dict[int, tuple] = {}      # id(leaf) -> logical axes
+
+    def axes_tree(self, tree):
+        """The logical-axes tree of a tree of leaves drawn here."""
+        if isinstance(tree, dict):
+            return {k: self.axes_tree(v) for k, v in tree.items()}
+        return self.axes[id(tree)]
+
+    def _named(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Record ``t``'s logical axes (None: every dim replicated)."""
+        axes = (None,) * t.dim() if axes is None else axes
+        assert len(axes) == t.dim(), (tuple(t.shape), axes)
+        self.axes[id(t)] = tuple(axes)
+        return t
 
     def _dest(self, shape: tuple[int, ...], dtype: torch.dtype
               ) -> torch.Tensor:
@@ -70,11 +88,11 @@ class ParamInit:
         return torch.randn(shape, generator=self.gen, dtype=torch.float32,
                            device=self.device)
 
-    def normal(self, shape: tuple[int, ...],
+    def normal(self, shape: tuple[int, ...], axes=None,
                scale: float | None = None) -> torch.Tensor:
         fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
         std = scale if scale is not None else fan_in ** -0.5
-        out = self._dest(shape, self.dtype)
+        out = self._named(self._dest(shape, self.dtype), axes)
         if out.is_meta:
             return out
         rows = max(CHUNK_ELEMS // max(out[0].numel(), 1), 1)
@@ -85,27 +103,36 @@ class ParamInit:
             part.copy_(self._randn(part.shape).mul_(std))
         return out
 
-    def zeros(self, shape: tuple[int, ...]) -> torch.Tensor:
-        return self._fill(self._dest(shape, self.dtype), 0.0)
+    def zeros(self, shape: tuple[int, ...], axes=None) -> torch.Tensor:
+        return self._fill(self._named(self._dest(shape, self.dtype), axes),
+                          0.0)
 
-    def ones(self, shape: tuple[int, ...]) -> torch.Tensor:
-        return self._fill(self._dest(shape, self.dtype), 1.0)
+    def ones(self, shape: tuple[int, ...], axes=None) -> torch.Tensor:
+        return self._fill(self._named(self._dest(shape, self.dtype), axes),
+                          1.0)
 
-    def int8(self, shape: tuple[int, ...]) -> torch.Tensor:
+    def int8(self, shape: tuple[int, ...], axes=None) -> torch.Tensor:
         """Uniform int8 in [-127, 127], as the reference's int8 leaves."""
-        out = self._dest(shape, torch.int8)
+        out = self._named(self._dest(shape, torch.int8), axes)
         if not out.is_meta:
             out.copy_(torch.randint(-127, 128, shape, generator=self.gen,
                                     dtype=torch.int16, device=self.device))
         return out
 
-    def const(self, shape: tuple[int, ...], value: float) -> torch.Tensor:
+    def const(self, shape: tuple[int, ...], axes, value: float
+              ) -> torch.Tensor:
         """A constant f32 leaf, whatever the parameter dtype."""
-        return self._fill(self._dest(shape, torch.float32), value)
+        return self._fill(self._named(self._dest(shape, torch.float32),
+                                      axes), value)
 
     @staticmethod
     def _fill(t: torch.Tensor, value: float) -> torch.Tensor:
         return t if t.is_meta else t.fill_(value)
+
+
+def embed_axis(cfg: ModelConfig) -> str:
+    """Weight-storage axis for the d_model dim: FSDP shards it over 'data'."""
+    return "fsdp_embed" if getattr(cfg, "fsdp", False) else "embed"
 
 
 # ---------------------------------------------------------------------------
@@ -113,9 +140,9 @@ class ParamInit:
 # ---------------------------------------------------------------------------
 def init_norm(b: ParamInit, cfg: ModelConfig, dim: int | None = None) -> dict:
     d = dim or cfg.d_model
-    p = {"scale": b.ones((d,))}
+    p = {"scale": b.ones((d,), (None,))}
     if cfg.norm_type == "layernorm":
-        p["bias"] = b.zeros((d,))
+        p["bias"] = b.zeros((d,), (None,))
     return p
 
 
@@ -179,31 +206,32 @@ def init_mlp(b: ParamInit, cfg: ModelConfig, d_ff: int | None = None,
     d_ff = d_ff or cfg.d_ff
     kind = mlp_type or cfg.mlp_type
     gated = kind in ("silu_gated", "gelu_gated")
+    e = embed_axis(cfg)
     if cfg.ffn_weight_store == "int8":
         # the "RRAM-domain" store: int8 weights with per-output-column f32
         # scales, the reference's leaves and constant scale values
         sc_up = cfg.d_model ** -0.5 / 127.0
         sc_dn = d_ff ** -0.5 / 127.0
-        p = {"w_up_q": b.int8((cfg.d_model, d_ff)),
-             "w_up_scale": b.const((d_ff,), sc_up)}
+        p = {"w_up_q": b.int8((cfg.d_model, d_ff), (e, "mlp")),
+             "w_up_scale": b.const((d_ff,), ("mlp",), sc_up)}
         if gated:
-            p["w_gate_q"] = b.int8((cfg.d_model, d_ff))
-            p["w_gate_scale"] = b.const((d_ff,), sc_up)
-        p["w_down_q"] = b.int8((d_ff, cfg.d_model))
-        p["w_down_scale"] = b.const((cfg.d_model,), sc_dn)
+            p["w_gate_q"] = b.int8((cfg.d_model, d_ff), (e, "mlp"))
+            p["w_gate_scale"] = b.const((d_ff,), ("mlp",), sc_up)
+        p["w_down_q"] = b.int8((d_ff, cfg.d_model), ("mlp", e))
+        p["w_down_scale"] = b.const((cfg.d_model,), (None,), sc_dn)
     else:
-        p = {"w_up": b.normal((cfg.d_model, d_ff))}
+        p = {"w_up": b.normal((cfg.d_model, d_ff), (e, "mlp"))}
         if gated:
-            p["w_gate"] = b.normal((cfg.d_model, d_ff))
-        p["w_down"] = b.normal((d_ff, cfg.d_model))
+            p["w_gate"] = b.normal((cfg.d_model, d_ff), (e, "mlp"))
+        p["w_down"] = b.normal((d_ff, cfg.d_model), ("mlp", e))
     if cfg.use_mlp_bias:
-        p["b_up"] = b.zeros((d_ff,))
-        p["b_down"] = b.zeros((cfg.d_model,))
+        p["b_up"] = b.zeros((d_ff,), ("mlp",))
+        p["b_down"] = b.zeros((cfg.d_model,), (None,))
     return p
 
 
 def apply_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor,
-              mlp_type: str | None = None) -> torch.Tensor:
+              mlp_type: str | None = None, tp=None) -> torch.Tensor:
     """GEMM -> (+bias) -> act -> (* gate GEMM) -> GEMM -> (+bias): the
     plain path, used where the fused kernels do not apply (biases). An
     int8 weight store is dequantized first, in the compute dtype, as the
@@ -223,6 +251,8 @@ def apply_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if "w_gate" in p:
         h = h * torch.einsum("...d,df->...f", x, p["w_gate"].to(cd))
     out = torch.einsum("...f,fd->...d", h, p["w_down"].to(cd))
+    if tp is not None:        # row-parallel: sum, then the bias once
+        out = tp.all_reduce(out)
     if "b_down" in p:
         out = out + p["b_down"].to(out.dtype)
     return out
@@ -232,15 +262,16 @@ def apply_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor,
 # RWKV6 channel mix (a token-shifted MLP)
 # ---------------------------------------------------------------------------
 def init_rwkv_cm(b: ParamInit, cfg: ModelConfig) -> dict:
-    return {"mu_k": b.zeros((cfg.d_model,)),
-            "mu_r": b.zeros((cfg.d_model,)),
-            "w_k": b.normal((cfg.d_model, cfg.d_ff)),
-            "w_v": b.normal((cfg.d_ff, cfg.d_model)),
-            "w_r": b.normal((cfg.d_model, cfg.d_model))}
+    e = embed_axis(cfg)
+    return {"mu_k": b.zeros((cfg.d_model,), (None,)),
+            "mu_r": b.zeros((cfg.d_model,), (None,)),
+            "w_k": b.normal((cfg.d_model, cfg.d_ff), (e, "mlp")),
+            "w_v": b.normal((cfg.d_ff, cfg.d_model), ("mlp", e)),
+            "w_r": b.normal((cfg.d_model, cfg.d_model), (e, None))}
 
 
 def apply_rwkv_cm(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                  x_prev: torch.Tensor | None = None
+                  x_prev: torch.Tensor | None = None, tp=None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """RWKV channel mix, plain (the reference runs no kernel here). x:
     (B,S,D); ``x_prev`` (B,D) is the last row of the previous step, or
@@ -257,6 +288,8 @@ def apply_rwkv_cm(p: dict, cfg: ModelConfig, x: torch.Tensor,
     xr = x + (shifted - x) * p["mu_r"].to(x.dtype)
     k = F.relu(xk @ p["w_k"].to(cd)).square()
     kv = k @ p["w_v"].to(cd)
+    if tp is not None:        # w_k / w_v split over d_ff
+        kv = tp.all_reduce(kv)
     r = torch.sigmoid(xr @ p["w_r"].to(cd))
     return r * kv, x[:, -1]
 
@@ -272,11 +305,20 @@ def init_moe(b: ParamInit, cfg: ModelConfig) -> dict:
     """Router, the experts stacked on a leading (E,) axis, and the shared
     experts as one gated MLP under ``shared`` (the reference's leaves)."""
     m = cfg.moe
-    p = {"router": b.normal((cfg.d_model, m.num_experts),
+    e = embed_axis(cfg)
+    if cfg.moe_ff_fsdp:
+        # the expert d_ff dim over 'data' (the reference's switch)
+        up_ax, dn_ax = ("experts", None, "moe_ff"), ("experts", "moe_ff", None)
+    else:
+        up_ax, dn_ax = ("experts", e, None), ("experts", None, e)
+    p = {"router": b.normal((cfg.d_model, m.num_experts), (e, None),
                             scale=cfg.d_model ** -0.5),
-         "w_up": b.normal((m.num_experts, cfg.d_model, m.d_ff_expert)),
-         "w_gate": b.normal((m.num_experts, cfg.d_model, m.d_ff_expert)),
-         "w_down": b.normal((m.num_experts, m.d_ff_expert, cfg.d_model))}
+         "w_up": b.normal((m.num_experts, cfg.d_model, m.d_ff_expert),
+                          up_ax),
+         "w_gate": b.normal((m.num_experts, cfg.d_model, m.d_ff_expert),
+                            up_ax),
+         "w_down": b.normal((m.num_experts, m.d_ff_expert, cfg.d_model),
+                            dn_ax)}
     if m.num_shared_experts > 0:
         p["shared"] = init_mlp(b, cfg, d_ff=m.d_ff_shared,
                                mlp_type="silu_gated")
@@ -316,7 +358,7 @@ def moe_combine(contrib: torch.Tensor, order: torch.Tensor,
 
 
 def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
-              dropless: bool = True) -> torch.Tensor:
+              dropless: bool = True, tp=None) -> torch.Tensor:
     """Top-k routed experts plus the shared experts, x (B,S,D) -> (B,S,D).
 
     The reference's function step by step: an f32 router softmax, top-k
@@ -332,7 +374,14 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
     drop, as in the reference. The step never waits on the host: counts
     come from ``scatter_add_``, no ``.item()``, ``bincount`` or
     ``nonzero``. The shared experts are the plain `apply_mlp`, as in the
-    reference."""
+    reference.
+
+    Under ``tp`` with ``tp.experts`` the rank holds those experts only:
+    it computes their rows (the others' are zero). With ``tp.shared``
+    the shared experts' F is split. The partial sums (routed, shared or
+    both) leave in one all-reduce; a part that is replicated (the routed
+    sum when the experts are not split, the shared output when its F is
+    not) is added after it, so it is counted once."""
     m = cfg.moe
     cd = torch_dtype(cfg.compute_dtype)
     B, S, D = x.shape
@@ -364,17 +413,34 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
     buf[slot] = xf[sorted_token]
     buf = buf[:-1].view(E, cap, D)
 
+    ep = tp is not None and tp.experts is not None
+    if ep:                    # this rank's experts only
+        e0, e1 = tp.experts
+        buf_all, buf = buf, buf[e0:e1]
     h = torch.bmm(buf, p["w_up"].to(cd))
     h = F.silu(h) * torch.bmm(buf, p["w_gate"].to(cd))
-    out_buf = torch.bmm(h, p["w_down"].to(cd)).view(E * cap, D)
+    out_buf = torch.bmm(h, p["w_down"].to(cd))
+    if ep:
+        full = torch.zeros_like(buf_all, dtype=out_buf.dtype)
+        full[e0:e1] = out_buf
+        out_buf = full
+    out_buf = out_buf.view(E * cap, D)
 
     gathered = out_buf[slot.clamp_max(E * cap - 1)]
     gathered = torch.where(keep[:, None], gathered, 0.0)
     contrib = gathered * sorted_w[:, None].to(out_buf.dtype)
     out = moe_combine(contrib.to(x.dtype), order, k).reshape(B, S, D)
-    if m.num_shared_experts > 0:
-        out = out + apply_mlp(p["shared"], cfg, x, mlp_type="silu_gated")
-    return out
+    shared = (apply_mlp(p["shared"], cfg, x, mlp_type="silu_gated")
+              if m.num_shared_experts > 0 else None)
+    # only partial sums go into the one all-reduce: the routed rows when
+    # the experts are split, the shared output when its F is split; a
+    # part that is whole on every rank is added after the reduction
+    split = ((out, ep), (shared, tp is not None and tp.shared))
+    whole = [t for t, s in split if t is not None and not s]
+    partial = [t for t, s in split if t is not None and s]
+    if partial:
+        whole.append(tp.all_reduce(sum(partial[1:], partial[0])))
+    return sum(whole[1:], whole[0])
 
 
 def moe_aux_loss(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

@@ -54,6 +54,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models import vision as V
 from repro_torch.models.counting import streamed_unit_indices
+from repro_torch.sharding import scope, tree_shardings
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -120,14 +121,27 @@ class Model:
     """Holds the config and plan; parameters and caches are passed in
     explicitly, as in the reference."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, placement=None):
         self.cfg = cfg
+        # a `models.tp.Placement`: this model is one rank's of a mesh,
+        # its parameters and caches the rank's shards (`place`)
+        self.placement = placement
         self.plan = build_plan(cfg)
         self.has_shared_attn = any(u.block.mixer == "attn_shared"
                                    for u in self.plan)
         m = cfg.vocab_pad_multiple
         self.padded_vocab = ((cfg.vocab_size + m - 1) // m) * m
         self.compute_dtype = L.torch_dtype(cfg.compute_dtype)
+
+    def place(self, mesh, rules=None) -> "Model":
+        """This model's twin on one rank of ``mesh``: it runs on the
+        rank's parameter and cache shards (`bridge.shard_params`,
+        `cache_shardings`), tensor parallel over 'model' (`models.tp`).
+        Its `extend` / `decode_step` return the rank's vocab columns of
+        the logits (`Placement.greedy` / `full_logits` read them);
+        `forward` returns every column."""
+        from repro_torch.models.tp import Placement
+        return Model(self.cfg, Placement(self, mesh, rules))
 
     def streamed_units(self) -> tuple[int, ...]:
         """Plan-unit indices whose per-layer weight slices live in the
@@ -171,10 +185,13 @@ class Model:
         bufs = [torch.empty((repeats,) + t.shape, dtype=t.dtype,
                             device=b.device) for t in shapes.drawn]
         index = {id(t): i for i, t in enumerate(shapes.drawn)}
-        for r in range(repeats):
-            self._init_block(L.ParamInit(b.gen, b.dtype, b.device,
-                                         out=iter([t[r] for t in bufs])),
-                             spec)
+        if b.device.type != "meta":
+            for r in range(repeats):
+                self._init_block(L.ParamInit(
+                    b.gen, b.dtype, b.device,
+                    out=iter([t[r] for t in bufs])), spec)
+        for t in shapes.drawn:        # a stacked leaf: (None,) + its axes
+            b.axes[id(bufs[index[id(t)]])] = (None,) + shapes.axes[id(t)]
         return tree_map(lambda t: bufs[index[id(t)]], layer)
 
     def init(self, generator: torch.Generator | None = None,
@@ -191,13 +208,18 @@ class Model:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         b = L.ParamInit(generator, L.torch_dtype(cfg.param_dtype), device)
+        return self._build(b)
+
+    def _build(self, b: L.ParamInit) -> dict:
+        cfg = self.cfg
+        e = L.embed_axis(cfg)
         params: dict = {}
         if cfg.family != "audio":
             params["embed"] = {"table": b.normal(
-                (self.padded_vocab, cfg.d_model), scale=1.0)}
+                (self.padded_vocab, cfg.d_model), ("vocab", e), scale=1.0)}
         if cfg.pos_emb == "learned":
             params["pos_emb"] = b.normal((MAX_LEARNED_POS, cfg.d_model),
-                                         scale=0.02)
+                                         (None, e), scale=0.02)
         if cfg.frontend is not None:
             params["frontend"] = V.init_frontend(b, cfg)
         units = {}
@@ -215,8 +237,20 @@ class Model:
         params["final_norm"] = L.init_norm(b, cfg)
         if not cfg.tie_embeddings:
             params["lm_head"] = b.normal((cfg.d_model, self.padded_vocab),
+                                         (e, "vocab"),
                                          scale=cfg.d_model ** -0.5)
         return params
+
+    def abstract_params(self) -> tuple[dict, dict]:
+        """(meta-tensor tree, logical-axes tree) without allocation."""
+        b = L.ParamInit(None, L.torch_dtype(self.cfg.param_dtype), "meta")
+        params = self._build(b)
+        return params, b.axes_tree(params)
+
+    def param_shardings(self, rules) -> dict:
+        """The resolved spec of every parameter leaf under ``rules``."""
+        shapes, axes = self.abstract_params()
+        return tree_shardings(rules, axes, shapes)
 
     # ------------------------------------------------------------------
     # caches
@@ -270,9 +304,48 @@ class Model:
         return self._stacked(lambda spec: self._block_cache(
             spec, batch, max_len, device))
 
-    def cache_spec(self, batch: int, max_len: int) -> dict:
-        """The decode cache as shape-and-dtype-only (meta) tensors."""
-        return self.init_cache(batch, max_len, device="meta")
+    def _block_cache_logical(self, spec: BlockSpec) -> dict:
+        """One block's cache as logical-axes tuples (the reference's)."""
+        pol = self.cfg.kv_policy
+        if spec.mixer == "rwkv6":
+            return {"tm": SSM.rwkv6_state_logical(),
+                    "cm_x_prev": ("batch", None)}
+        if spec.mixer == "mamba2":
+            return SSM.mamba2_state_logical()
+        inner = (None,) if spec.mixer == "mla" else ("kv_heads", None)
+        return {k: KT.store_logical(inner, pol)
+                for k in self._cache_inner(spec)}
+
+    def _block_extend_logical(self, spec: BlockSpec) -> dict:
+        if spec.mixer in SSM_MIXERS:
+            return self._block_cache_logical(spec)
+        inner = (None,) if spec.mixer == "mla" else ("kv_heads", None)
+        return {f"{k}_ws": ("batch", "kv_seq_shard") + inner
+                for k in self._cache_inner(spec)}
+
+    def _stacked_logical(self, make) -> dict:
+        """``make(spec)`` -> one block's logical tree, stacked per unit
+        (a leading None for a repeated unit's layer axis)."""
+        out = {}
+        for ui, unit in enumerate(self.plan):
+            lg = make(unit.block)
+            if unit.repeats > 1:
+                lg = tree_map(lambda ax: (None,) + ax, lg)
+            out[f"u{ui}"] = lg
+        return out
+
+    def cache_spec(self, batch: int, max_len: int) -> tuple[dict, dict]:
+        """(the decode cache as shape-and-dtype-only (meta) tensors, its
+        logical-axes tree)."""
+        return (self.init_cache(batch, max_len, device="meta"),
+                self._stacked_logical(self._block_cache_logical))
+
+    def cache_shardings(self, rules, batch: int, max_len: int) -> dict:
+        """Resolved specs of a ``batch``-slot decode cache: the slot axis
+        over 'data', the cold kv_seq / kv heads over 'model'
+        (divisibility permitting) — the sharded backend's pool layout."""
+        shapes, logical = self.cache_spec(batch, max_len)
+        return tree_shardings(rules, logical, shapes)
 
     def _block_extend(self, spec: BlockSpec, batch: int, max_len: int,
                       device) -> dict:
@@ -292,8 +365,16 @@ class Model:
         return self._stacked(lambda spec: self._block_extend(
             spec, batch, max_len, device))
 
-    def extend_spec(self, batch: int, max_len: int) -> dict:
-        return self.init_extend_cache(batch, max_len, device="meta")
+    def extend_spec(self, batch: int, max_len: int) -> tuple[dict, dict]:
+        """(the extend state as meta tensors, its logical-axes tree)."""
+        return (self.init_extend_cache(batch, max_len, device="meta"),
+                self._stacked_logical(self._block_extend_logical))
+
+    def extend_shardings(self, rules, batch: int, max_len: int) -> dict:
+        """Resolved specs of the extend state (workspace kv_seq over
+        'model' or 'data', divisibility permitting)."""
+        shapes, logical = self.extend_spec(batch, max_len)
+        return tree_shardings(rules, logical, shapes)
 
     # ------------------------------------------------------------------
     # forward
@@ -306,6 +387,9 @@ class Model:
 
         def tokens():
             ids = torch.as_tensor(batch["tokens"], device=dev).long()
+            if self.placement is not None:
+                return self.placement.embed(params["embed"]["table"], ids,
+                                            cd)
             return params["embed"]["table"][ids].to(cd)
 
         if cfg.family == "audio":
@@ -332,11 +416,35 @@ class Model:
 
     def _run_block(self, spec: BlockSpec, bp: dict, x: torch.Tensor,
                    positions: torch.Tensor, bcache: dict, pos, mode: str,
-                   plen=None, commit: bool = False
+                   plen=None, commit: bool = False, bspec=None
                    ) -> tuple[torch.Tensor, dict | None, torch.Tensor | float]:
         """(x, the block's new cache, its auxiliary loss: a MoE layer's
-        load-balancing term in the full forward, else 0.0)."""
+        load-balancing term in the full forward, else 0.0). On a placed
+        model ``bspec`` is (the layer's parameter specs, its cache
+        specs): the leaves are gathered for use (`Placement.block`,
+        `cache_in`) and an extend / decode keeps the rank's block of
+        the new cache; a committing extend returns it whole, for the
+        slot's owner to store."""
+        pl = self.placement
+        if pl is None:
+            return self._block(spec, bp, x, positions, bcache, pos, mode,
+                               plen, commit, {})
+        bp, tps, keep = pl.block(spec, bp, bspec[0])
+        if bcache is not None and mode != "prefill":
+            bcache = pl.cache_in(bcache, bspec[1], keep)
+        x, nc, aux = self._block(spec, bp, x, positions, bcache, pos, mode,
+                                 plen, commit, tps)
+        if nc is not None and mode == "extend":
+            nc = (pl.cache_whole(nc, keep) if commit
+                  else pl.cache_out(nc, bspec[1], keep))
+        return x, nc, aux
+
+    def _block(self, spec: BlockSpec, bp: dict, x: torch.Tensor,
+               positions: torch.Tensor, bcache: dict, pos, mode: str,
+               plen, commit: bool, tps: dict
+               ) -> tuple[torch.Tensor, dict | None, torch.Tensor | float]:
         cfg = self.cfg
+        tp = tps.get("mixer")
         full = mode == "full"
         h = fusion.apply_norm(bp["ln1"], cfg, x)
         if spec.mixer in SSM_MIXERS:
@@ -345,13 +453,14 @@ class Model:
             # the full forward starts from a zero state of its own
             if spec.mixer == "rwkv6":
                 out, tm = SSM.apply_rwkv6(bp["mixer"], cfg, h,
-                                          None if full else bcache["tm"])
+                                          None if full else bcache["tm"],
+                                          tp)
                 new_cache = {"tm": tm}
             else:
                 out, new_cache = SSM.apply_mamba2(bp["mixer"], cfg, h,
                                                   None if full else bcache)
             return self._mlp_half(spec, bp, x + out, bcache, new_cache,
-                                  full)
+                                  full, tps.get("mlp"))
         mla = spec.mixer == "mla"
         first = next(iter(self._cache_inner(spec)))    # "k" or "c_kv"
         if mode in ("full", "prefill"):
@@ -364,20 +473,21 @@ class Model:
             out, new_cache = seq(bp["mixer"], cfg, h, positions,
                                  causal=not cfg.is_encoder,
                                  build_cache=not full, max_len=ml,
-                                 length=plen)
+                                 length=plen, tp=tp)
         elif f"{first}_ws" in bcache:   # workspace form: chunked prefill
             ext = (fusion.apply_mla_extend if mla
                    else fusion.apply_attention_extend)
             out, new_cache = ext(bp["mixer"], cfg, h, positions, bcache, pos,
-                                 plen, commit)
+                                 plen, commit, tp)
         else:                           # committed stores: decode
             dec = (fusion.apply_mla_decode if mla
                    else fusion.apply_attention_decode)
-            out, new_cache = dec(bp["mixer"], cfg, h, bcache, pos)
-        return self._mlp_half(spec, bp, x + out, bcache, new_cache, full)
+            out, new_cache = dec(bp["mixer"], cfg, h, bcache, pos, tp)
+        return self._mlp_half(spec, bp, x + out, bcache, new_cache, full,
+                              tps.get("mlp"))
 
     def _mlp_half(self, spec: BlockSpec, bp: dict, x: torch.Tensor,
-                  bcache: dict, new_cache: dict | None, full: bool
+                  bcache: dict, new_cache: dict | None, full: bool, tp=None
                   ) -> tuple[torch.Tensor, dict | None, torch.Tensor | float]:
         """The block's second half: pre-norm, the MLP, the residual."""
         cfg = self.cfg
@@ -388,7 +498,8 @@ class Model:
             # stateful: the channel mix's token shift carries its last row
             # (the full forward shifts in zeros, as at a fresh prefill)
             out, prev = L.apply_rwkv_cm(bp["mlp"], cfg, h2,
-                                        None if full else bcache["cm_x_prev"])
+                                        None if full else bcache["cm_x_prev"],
+                                        tp)
             if not full:
                 new_cache["cm_x_prev"] = prev.to(self.compute_dtype)
             return x + out, new_cache, 0.0
@@ -399,7 +510,7 @@ class Model:
         aux = (L.moe_aux_loss(bp["mlp"], cfg, h2)
                if full and spec.mlp == "moe" else 0.0)
         return x + fusion.apply_ffn(bp["mlp"], cfg, h2, mlp_type=kind,
-                                    dropless=not full), new_cache, aux
+                                    dropless=not full, tp=tp), new_cache, aux
 
     def _block_fn(self, mode: str):
         """`_run_block`, checkpointed in the full forward where autograd
@@ -418,18 +529,27 @@ class Model:
     def _run_unit(self, ui: int, unit: UnitSpec, params: dict,
                   x: torch.Tensor, positions: torch.Tensor,
                   ucache: dict | None, pos, mode: str, plen=None,
-                  commit: bool = False
+                  commit: bool = False, uspec=None
                   ) -> tuple[torch.Tensor, dict | None, torch.Tensor | float]:
         """One unit's layers in turn, and their auxiliary losses summed;
         ``ucache`` is None in the full forward, which makes and returns
-        no cache."""
+        no cache. ``uspec`` (placed models) is the unit's cache specs."""
         # a shared-attention unit applies the one top-level weight set
         shared = unit.block.mixer == "attn_shared"
         up = params["shared_attn"] if shared else params["units"][f"u{ui}"]
         block = self._block_fn(mode)
+        bspec = None
+        if self.placement is not None:
+            ps = self.placement.pspec
+            ps = ps["shared_attn"] if shared else ps["units"][f"u{ui}"]
+            if unit.repeats > 1:          # a layer's specs: no repeat axis
+                strip = lambda t: tree_map(lambda s: s[1:], t)  # noqa: E731
+                ps = ps if shared else strip(ps)
+                uspec = None if uspec is None else strip(uspec)
+            bspec = (ps, uspec)
         if unit.repeats == 1:
             return block(unit.block, up, x, positions, ucache, pos, mode,
-                         plen, commit)
+                         plen, commit, bspec)
         # the stacked leaves split once: in backward, unbind's gradient is
         # one stack a leaf, where indexing each layer would add a zero
         # tensor of the whole stacked leaf a layer
@@ -439,7 +559,7 @@ class Model:
             bp = up if shared else tree_map(lambda a: a[r], layers)
             bc = None if ucache is None else tree_map(lambda a: a[r], ucache)
             x, nc, aux = block(unit.block, bp, x, positions, bc, pos, mode,
-                               plen, commit)
+                               plen, commit, bspec)
             ncs.append(nc)
             aux_t = aux_t + aux
         if ucache is None:
@@ -447,7 +567,8 @@ class Model:
         return x, tree_map(lambda *a: torch.stack(a), *ncs), aux_t
 
     def _forward(self, params: dict, batch: dict, mode: str,
-                 cache: dict | None, pos, plen=None, commit: bool = False
+                 cache: dict | None, pos, plen=None, commit: bool = False,
+                 specs: dict | None = None
                  ) -> tuple[torch.Tensor, dict | None, torch.Tensor | float]:
         """``mode`` is "full" (every row's logits, no cache), "prefill"
         (whole prompt from position 0) or "extend" (rows at pos..); the
@@ -459,10 +580,12 @@ class Model:
         new_cache = None if cache is None else {}
         aux_total = 0.0
         for ui, unit in enumerate(self.plan):
-            x, nc, aux = self._run_unit(
-                ui, unit, params, x, positions,
-                None if cache is None else cache[f"u{ui}"], pos, mode, plen,
-                commit)
+            with scope(f"u{ui}"):
+                x, nc, aux = self._run_unit(
+                    ui, unit, params, x, positions,
+                    None if cache is None else cache[f"u{ui}"], pos, mode,
+                    plen, commit,
+                    None if specs is None else specs[f"u{ui}"])
             aux_total = aux_total + aux
             if cache is not None:
                 new_cache[f"u{ui}"] = nc
@@ -470,7 +593,14 @@ class Model:
         if mode != "full":
             x = (x[:, -1:] if plen is None
                  else x[:, int(plen) - 1:int(plen)])
-        if cfg.tie_embeddings:
+        pl = self.placement
+        if pl is not None:            # the rank's vocab columns
+            w, _ = pl.head_weight(params)
+            eq = "bsd,vd->bsv" if cfg.tie_embeddings else "bsd,dv->bsv"
+            logits = torch.einsum(eq, x, w.to(x.dtype))
+            if mode == "full":
+                logits = pl.full_logits(logits)
+        elif cfg.tie_embeddings:
             logits = torch.einsum("bsd,vd->bsv", x,
                                   params["embed"]["table"].to(x.dtype))
         else:
@@ -528,21 +658,23 @@ class Model:
 
     @torch.no_grad()
     def extend(self, params: dict, batch: dict, cache: dict, pos,
-               length=None, commit: bool = False
+               length=None, commit: bool = False, specs: dict | None = None
                ) -> tuple[torch.Tensor, dict]:
         """Multi-token cache extension, the serving entry point: a chunk
         at absolute positions pos.. over the workspace form (chunked
         prefill; ``commit`` on the final chunk), or one token over the
         committed stores (decode). Returns (logits of the last valid row
-        (B,1,V), new cache). An encoder has no cache: ValueError."""
+        (B,1,V), new cache). An encoder has no cache: ValueError. A
+        placed model takes the resolved specs of ``cache`` (``specs``)."""
         if self.cfg.is_encoder:
             raise ValueError("encoder-only model cannot extend a cache")
         return self._forward(params, batch, "extend", cache, pos,
-                             plen=length, commit=commit)[:2]
+                             plen=length, commit=commit, specs=specs)[:2]
 
-    def decode_step(self, params: dict, tokens, cache: dict, pos
+    def decode_step(self, params: dict, tokens, cache: dict, pos,
+                    specs: dict | None = None
                     ) -> tuple[torch.Tensor, dict]:
         """One decode step: tokens (B,1); ``pos`` (int or (B,) tensor) is
         the index each row's new token is written at."""
         return self.extend(params, {"tokens": tokens}, cache, pos,
-                           length=1)
+                           length=1, specs=specs)

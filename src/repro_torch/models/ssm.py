@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ParamInit, torch_dtype
+from repro_torch.models.layers import ParamInit, embed_axis, torch_dtype
 
 f32 = torch.float32
 
@@ -38,22 +38,23 @@ def init_rwkv6(b: ParamInit, cfg: ModelConfig) -> dict:
     H, K = cfg.num_heads, cfg.head_dim
     r = cfg.ssm.rwkv_lora_rank
     rd = cfg.ssm.rwkv_decay_lora
+    e = embed_axis(cfg)
     return {
-        "mu_x": b.zeros((D,)),
-        "mu": b.zeros((5, D)),                       # w,k,v,r,g bases
-        "lora_a": b.normal((D, 5 * r), scale=0.01),
-        "lora_b": b.normal((5, r, D), scale=0.01),
-        "decay_base": b.zeros((D,)),
-        "decay_a": b.normal((D, rd), scale=0.01),
-        "decay_b": b.normal((rd, D), scale=0.01),
-        "bonus_u": b.zeros((H, K)),
-        "w_r": b.normal((D, H, K)),
-        "w_k": b.normal((D, H, K)),
-        "w_v": b.normal((D, H, K)),
-        "w_g": b.normal((D, D)),
-        "w_o": b.normal((H, K, D)),
-        "ln_x_scale": b.ones((H, K)),
-        "ln_x_bias": b.zeros((H, K)),
+        "mu_x": b.zeros((D,), (None,)),
+        "mu": b.zeros((5, D), (None, None)),         # w,k,v,r,g bases
+        "lora_a": b.normal((D, 5 * r), (e, None), scale=0.01),
+        "lora_b": b.normal((5, r, D), (None, None, None), scale=0.01),
+        "decay_base": b.zeros((D,), (None,)),
+        "decay_a": b.normal((D, rd), (e, None), scale=0.01),
+        "decay_b": b.normal((rd, D), (None, None), scale=0.01),
+        "bonus_u": b.zeros((H, K), ("heads", None)),
+        "w_r": b.normal((D, H, K), (e, "heads", None)),
+        "w_k": b.normal((D, H, K), (e, "heads", None)),
+        "w_v": b.normal((D, H, K), (e, "heads", None)),
+        "w_g": b.normal((D, D), (e, None)),
+        "w_o": b.normal((H, K, D), ("heads", None, e)),
+        "ln_x_scale": b.ones((H, K), ("heads", None)),
+        "ln_x_bias": b.zeros((H, K), ("heads", None)),
     }
 
 
@@ -64,7 +65,7 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _rwkv6_inputs(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                  shifted: torch.Tensor):
+                  shifted: torch.Tensor, heads: tuple[int, int] | None = None):
     """Token-shift mixing + projections. x, shifted: (B,S,D). Returns
     r, k, v (B,S,H,K), logw (B,S,H,K) f32 negative log-decay, g (B,S,D)."""
     cd = torch_dtype(cfg.compute_dtype)
@@ -83,6 +84,8 @@ def _rwkv6_inputs(p: dict, cfg: ModelConfig, x: torch.Tensor,
     logw = -torch.exp(decay_raw)                               # (B,S,D) < 0
     B, S, _ = x.shape
     logw = logw.reshape(B, S, H, K)
+    if heads is not None:     # the rank's heads (w_r / w_k / w_v split)
+        logw = logw[:, :, heads[0]:heads[1]]
     rr = _heads(xr, p["w_r"].to(cd))
     kk = _heads(xk, p["w_k"].to(cd))
     vv = _heads(xv, p["w_v"].to(cd))
@@ -91,9 +94,10 @@ def _rwkv6_inputs(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _rwkv6_finish(p: dict, cfg: ModelConfig, y: torch.Tensor,
-                  g: torch.Tensor) -> torch.Tensor:
+                  g: torch.Tensor, tp=None) -> torch.Tensor:
     """Per-head groupnorm (ln_x, population variance), gate, output
-    projection. y: (B,S,H,K)."""
+    projection. y: (B,S,H,K); under ``tp`` the rank's heads, the
+    row-parallel projection's partial sums reduced before the gate."""
     cd = torch_dtype(cfg.compute_dtype)
     yf = y.float()
     mean = yf.mean(-1, keepdim=True)
@@ -102,6 +106,8 @@ def _rwkv6_finish(p: dict, cfg: ModelConfig, y: torch.Tensor,
     yn = yn * p["ln_x_scale"].float() + p["ln_x_bias"].float()
     H, K, D = p["w_o"].shape
     out = yn.to(cd).flatten(-2) @ p["w_o"].to(cd).reshape(H * K, D)
+    if tp is not None:
+        out = tp.all_reduce(out)
     return out * g
 
 
@@ -173,19 +179,22 @@ def wkv6_step(r, k, v, logw, u, s):
 
 
 def apply_rwkv6(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                state: dict | None) -> tuple[torch.Tensor, dict]:
+                state: dict | None, tp=None) -> tuple[torch.Tensor, dict]:
     """Sequence (prefill / extend chunk) or single-step (decode) RWKV6
     time-mix. state = {"s": (B,H,K,K) f32, "x_prev": (B,D)} or None
-    (fresh)."""
+    (fresh). Under ``tp`` the heads are the rank's ``tp.heads`` (its
+    state too) and the output projection is row-parallel."""
     B, S, D = x.shape
-    H, K = cfg.num_heads, cfg.head_dim
+    heads = None if tp is None else tp.heads
     if state is None:
         state = init_rwkv6_state(cfg, B, x.device)
+        if heads is not None:
+            state["s"] = state["s"][:, heads[0]:heads[1]]
     if S == 1:
         shifted = state["x_prev"][:, None]
     else:
         shifted = torch.cat([state["x_prev"][:, None], x[:, :-1]], 1)
-    r, k, v, logw, g = _rwkv6_inputs(p, cfg, x, shifted)
+    r, k, v, logw, g = _rwkv6_inputs(p, cfg, x, shifted, heads)
     u = p["bonus_u"].float()
 
     if S == 1:
@@ -196,7 +205,7 @@ def apply_rwkv6(p: dict, cfg: ModelConfig, x: torch.Tensor,
         chunk = min(cfg.ssm.chunk_size, S)
         y, s = wkv6_chunked(r, k, v, logw, u, state["s"], chunk)
 
-    out = _rwkv6_finish(p, cfg, y.to(x.dtype), g)
+    out = _rwkv6_finish(p, cfg, y.to(x.dtype), g, tp)
     return out, {"s": s, "x_prev": x[:, -1]}
 
 
@@ -206,6 +215,10 @@ def init_rwkv6_state(cfg: ModelConfig, batch: int, device="cpu") -> dict:
             "x_prev": torch.zeros((batch, cfg.d_model),
                                   dtype=torch_dtype(cfg.compute_dtype),
                                   device=device)}
+
+
+def rwkv6_state_logical() -> dict:
+    return {"s": ("batch", "heads", None, None), "x_prev": ("batch", None)}
 
 
 # ---------------------------------------------------------------------------
@@ -221,15 +234,17 @@ def init_mamba2(b: ParamInit, cfg: ModelConfig) -> dict:
     D = cfg.d_model
     d_inner, H, n = _m2_dims(cfg)
     conv_dim = d_inner + 2 * n
+    e = embed_axis(cfg)
     return {
-        "w_in": b.normal((D, d_inner + conv_dim + H)),
-        "conv_w": b.normal((cfg.ssm.conv_width, conv_dim), scale=0.5),
-        "conv_b": b.zeros((conv_dim,)),
-        "a_log": b.zeros((H,)),
-        "dt_bias": b.zeros((H,)),
-        "d_skip": b.ones((H,)),
-        "norm_scale": b.ones((d_inner,)),
-        "w_out": b.normal((d_inner, D)),
+        "w_in": b.normal((D, d_inner + conv_dim + H), (e, "mlp")),
+        "conv_w": b.normal((cfg.ssm.conv_width, conv_dim), (None, None),
+                           scale=0.5),
+        "conv_b": b.zeros((conv_dim,), (None,)),
+        "a_log": b.zeros((H,), (None,)),
+        "dt_bias": b.zeros((H,), (None,)),
+        "d_skip": b.ones((H,), (None,)),
+        "norm_scale": b.ones((d_inner,), (None,)),
+        "w_out": b.normal((d_inner, D), ("mlp", e)),
     }
 
 
@@ -352,3 +367,8 @@ def init_mamba2_state(cfg: ModelConfig, batch: int, device="cpu") -> dict:
         "ssm": torch.zeros((batch, H, cfg.ssm.head_dim, n), dtype=f32,
                            device=device),
     }
+
+
+def mamba2_state_logical() -> dict:
+    return {"conv": ("batch", None, "mlp"),
+            "ssm": ("batch", "mlp", None, None)}

@@ -7,16 +7,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ParamInit, torch_dtype
+from repro_torch.models.layers import ParamInit, embed_axis, torch_dtype
 
 
 def init_frontend(b: ParamInit, cfg: ModelConfig) -> dict:
     f = cfg.frontend
-    p = {"w1": b.normal((f.frontend_dim, cfg.d_model)),
-         "b1": b.zeros((cfg.d_model,))}
+    e = embed_axis(cfg)
+    p = {"w1": b.normal((f.frontend_dim, cfg.d_model), (None, e)),
+         "b1": b.zeros((cfg.d_model,), (None,))}
     if f.connector == "mlp":
-        p["w2"] = b.normal((cfg.d_model, cfg.d_model))
-        p["b2"] = b.zeros((cfg.d_model,))
+        p["w2"] = b.normal((cfg.d_model, cfg.d_model), (e, None))
+        p["b2"] = b.zeros((cfg.d_model,), (None,))
     return p
 
 

@@ -1,7 +1,8 @@
 """Backend-executor seam: `InferenceBackend` is what the serving engine
-drives, and `LocalBackend` executes it on one device.
+drives; `LocalBackend` executes it on one device and `ShardedBackend` on
+a mesh of ranks.
 
-Port of the `LocalBackend` half of the reference's `serving/backend.py`.
+Port of the reference's `serving/backend.py`.
 The backend owns the parameters, the KV pool layout (`KVPoolState`) and
 the two step programs:
 
@@ -41,9 +42,12 @@ the DRAM / RRAM split (`Model.streamed_units` names the streamed units)
 that the scheduler charges and chime_sim prices.
 
 Everything runs on ``device`` (default "cuda"; raises without a card —
-pass device="cpu" to run on the CPU). The sharded executor is not
-ported yet: `make_backend("sharded", ...)` raises NotImplementedError
-naming its ROADMAP item.
+pass device="cpu" to run on the CPU). `ShardedBackend`
+(`make_backend("sharded", ..., mesh=)`) runs the same engine on every
+rank of a `launch.mesh` mesh: the parameters and every cache tree at the
+rank's shards of their resolved specs, the model tensor parallel over
+'model' (`models.tp`), the slots over 'data'; a 1 x 1 mesh gives
+`LocalBackend`'s tokens.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from typing import Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch import sharding as S
 from repro_torch.core import kv_tiers as KT
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
@@ -225,9 +230,9 @@ class LocalBackend:
         if W != cfg.weight_stream_layers:
             cfg = cfg.replace(weight_stream_layers=W)
             model = Model(cfg)
-        self.device = resolve_device(device)
+        self.device = self._resolve_device(device)
         self.model = model
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.params = self._place_params(params)
         self.num_slots = num_slots
         self.max_len = max_len
         self.n_spill = n_spill
@@ -260,8 +265,9 @@ class LocalBackend:
             raise ValueError(f"prefix_blocks must be >= 1, got "
                              f"{prefix_blocks}")
         self.prefix_blocks = prefix_blocks
-        self._axes = batch_axes(model, model.cache_spec(num_slots, max_len))
-        ext_spec = model.extend_spec(1, max_len)
+        self._axes = batch_axes(model,
+                                model.cache_spec(num_slots, max_len)[0])
+        ext_spec = model.extend_spec(1, max_len)[0]
         self._ext_axes = batch_axes(model, ext_spec)
         # workspace leaves (`*_ws`) hold per-position K/V rows (a hybrid's
         # attention units have them, a pure RWKV6 plan none); any other
@@ -278,6 +284,12 @@ class LocalBackend:
                             if self.spill_compress else self._axes)
         self._zero_slot = None
         self._zero_ext = None
+
+    def _resolve_device(self, device) -> torch.device:
+        return resolve_device(device)
+
+    def _place_params(self, params: dict) -> dict:
+        return tree_map(lambda t: t.to(self.device), params)
 
     # ---- accounting --------------------------------------------------
     def slot_kv_bytes(self, *, length: int | None = None
@@ -424,7 +436,7 @@ class LocalBackend:
         """Bytes ONE prefix block pins: what the scheduler charges the
         shared store against the RRAM budget per pinned block."""
         return sum(t.numel() * t.element_size() for t in tree_leaves(
-            self.model.extend_spec(1, self.block_tokens)))
+            self.model.extend_spec(1, self.block_tokens)[0]))
 
     def _zip_ext(self, fn, ext: dict, store: dict) -> dict:
         """``ext`` rebuilt with ``fn(is_ws, ext_leaf, store_leaf,
@@ -494,15 +506,327 @@ def _is_ws(key) -> bool:
     return str(key).endswith("_ws")
 
 
+class ShardedBackend(LocalBackend):
+    """The executor over a mesh of ranks, each running this same host
+    program (the same engine and scheduler decisions) on its shards.
+
+    Parameters sit at their `param_shardings` blocks (`bridge.
+    shard_params`); the pool, the spill lanes, the extend state and the
+    prefix store at the local shapes of `cache_shardings` /
+    `extend_shardings`: slots, lanes and blocks over 'data' (where their
+    counts divide), the cold kv_seq over 'model', the hot ring's kv heads
+    over 'model'. The model runs tensor parallel over 'model'
+    (`models.tp`). A decode step runs the rank's slots and all-gathers
+    their greedy tokens over 'data'; an extend (batch 1, replicated)
+    runs on every data rank and its commit is stored by the slot's
+    owner. A slot image moves between ranks by broadcast from its owner
+    (evict / restore, prefix blocks). The knob resolution, the byte
+    accounting and the ledger context are `LocalBackend`'s. A 1 x 1 mesh
+    is numerically the local path: every collective is over one rank."""
+
+    def __init__(self, model: Model, params: dict, num_slots: int,
+                 max_len: int, mesh=None, rules=None, *, device=None,
+                 n_spill: int | None = None,
+                 spill_compress: bool | None = None,
+                 prefix_blocks: int | None = None,
+                 block_tokens: int | None = None,
+                 fused_decode: bool | None = None,
+                 sparse_read: float | None = None,
+                 weight_stream: int | None = None):
+        from repro_torch.sharding import ShardingRules
+        if mesh is None:
+            from repro_torch.launch.mesh import make_local_mesh
+            mesh = make_local_mesh(device)
+        if mesh.is_abstract:
+            raise ValueError("ShardedBackend needs a live mesh "
+                             "(launch.mesh.get_mesh), not an abstract one")
+        self.mesh = mesh
+        self.rules = rules or ShardingRules(mesh)
+        super().__init__(Model(model.cfg), params, num_slots, max_len,
+                         device=device, n_spill=n_spill,
+                         spill_compress=spill_compress,
+                         prefix_blocks=prefix_blocks,
+                         block_tokens=block_tokens,
+                         fused_decode=fused_decode, sparse_read=sparse_read,
+                         weight_stream=weight_stream)
+        base = self.model
+        self.model = base.place(mesh, self.rules)
+        r = self.rules
+        self._pool_specs = base.cache_shardings(r, num_slots, max_len)
+        self._ext_specs = base.extend_shardings(r, 1, max_len)
+        self._spill_specs = None
+        if self.n_spill:
+            self._spill_specs = base.cache_shardings(r, self.n_spill,
+                                                     max_len)
+            if self.spill_compress:
+                self._spill_specs = map_spill_stores(self._spill_specs,
+                                                     KT.spill_store_meta)
+        self._pfx_specs = base.extend_shardings(r, self.prefix_blocks,
+                                                self.block_tokens)
+        self._slots = self._block("batch", num_slots)
+
+    def _resolve_device(self, device) -> torch.device:
+        return self.mesh.device if device is None else \
+            resolve_device(device)
+
+    def _place_params(self, params: dict) -> dict:
+        from repro_torch.bridge import shard_params
+        specs = self.model.param_shardings(self.rules)
+        return tree_map(lambda t: t.to(self.device),
+                        shard_params(params, specs, self.mesh))
+
+    # ---- placement helpers ---------------------------------------------
+    def _block(self, logical: str, n: int):
+        """(mesh axes, this rank's first index, local count) of an
+        ``n``-long axis resolved from ``logical``."""
+        entry = self.rules.spec((logical,), (n,))[0]
+        i, k = S.block_of(entry, self.mesh)
+        return S.axes_of(entry), i * (n // k), n // k
+
+    def _take_tree(self, tree: dict, specs: dict, axes: dict) -> dict:
+        return tree_map(lambda t, s, a: S.shard(
+            t, s, self.mesh, skip=(a,)).contiguous(), tree, specs, axes)
+
+    def _read(self, t: torch.Tensor, spec, axis: int, i: int
+              ) -> torch.Tensor:
+        """Entry ``i`` of a leaf's slot axis, whole: broadcast from the
+        rank that holds it over the slot axis's mesh axes, then gathered
+        over every other sharded dim."""
+        entry = spec[axis]
+        axes = S.axes_of(entry)
+        if not axes:
+            img = t.narrow(axis, i, 1)
+        else:
+            n_loc = t.shape[axis]
+            owner, li = divmod(i, n_loc)
+            mine = S.block_of(entry, self.mesh)[0] == owner
+            img = (t.narrow(axis, li, 1) if mine else
+                   t.new_empty(t.shape[:axis] + (1,) + t.shape[axis + 1:]))
+            img = img.contiguous()
+            coords = []
+            for a in reversed(axes):
+                owner, c = divmod(owner, self.mesh.shape[a])
+                coords.append((a, c))
+            for a, c in coords:           # minor axis first
+                img = S.broadcast(img, self.mesh, a, c)
+        return S.unshard(img, spec, self.mesh, skip=(axis,))
+
+    def _write(self, t: torch.Tensor, spec, axis: int, i: int,
+               img: torch.Tensor) -> None:
+        """Store a whole entry ``img`` at index ``i`` of a leaf's slot
+        axis, in place, on the rank that holds it (its own block)."""
+        entry = spec[axis]
+        li = i
+        if S.axes_of(entry):
+            owner, li = divmod(i, t.shape[axis])
+            if S.block_of(entry, self.mesh)[0] != owner:
+                return
+        t.narrow(axis, li, 1).copy_(
+            S.shard(img, spec, self.mesh, skip=(axis,)).to(t.dtype))
+
+    def _gather_tree(self, tree: dict, specs: dict) -> dict:
+        return tree_map(lambda t, s: S.unshard(t, s, self.mesh), tree,
+                        specs)
+
+    # ---- pool ----------------------------------------------------------
+    def init_pool(self) -> KVPoolState:
+        _, _, n = self._slots
+        cache = self._take_tree(self.model.init_cache(n, self.max_len,
+                                                      self.device),
+                                self._pool_specs, self._axes)
+        return KVPoolState(cache=cache, axes=self._axes)
+
+    def fresh_extend(self) -> dict:
+        if self._zero_ext is None:
+            full = self.model.init_extend_cache(1, self.max_len,
+                                                self.device)
+            self._zero_ext = tree_map(
+                lambda t, s: S.shard(t, s, self.mesh).contiguous(), full,
+                self._ext_specs)
+        return self._zero_ext
+
+    def make_pool(self) -> TieredKVPool:
+        return TieredKVPool(self.init_pool(), self._insert_state,
+                            self.fresh_slot, num_spill_lanes=self.n_spill,
+                            num_slots=self.num_slots,
+                            writes_of=self._all_writes)
+
+    def _all_writes(self, cache: dict) -> dict:
+        """``cache`` with every endurance-counter leaf holding every
+        slot's counters (all-gathered over 'data'); what the endurance
+        report reads."""
+        def walk(c, s, a, key):
+            if isinstance(c, dict):
+                return {k: walk(c[k], s[k], a[k], k) for k in c}
+            axes = S.axes_of(s[a])
+            if key != "writes" or not axes:
+                return c
+            return S.all_gather(c, self.mesh, axes, dim=a)
+        return walk(cache, self._pool_specs, self._axes, None)
+
+    def _insert_state(self, state: KVPoolState, req_cache: dict, slot
+                      ) -> KVPoolState:
+        tree_map(lambda t, s, a, r: self._write(t, s, a, int(slot), r),
+                 state.cache, self._pool_specs, self._axes, req_cache)
+        return state
+
+    # ---- step programs -----------------------------------------------
+    def extend_step(self, batch: dict, state: KVPoolState, ext: dict,
+                    slot, pos, length, commit: bool):
+        pos, length = int(pos), int(length)
+        if not commit:
+            _, new_ext = self.model.extend(self.params, batch, ext, pos,
+                                           length, specs=self._ext_specs)
+            return None, new_ext, state
+        logits, committed = self.model.extend(
+            self.params, batch, ext, pos, length, commit=True,
+            specs=self._ext_specs)
+        tok = int(self.model.placement.greedy(logits[:, -1])[0])
+        return tok, None, self._insert_state(state, committed, slot)
+
+    def decode_step(self, toks, state: KVPoolState, pos, active
+                    ) -> tuple[np.ndarray, KVPoolState]:
+        """The rank's slots in one batched call, then the greedy tokens
+        of every slot all-gathered over 'data'."""
+        dev = self.device
+        axes, i0, n = self._slots
+        sl = slice(i0, i0 + n)
+        toks = torch.as_tensor(np.asarray(toks)[sl], device=dev).long()
+        pos = torch.as_tensor(np.asarray(pos)[sl], device=dev).long()
+        active = torch.as_tensor(np.asarray(active)[sl],
+                                 device=dev).bool()
+        logits, new = self.model.decode_step(self.params, toks, state.cache,
+                                             pos, specs=self._pool_specs)
+        ntoks = self.model.placement.greedy(logits[:, -1]).to(torch.int32)
+        if axes:
+            with S.scope("data"):
+                ntoks = S.all_gather(ntoks, self.mesh, axes, dim=0)
+        cache = slot_select(new, state.cache, state.axes, active)
+        return ntoks.cpu().numpy(), dataclasses.replace(state, cache=cache)
+
+    # ---- spill lanes ---------------------------------------------------
+    def evict_slot(self, state: KVPoolState, slot, lane, length
+                   ) -> KVPoolState:
+        if self.n_spill == 0:
+            raise ValueError("backend was built with n_spill=0; nothing "
+                             "can be evicted")
+        if state.spill is None:           # first eviction: materialize
+            _, _, n = self._block("batch", self.n_spill)
+            lanes = self.model.init_cache(n, self.max_len, self.device)
+            if self.spill_compress:
+                lanes = map_spill_stores(lanes, KT.spill_store_template)
+            lanes = self._take_tree(lanes, self._spill_specs,
+                                    self._spill_axes)
+            state = dataclasses.replace(
+                state, spill=lanes,
+                spill_writes=KT.init_spill_writes(self.n_spill,
+                                                  self.max_len,
+                                                  self.device),
+                spill_axes=(self._spill_axes if self.spill_compress
+                            else None))
+        slot, lane = int(slot), int(lane)
+        img = tree_map(lambda t, s, a: self._read(t, s, a, slot),
+                       state.cache, self._pool_specs, self._axes)
+        if self.spill_compress:
+            img = map_spill_stores(img, KT.spill_store_compress)
+        tree_map(lambda t, s, a, r: self._write(t, s, a, lane, r),
+                 state.spill, self._spill_specs, self._spill_axes, img)
+        KT.bump_spill_writes(state.spill_writes, lane, length)
+        return state
+
+    def restore_slot(self, state: KVPoolState, lane, slot
+                     ) -> KVPoolState:
+        if state.spill is None:
+            raise ValueError("nothing has been spilled; there is no "
+                             "lane to restore from")
+        lane, slot = int(lane), int(slot)
+        img = tree_map(lambda t, s, a: self._read(t, s, a, lane),
+                       state.spill, self._spill_specs, self._spill_axes)
+        if self.spill_compress:
+            cd = self.model.compute_dtype
+            img = map_spill_stores(
+                img, lambda st: KT.spill_store_decompress(st, cd))
+        return self._insert_state(state, img, slot)
+
+    # ---- paged prefix block store --------------------------------------
+    def ensure_prefix(self, state: KVPoolState) -> KVPoolState:
+        if state.prefix is not None:
+            return state
+        _, _, n = self._block("batch", self.prefix_blocks)
+        store = self._take_tree(
+            self.model.init_extend_cache(n, self.block_tokens, self.device),
+            self._pfx_specs, self._ext_axes)
+        return dataclasses.replace(state, prefix=store,
+                                   prefix_axes=self._ext_axes)
+
+    def _zip_sharded(self, fn, ext: dict, store: dict) -> dict:
+        """``ext`` rebuilt with ``fn(is_ws, whole ext leaf, store leaf,
+        its specs, block axis, ext leaf specs)`` at every leaf."""
+        def walk(e, s, ps, es, a, key):
+            if isinstance(e, dict):
+                return {k: walk(e[k], s[k], ps[k], es[k], a[k], k)
+                        for k in e}
+            return fn(_is_ws(key), e, s, ps, a, es)
+        return walk(ext, store, self._pfx_specs, self._ext_specs,
+                    self._ext_axes, None)
+
+    def prefix_save_ws(self, state: KVPoolState, ext: dict, bid, pos
+                       ) -> KVPoolState:
+        bid, pos, bt = int(bid), int(pos), self.block_tokens
+
+        def save(ws, e, s, ps, a, es):
+            if ws:
+                whole = S.unshard(e, es, self.mesh)
+                self._write(s, ps, a, bid, whole.narrow(a + 1, pos, bt))
+        self._zip_sharded(save, ext, state.prefix)
+        return state
+
+    def prefix_load_ws(self, state: KVPoolState, ext: dict, bid, pos
+                       ) -> dict:
+        bid, pos, bt = int(bid), int(pos), self.block_tokens
+
+        def load(ws, e, s, ps, a, es):
+            if not ws:
+                return e
+            out = S.unshard(e, es, self.mesh).clone()
+            out.narrow(a + 1, pos, bt).copy_(self._read(s, ps, a, bid))
+            return S.shard(out, es, self.mesh).contiguous()
+        return self._zip_sharded(load, ext, state.prefix)
+
+    def prefix_save_state(self, state: KVPoolState, ext: dict, bid
+                          ) -> KVPoolState:
+        bid = int(bid)
+
+        def save(ws, e, s, ps, a, es):
+            if not ws:
+                self._write(s, ps, a, bid, S.unshard(e, es, self.mesh))
+        self._zip_sharded(save, ext, state.prefix)
+        return state
+
+    def prefix_load_state(self, state: KVPoolState, ext: dict, bid
+                          ) -> dict:
+        bid = int(bid)
+
+        def load(ws, e, s, ps, a, es):
+            if ws:
+                return e
+            whole = self._read(s, ps, a, bid).to(e.dtype)
+            return S.shard(whole, es, self.mesh).contiguous()
+        return self._zip_sharded(load, ext, state.prefix)
+
+
+
 def make_backend(kind: str, model: Model, params, *, num_slots: int,
-                 max_len: int, device=None, n_spill: int | None = None,
+                 max_len: int, device=None, mesh=None,
+                 n_spill: int | None = None,
                  spill_compress: bool | None = None,
                  prefix_blocks: int | None = None,
                  block_tokens: int | None = None,
                  fused_decode: bool | None = None,
                  sparse_read: float | None = None,
                  weight_stream: int | None = None) -> InferenceBackend:
-    """CLI-facing factory; only ``kind='local'`` is ported."""
+    """CLI-facing factory: ``kind`` in {'local', 'sharded'} (``mesh``:
+    a live `launch.mesh` mesh; default the 1 x 1 local mesh)."""
     if kind == "local":
         return LocalBackend(model, params, num_slots, max_len, device=device,
                             n_spill=n_spill, spill_compress=spill_compress,
@@ -512,6 +836,12 @@ def make_backend(kind: str, model: Model, params, *, num_slots: int,
                             sparse_read=sparse_read,
                             weight_stream=weight_stream)
     if kind == "sharded":
-        raise NotImplementedError(
-            "ShardedBackend: ROADMAP Queue 1 item 10 (multi-device)")
+        return ShardedBackend(model, params, num_slots, max_len, mesh=mesh,
+                              device=device, n_spill=n_spill,
+                              spill_compress=spill_compress,
+                              prefix_blocks=prefix_blocks,
+                              block_tokens=block_tokens,
+                              fused_decode=fused_decode,
+                              sparse_read=sparse_read,
+                              weight_stream=weight_stream)
     raise ValueError(f"unknown backend kind {kind!r}")

@@ -138,7 +138,7 @@ def slot_kv_bytes(model, max_len: int, *, length: int | None = None,
     seq_elems = kv_elems_per_token(cfg)
     L = _charged_len(max_len, length, block_tokens)
     state_bytes = 0
-    for path, leaf in tree_leaves_with_path(model.cache_spec(1, max_len)):
+    for path, leaf in tree_leaves_with_path(model.cache_spec(1, max_len)[0]):
         if path[-1] in _STORE_KEYS:
             continue
         state_bytes += leaf.numel() * leaf.element_size()
@@ -185,11 +185,16 @@ class TieredKVPool:
     cache arithmetic (insert / decode) belongs to the backend."""
 
     def __init__(self, state: KVPoolState, insert_fn, fresh_slot_fn,
-                 num_spill_lanes: int = 0):
+                 num_spill_lanes: int = 0, num_slots: int | None = None,
+                 writes_of=None):
         self.state = state
         self._insert_fn = insert_fn        # (state, req_cache, slot) -> state
         self._fresh_slot = fresh_slot_fn   # () -> batch-1 zero cache
-        self.num_slots = state.num_slots
+        # a sharded pool holds a rank's slots: it is told the global count,
+        # and ``writes_of(cache)`` gives the endurance counters of every
+        # slot (gathered over 'data')
+        self.num_slots = state.num_slots if num_slots is None else num_slots
+        self._writes_of = writes_of
         self._free = list(range(self.num_slots))
         self.num_spill_lanes = num_spill_lanes
         self._free_lanes = list(range(self.num_spill_lanes))
@@ -248,7 +253,10 @@ class TieredKVPool:
         """Elementwise max of every tiered store's per-slot endurance
         counters -> (num_slots, n_blocks), or None if nothing is tiered."""
         worst = None
-        for path, w in tree_leaves_with_path(self.state.cache):
+        cache = self.state.cache
+        if self._writes_of is not None:
+            cache = self._writes_of(cache)
+        for path, w in tree_leaves_with_path(cache):
             if path[-1] != "writes":
                 continue
             if w.dim() == 3:              # (repeats, slots, blocks)

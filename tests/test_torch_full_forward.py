@@ -101,7 +101,7 @@ def test_forward_matches_reference(arch, monkeypatch):
     if pc.moe is not None:
         moe = L.apply_moe
 
-        def watched(p, cfg, x, dropless=True):
+        def watched(p, cfg, x, dropless=True, tp=None):
             T = x.shape[0] * x.shape[1]
             idx = torch.softmax(x.reshape(T, -1).float() @ p["router"], -1
                                 ).topk(cfg.moe.top_k, -1).indices
@@ -109,7 +109,7 @@ def test_forward_matches_reference(arch, monkeypatch):
                                     minlength=cfg.moe.num_experts)
             overflow.append((dropless, int(counts.max()),
                              L.moe_capacity(cfg, T, dropless)))
-            return moe(p, cfg, x, dropless)
+            return moe(p, cfg, x, dropless, tp=tp)
         monkeypatch.setattr(L, "apply_moe", watched)
     logits = model.forward(params, _full_batch(pc))
     assert logits.shape == want.shape

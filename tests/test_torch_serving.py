@@ -24,6 +24,7 @@ from repro.serving import LocalBackend as RefBackend
 from repro.serving import Request as RefRequest
 from repro_torch.configs.base import Segment, get_config
 from repro_torch.launch.serve import generate, main
+from repro_torch.launch.train import main as train_main
 from repro_torch.models import Model
 from repro_torch.serving import (Engine, LocalBackend, Request,
                                  make_backend, parse_prometheus,
@@ -231,11 +232,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_unported_paths_raise_not_implemented():
-    """What is still to port raises, naming its ROADMAP item: the sharded
-    backend. Learned position embeddings (hubert-xlarge's) build, and an
-    encoder is refused by the backend with the reference's ValueError.
-    (Every mixer, spill lanes, the paged prefix store and weight
-    streaming are ported: they work.)"""
+    """What is still to port raises, naming its ROADMAP item: the train
+    CLI's production mesh (multi-device training). The sharded backend
+    builds, on a world-1 gloo mesh. Learned position embeddings
+    (hubert-xlarge's) build, and an encoder is refused by the backend
+    with the reference's ValueError. (Every mixer, spill lanes, the
+    paged prefix store and weight streaming are ported: they work.)"""
     cfg = get_config("granite-3-2b", reduced=True)
     Model(cfg.replace(segments=(Segment(("mamba2",), 2),)))
     learned = Model(cfg.replace(pos_emb="learned"))
@@ -245,9 +247,12 @@ def test_unported_paths_raise_not_implemented():
         LocalBackend(enc, enc.init(device="cpu"), 2, 16, device="cpu")
     _, _, _, _, model, params = build_pair("granite-3-2b")
     be = LocalBackend(model, params, 2, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_backend("sharded", model, params, num_slots=2, max_len=16,
-                     device="cpu")
+    sharded = make_backend("sharded", model, params, num_slots=2,
+                           max_len=16, device="cpu")
+    assert sharded.mesh.shape == {"data": 1, "model": 1}
+    assert sharded.weight_bytes() == be.weight_bytes()
+    with pytest.raises(NotImplementedError, match="ROADMAP.*10b"):
+        train_main(["--reduced", "--device", "cpu", "--production-mesh"])
     assert be.evict_slot(be.init_pool(), 0, 0, 4).num_spill_lanes == 2
     assert be.ensure_prefix(be.init_pool()).prefix is not None
     streamed = LocalBackend(Model(model.cfg.replace(weight_stream_layers=1)),
@@ -277,7 +282,7 @@ def test_slot_kv_bytes_matches_cache_walk_mla(kv_policy):
     endurance counters bookkeeping) and the reference's figure."""
     rc, rmodel, _, pc, model, _ = build_pair(MLA, kv_policy)
     max_len, hot, cold = 24, 0, 0
-    for path, leaf in tree_leaves_with_path(model.cache_spec(1, max_len)):
+    for path, leaf in tree_leaves_with_path(model.cache_spec(1, max_len)[0]):
         if path[-1] == "writes":
             continue
         n = leaf.numel() * leaf.element_size()
@@ -357,7 +362,7 @@ def test_mla_backend_resolves_fused_knob_off_and_serves_identically():
     assert not be.requires_exact_prefill and be.chunk_unit == 1
     assert be.has_prefix_ws
     assert {p[-1] for p, _ in tree_leaves_with_path(
-        model.extend_spec(1, 24))} == {"c_kv_ws", "k_rope_ws"}
+        model.extend_spec(1, 24)[0])} == {"c_kv_ws", "k_rope_ws"}
     runs = []
     for backend in (be, LocalBackend(model, params, 2, 24, device="cpu")):
         done = Engine(backend).run(

@@ -404,7 +404,7 @@ def test_caches_match_reference_layout(arch):
     dtypes (recurrent states f32, the shift / conv history in the
     compute dtype, one K/V store per shared-attention application)."""
     _, rmodel, _, _, model, _ = build_pair(arch)
-    for mine, (ref, _) in ((model.cache_spec(3, 24),
+    for (mine, _), (ref, _) in ((model.cache_spec(3, 24),
                             rmodel.cache_spec(3, 24)),
                            (model.extend_spec(1, 24),
                             rmodel.extend_spec(1, 24))):
@@ -446,7 +446,7 @@ def test_slot_and_lane_bytes_match_reference(arch, kv_policy):
     stores: the reference's slot and lane bytes, both lane forms."""
     _, rmodel, _, _, model, _ = build_pair(arch, kv_policy)
     state = sum(t.numel() * t.element_size()
-                for _, t in _recurrent_leaves(model.cache_spec(1, 48)))
+                for _, t in _recurrent_leaves(model.cache_spec(1, 48)[0]))
     assert state > 0
     assert slot_kv_bytes(model, 48) == ref_slot_kv_bytes(rmodel, 48)
     assert slot_kv_bytes(model, 48)[0] >= state
