@@ -218,14 +218,17 @@ source, all started together; seven kernels), then:
      text requests of 128; zamba2-1.2b's 38 positions, tiered (hot window
      64), 2 requests of 128 and 2 of 300 tokens, the Engine prefilling in
      chunks of at most 128 on the SSM grid, `generate` whole) and a bf16
-     run as the dense archs' (8 text requests of 256, 64 new, 4 slots,
-     max_len 512, a Telemetry hub): rwkv6-7b with no KV store (CHIME
-     tiering does not apply), zamba2-1.2b over the tiered store (hot
-     window 128; KV in its 6 shared-attention applications only). Exact
-     launches a model call (rwkv6: fused_norm 65 and nothing else, the
-     channel mix plain as in the reference; zamba2: fused_norm 45,
-     qkv_proj 6, ffn_act 6, attn_stream 6 an extend, paged_decode_tiered
-     6 a decode step), write-once, ledger == simulated_efficiency,
+     run as the dense archs' at full width and a depth cut
+     (`SERVE_LAYERS`: for the script's time limit; 8 text requests of
+     256, 64 new, 4 slots, max_len 512, a Telemetry hub): rwkv6-7b's
+     first 8 of 32 layers with no KV store (CHIME tiering does not
+     apply), zamba2-1.2b's first 12 of 38 (10 Mamba2 + 2 shared-block
+     applications) over the tiered store (hot window 128; KV in the
+     shared-attention applications only). Exact launches a model call
+     (rwkv6: fused_norm 17 and nothing else, the channel mix plain as in
+     the reference; zamba2: fused_norm 15, qkv_proj 2, ffn_act 2,
+     attn_stream 2 an extend, paged_decode_tiered 2 a decode step; 65 /
+     45 / 6 at full depth), write-once, ledger == simulated_efficiency,
      chime_sim, and in both profiles the device time and launches under
      the recurrences' ranges (the mixers, the scans, the channel mix).
   6. hubert — hubert-xlarge encoder inference through `Model.forward`
@@ -291,6 +294,20 @@ source, all started together; seven kernels), then:
      local run's, peak memory. The kernel phase holds the sharded
      executor's 2- and 4-way shard shapes (fastvlm-1.7b, stablelm-12b)
      against their twins too.
+ 10. sharded-train — training through the mesh: `launch.train.run` (the
+     train CLI's mesh function) on `get_mesh("1x1")` over NCCL at world
+     size 1, fastvlm-1.7b f32 (TF32 off) at full width and depth, 3
+     steps of 8 x 256 VQA rows from seed 0 with the CLI's AdamW at
+     --steps 3, after the same 3 steps through the local
+     `make_train_step` on the same init and batches: a step's loss and
+     grad norm against the local one's (<= 1e-5 relative), exact
+     launches (57 / 28 / 28 / 28 a step), the collectives a step by
+     kind, the NCCL kernels' device time in a profiled step, step p50
+     and peak memory beside the local run's; then at a 2-layer cut
+     (B 2 x S 128, deterministic algorithms) every parameter leaf after
+     2 steps of the placed step against the local step's (<= 1e-4 of
+     the leaf's largest element; `torch.equal` printed). The loop keeps
+     no checkpoint (the CPU suite checks mesh checkpoints).
   Decode profiles cover 4 steady steps.
   Every dense, MoE and recurrent bf16 run prints its decode busy beside
   the weight floor: every weight read once a step (the embedding table
@@ -299,8 +316,8 @@ source, all started together; seven kernels), then:
 
 It prints the card (name, power limit), the kernel build time, the
 phases' results, then one JSON line {"kernels": [...]} (launches summed
-over every serving run and the train phase's six steps; host_ms is call
-ms minus device ms) and,
+over every serving run, the train phase's six steps and the
+sharded-train run's three; host_ms is call ms minus device ms) and,
 last, the device JSON line. It fails
 (non-zero exit, no result lines) without a card, outside the repository,
 or when any check fails. `--phases` selects a subset (e.g. `--phases
@@ -309,7 +326,8 @@ kernels and only the deepseek-v2-lite parity and serving runs;
 `--phases kernels,stablelm,starcoder2,paligemma` for the kernels and
 the dense archs' runs; `--phases kernels,rwkv6,zamba2` for the
 recurrent archs'; `--phases kernels,hubert,llama4` for the full-sequence
-forward's; `--phases kernels,train` for training;
+forward's; `--phases kernels,train` for training; `--phases
+sharded-train` for training through the mesh;
 `--phases deepseek-full` for deepseek-v2-lite's f32 parity at full
 depth (27 layers, not a default phase; it runs after every other
 phase).
@@ -2531,6 +2549,30 @@ DENSE_PARITY_LAYERS = {"stablelm": 40, "starcoder2": 32, "paligemma": 18}
 # is plain, as in the reference, so only fused_norm runs) and zamba2-1.2b
 # (Mamba2 + one shared attention block, 6 applications over the tiered
 # store: CHIME's mapping, with KV only in those 6)
+# the bf16 serving runs of the recurrent archs keep their first layers
+# only (the f32 parity runs stay at full depth): their prefill profiles
+# trace ~45,000 / ~21,000 launches at full depth, and the whole script
+# must fit its time limit on a slow host (1,119.9 s of 1,200 at full
+# depth on an H100 whose build took 158 s). rwkv6-7b keeps 8 of 32
+# layers, zamba2-1.2b two repeats of its 6-layer pattern (10 Mamba2
+# layers + 2 shared-block applications of 38)
+SERVE_LAYERS = {"rwkv6": 8, "zamba2": 12}
+
+
+def first_layers(cfg, n: int) -> dict:
+    """Config knobs cutting ``cfg`` to its first ``n`` layers, whole
+    repeats of each segment's pattern."""
+    from repro_torch.configs.base import Segment
+    segs, left = [], n
+    for seg in cfg.segments:
+        r = min(seg.repeats, left // len(seg.pattern))
+        if r:
+            segs.append(Segment(seg.pattern, r))
+            left -= r * len(seg.pattern)
+    require(left == 0, f"{cfg.name}: {n} layers are not whole repeats")
+    return dict(num_layers=n, segments=tuple(segs))
+
+
 SSM_RUNS = (
     ("rwkv6", "rwkv6-7b", {}, {}, 0, 0, ("fused_norm",)),
     ("zamba2", "zamba2-1.2b", dict(kv_policy="tiered", kv_hot_window=128),
@@ -2647,8 +2689,13 @@ def dense_run(key: str, pk: dict, dev: str = "cuda", after=None) -> dict:
     from repro_torch.serving import Telemetry
     from repro_torch.tree import tree_leaves
 
+    from repro_torch.configs.base import get_config
+
     _, arch, knobs, bknobs, n_vqa, twi, needs = next(
         r for r in DENSE_RUNS + SSM_RUNS + MOE_RUNS if r[0] == key)
+    if key in SERVE_LAYERS:
+        knobs = dict(knobs, **first_layers(get_config(arch),
+                                           SERVE_LAYERS[key]))
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
     gc.collect()              # an earlier run's backend, freed first
     mem_before = 0
@@ -4786,12 +4833,238 @@ def sharded_phase(pk: dict, dev: str = "cuda") -> dict:
     return res_s
 
 
+class _NoCheckpoint:
+    """A checkpoint manager that keeps nothing: the sharded-train run's
+    loop writes no 18.6 GB state (the CPU suite checks the mesh
+    checkpoint: saved on 2 x 2, restored on 1 x 2)."""
+
+    def latest_step(self):
+        return None
+
+    def save(self, state, step):
+        return None
+
+
+SHARDED_TRAIN_STEPS = 3
+# the CPU training suites' tolerances: the loss and grad norm relative,
+# a parameter leaf after steps of its largest element
+LOSS_RTOL, PARAM_TOL = 1e-5, 1e-4
+
+
+def sharded_train_phase(pk: dict, dev: str = "cuda") -> dict:
+    """sharded-train: training through the mesh, `launch.train.run` on
+    `get_mesh("1x1")` over NCCL at world size 1 (gloo on the CPU
+    rehearsal): fastvlm-1.7b at full width and depth (28 layers, f32,
+    TF32 off, no remat), 3 steps of 8 x 256 VQA rows from seed 0 with
+    the CLI's AdamW (lr 3e-3, warmup 1, total 3). First the same 3 steps
+    through the local `make_train_step` on the same init and batches
+    (its losses, grad norms, step times and peak memory), then the mesh
+    run: per step the loss and grad norm against the local ones
+    (relative tolerance `LOSS_RTOL`; every world-1 collective adds no
+    arithmetic, so the prediction is equality), exact kernel launches
+    (the local step's 57 / 28 / 28 / 28), the collectives by kind, the
+    step time, a profiled last step (the NCCL kernels' device time) and
+    the peak device memory. Last, at a 2-layer cut (B 2 x S 128, under
+    deterministic algorithms), every parameter leaf after 2 steps of
+    the placed step against the local step's (the largest difference
+    per leaf kind, within `PARAM_TOL` of each leaf's largest element)."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch import sharding as S
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import get_mesh
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    mesh = get_mesh("1x1", device=dev)
+    want_pg = "nccl" if cuda else "gloo"
+    require(dist.get_backend() == want_pg, f"sharded-train: process group "
+            f"runs {dist.get_backend()}, not {want_pg}")
+    n = SHARDED_TRAIN_STEPS
+    args = T.parse_args(["--arch", "fastvlm-1.7b", "--steps", str(n),
+                         "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+                         "--seed", "0", "--device", dev,
+                         "--ckpt-every", "1000"])
+    opt = AdamWConfig(lr=args.lr, warmup_steps=max(n // 10, 1),
+                      total_steps=n)
+
+    def peak_reset():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def recorder(rows, profile_last):
+        def hook(i, run):
+            kernels.reset_launch_counts()
+            S.reset_counts()
+            last = profile_last and i == n - 1
+            prof = (profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+                    if last and cuda else contextlib.nullcontext())
+            with prof:
+                if last and cuda:
+                    lead_in()
+                sync()
+                t0 = time.perf_counter()
+                state, m = run()
+                sync()
+                wall = time.perf_counter() - t0
+            row = {"loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"]), "ms": 1e3 * wall,
+                   "launches": kernels.launch_counts(),
+                   "collectives": S.counts_by_kind()}
+            if last and cuda:
+                drows = device_rows(prof.key_averages())
+                nccl = [(k, c, t) for k, c, t in drows if "nccl" in k.lower()]
+                busy = sum(t for _, _, t in drows)
+                row["profile"] = {
+                    "busy_ms": busy, "idle_share": 1 - busy / (1e3 * wall),
+                    "nccl_ms": sum(t for _, _, t in nccl),
+                    "nccl_launches": sum(c for _, c, _ in nccl),
+                    "nccl_kernels": sorted({k[:60] for k, _, _ in nccl})}
+            rows.append(row)
+            return state, m
+        return hook
+
+    # the local step on the same init and batches
+    peak_reset()
+    cfg, model, params = _train_model(dev)
+    pipe = SyntheticPipeline(cfg, DataConfig(TRAIN_B, TRAIN_S, seed=0))
+    batches = [pipe.host_slice(t) for t in range(n)]
+    local = []
+    step, state, hook = (ST.make_train_step(model, opt),
+                         adamw_init(params, opt), recorder(local, False))
+    for i, b in enumerate(batches):
+        state, _ = hook(i, lambda: step(state, b))
+    local_peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    n_norm, n_gqa, n_ffn = plan_counts(model)
+    del params, model, state
+    # the mesh run, through the train CLI's mesh function
+    peak_reset()
+    rows = []
+
+    def step_hook(step):
+        hook = recorder(rows, True)
+        return lambda state, batch: hook(len(rows),
+                                         lambda: step(state, batch))
+    got = T.run(args, mesh, step_hook=step_hook, ckpt=_NoCheckpoint())
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    del got
+    want = dict.fromkeys(kernels.launch_counts(), 0)
+    if cuda:
+        want.update(fused_norm=n_norm, qkv_proj=n_gqa, attn_stream=n_gqa,
+                    ffn_act=n_ffn)
+    diffs = {k: max(abs(r[k] - l[k]) / abs(l[k]) for r, l in zip(rows, local))
+             for k in ("loss", "grad_norm")}
+    for i, (r, l) in enumerate(zip(rows, local)):
+        print(f"[sharded-train] step {i + 1}: loss {r['loss']:.6f} (local "
+              f"{l['loss']:.6f}) gnorm {r['grad_norm']:.6f} (local "
+              f"{l['grad_norm']:.6f}); {r['ms']:.1f} ms (local "
+              f"{l['ms']:.1f}); launches {r['launches']}; collectives "
+              f"{r['collectives']}")
+    print(f"[sharded-train] largest relative difference from the local "
+          f"step: loss {diffs['loss']:.3e}, grad norm "
+          f"{diffs['grad_norm']:.3e} (tolerance {LOSS_RTOL:g})")
+    require(len(rows) == len(local) == n, f"sharded-train: ran {len(rows)} "
+            f"mesh and {len(local)} local steps")
+    require(all(d <= LOSS_RTOL for d in diffs.values()),
+            f"sharded-train: loss / grad norm differ from the local "
+            f"step's {diffs}")
+    require(all(r["launches"] == want for r in rows),
+            f"sharded-train: launches a step "
+            f"{[r['launches'] for r in rows]}, planned {want}")
+    require(all(r["collectives"] == rows[0]["collectives"] for r in rows),
+            "sharded-train: the steps' collectives differ")
+    med = statistics.median(r["ms"] for r in rows)
+    lmed = statistics.median(r["ms"] for r in local)
+    res = {"steps": rows, "local_steps": local, "max_rel_diff": diffs,
+           "step_ms_p50": med, "local_step_ms_p50": lmed,
+           "collectives_per_step": rows[0]["collectives"],
+           "launches_per_step": rows[0]["launches"],
+           "launches": {k: sum(r["launches"][k] for r in rows)
+                        for k in want},
+           "peak_gb": peak, "local_peak_gb": local_peak}
+    prof = rows[-1].get("profile")
+    if prof:
+        res["profile"] = prof
+        print(f"[sharded-train] step {n} profiled: device busy "
+              f"{prof['busy_ms']:.1f} ms (idle share "
+              f"{prof['idle_share']:.3f}); NCCL kernels "
+              f"{prof['nccl_ms']:.3f} ms in {prof['nccl_launches']} "
+              f"launches {prof['nccl_kernels']}")
+    print(f"[sharded-train] step p50 {med:.1f} ms (local {lmed:.1f} ms); "
+          + (f"peak device memory {peak:.2f} GB (local {local_peak:.2f} GB)"
+             if cuda else "no device memory on the CPU"))
+    res["cut"] = _sharded_train_cut(mesh, dev)
+    dist.destroy_process_group()
+    peak_reset()
+    return res
+
+
+def _sharded_train_cut(mesh, dev: str) -> dict:
+    """fastvlm-1.7b at a 2-layer cut: 2 steps (B 2 x S 128) of the step
+    placed on ``mesh`` against the local step, under deterministic
+    algorithms; every parameter leaf compared."""
+    import warnings
+
+    import torch
+
+    from repro_torch.bridge import shard_params
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    cfg, model, weights = _train_model(dev, TRAIN_CUT)
+    opt = AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=2)
+    batches = SyntheticPipeline(cfg, DataConfig(2, 128, seed=2)).host_slice
+    placed = model.place(mesh)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            states = []
+            for m, p in ((model, tree_map(torch.clone, weights)),
+                         (placed, shard_params(tree_map(
+                             torch.clone, weights),
+                             placed.placement.pspec, mesh))):
+                st, step = adamw_init(p, opt), make_train_step(m, opt)
+                for t in range(2):
+                    st, _ = step(st, batches(t))
+                states.append(st)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    kinds: dict = {}
+    exact = True
+    for (path, a), (_, b) in zip(tree_leaves_with_path(states[1].params),
+                                 tree_leaves_with_path(states[0].params)):
+        exact &= bool(torch.equal(a, b))
+        kinds[path[-1]] = max(kinds.get(path[-1], 0.0), _rel(a, b))
+    worst = max(kinds.values())
+    print(f"[sharded-train] 2-layer cut, 2 steps: params placed vs local "
+          f"torch.equal {exact}; largest difference per leaf kind (of the "
+          f"leaf's largest element): "
+          + ", ".join(f"{k} {v:.1e}" for k, v in sorted(kinds.items())))
+    require(worst <= PARAM_TOL, f"sharded-train: 2-layer cut params differ "
+            f"by {worst:.2e} of a leaf's largest element")
+    del states, weights
+    return {"exact": exact, "max_rel_per_kind": kinds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="kernels,parity,serving,stablelm,"
                                          "starcoder2,paligemma,rwkv6,"
                                          "zamba2,hubert,llama4,train,"
-                                         "sharded",
+                                         "sharded,sharded-train",
                     help="comma-separated phases (default: all but "
                          "deepseek-full); e.g. kernels,train for the "
                          "kernels and the training phase")
@@ -4872,10 +5145,14 @@ def main(argv=None) -> int:
     if "sharded" in phases:
         report.setdefault("serving", {})["sharded"] = timed(
             "sharded", sharded_phase, pk)
+    if "sharded-train" in phases:
+        report["sharded_train"] = timed("sharded-train",
+                                        sharded_train_phase, pk)
     if "deepseek-full" in phases:
         report.setdefault("parity", {})["deepseek-parity-full"] = timed(
             "deepseek-full", _parity_deepseek, "cuda", 27)
-    runs = [*report.get("serving", {}).values(), report.get("train", {})]
+    runs = [*report.get("serving", {}).values(), report.get("train", {}),
+            report.get("sharded_train", {})]
     launches = {k: sum(run.get("launches", {}).get(k, 0) for run in runs)
                 for k in REPLACES}
     rows = []

@@ -10,6 +10,13 @@
   * restore() returns (state, step), so the loop and the seekable data
     pipeline resume exactly.
 
+On a mesh (``mesh`` and ``shardings``, a tree of specs shaped like the
+state: `launch.steps.train_state_shardings`) a leaf is a rank's shard.
+`save` gathers every leaf whole and rank 0 alone writes it; `restore`
+reads whole leaves and keeps the rank's block of each. The files are a
+one-device checkpoint's, so a checkpoint saved on one mesh restores
+onto another (the reference's "resharded on restore").
+
 Leaves are flattened in `jax.tree.flatten`'s order (`tree.sorted_leaves`:
 dict keys sorted; a `TrainState` as params, mu, nu, step), so an f32 checkpoint
 written by the reference restores here leaf for leaf. numpy has no
@@ -28,6 +35,7 @@ import shutil
 import numpy as np
 import torch
 
+from repro_torch import sharding as S
 from repro_torch.tree import sorted_leaves, sorted_unflatten
 
 BF16 = "bfloat16"
@@ -49,10 +57,22 @@ def _to_tensor(a: np.ndarray, dtype: str, device) -> torch.Tensor:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str | pathlib.Path, keep: int = 3):
+    def __init__(self, directory: str | pathlib.Path, keep: int = 3,
+                 mesh=None, shardings=None):
         self.dir = pathlib.Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self.mesh = mesh
+        self.shardings = shardings
+
+    def _specs(self, n: int) -> list:
+        """Each leaf's spec in `sorted_leaves` order (None: one device)."""
+        if self.shardings is None:
+            return [None] * n
+        specs = sorted_leaves(self.shardings)
+        if len(specs) != n:
+            raise ValueError(f"{len(specs)} specs for {n} leaves")
+        return specs
 
     # ------------------------------------------------------------------
     def _step_dir(self, step: int) -> pathlib.Path:
@@ -70,30 +90,41 @@ class CheckpointManager:
     # ------------------------------------------------------------------
     def save(self, state, step: int) -> pathlib.Path:
         leaves = sorted_leaves(state)
+        specs = self._specs(len(leaves))
+        final = self._step_dir(step)
+        write = self.mesh is None or S.rank() == 0
         tmp = self.dir / f".tmp_step_{step:010d}"
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir(parents=True)
+        if write:
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            tmp.mkdir(parents=True)
         manifest = {"step": step, "treedef": f"{len(leaves)} leaves",
                     "leaves": []}
-        for i, leaf in enumerate(leaves):
+        for i, (leaf, spec) in enumerate(zip(leaves, specs)):
+            if spec is not None:        # every rank joins the gathers
+                with torch.no_grad():
+                    leaf = S.unshard(leaf, spec, self.mesh)
+            if not write:
+                continue
             arr, dtype = _to_numpy(leaf)
             path = tmp / f"leaf_{i:05d}.npy"
             np.save(path, arr)
             digest = hashlib.sha256(path.read_bytes()).hexdigest()[:16]
             manifest["leaves"].append({"shape": list(arr.shape),
                                        "dtype": dtype, "sha": digest})
-        (tmp / "MANIFEST.json").write_text(json.dumps(manifest))
-        fd = os.open(tmp, os.O_RDONLY)
-        try:
-            os.fsync(fd)
-        finally:
-            os.close(fd)
-        final = self._step_dir(step)
-        if final.exists():
-            shutil.rmtree(final)
-        os.rename(tmp, final)           # atomic publish
-        self._gc()
+        if write:
+            (tmp / "MANIFEST.json").write_text(json.dumps(manifest))
+            fd = os.open(tmp, os.O_RDONLY)
+            try:
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+            if final.exists():
+                shutil.rmtree(final)
+            os.rename(tmp, final)           # atomic publish
+            self._gc()
+        if self.mesh is not None:       # published before any rank reads
+            S.barrier(self.mesh)
         return final
 
     def _gc(self):
@@ -113,19 +144,25 @@ class CheckpointManager:
         d = self._step_dir(step)
         manifest = json.loads((d / "MANIFEST.json").read_text())
         like = sorted_leaves(state_like)
+        specs = self._specs(len(like))
         if len(like) != len(manifest["leaves"]):
             raise ValueError(
                 f"checkpoint has {len(manifest['leaves'])} leaves, "
                 f"target structure has {len(like)}")
         leaves = []
-        for i, (ref, meta) in enumerate(zip(like, manifest["leaves"])):
+        for i, (ref, meta, spec) in enumerate(zip(like, manifest["leaves"],
+                                                  specs)):
             path = d / f"leaf_{i:05d}.npy"
             digest = hashlib.sha256(path.read_bytes()).hexdigest()[:16]
             if digest != meta["sha"]:
                 raise IOError(f"integrity failure in {path.name}")
             arr = np.load(path)
-            if list(arr.shape) != list(ref.shape):
-                raise ValueError(
-                    f"leaf {i}: shape {arr.shape} != {tuple(ref.shape)}")
-            leaves.append(_to_tensor(arr, meta["dtype"], ref.device))
+            want = (tuple(ref.shape) if spec is None else
+                    S.full_shape(spec, tuple(ref.shape), self.mesh))
+            if tuple(arr.shape) != want:
+                raise ValueError(f"leaf {i}: shape {arr.shape} != {want}")
+            t = _to_tensor(arr, meta["dtype"], "cpu")
+            if spec is not None:
+                t = S.shard(t, spec, self.mesh).contiguous()
+            leaves.append(t.to(ref.device))
         return sorted_unflatten(state_like, leaves), step

@@ -82,20 +82,25 @@ def apply_norm(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor,
               mlp_type: str | None = None,
-              dropless: bool = True, tp=None) -> torch.Tensor:
+              dropless: bool = True, tp=None, dp=None) -> torch.Tensor:
     """The FFN half of a block; under ``tp`` (a `models.tp.TP`) the
-    leaves are the rank's hidden-dim (or expert) shard and the partial
-    sums leave in one all-reduce (FFNOut), a bias added after it."""
+    leaves are the rank's hidden-dim (or expert) shard, x enters the
+    region (`TP.enter`) and the partial sums leave in one all-reduce
+    (FFNOut), a bias added after it. ``dp`` (`models.tp.DP`) is the
+    batch's split over data ranks, which the capacity MoE reads."""
     kind = mlp_type or cfg.mlp_type
     if kind == "moe":
         # serving routes dropless: capacity competition would couple the
         # tokens of a batch and make chunked prefill depend on the
         # chunking; the full-sequence forward drops past the capacity
-        return L.apply_moe(p, cfg, x, dropless=dropless, tp=tp)
+        kw = {} if dp is None else {"dp": dp}
+        return L.apply_moe(p, cfg, x, dropless=dropless, tp=tp, **kw)
     if kind == "rwkv_cm":
         raise ValueError("rwkv_cm is stateful; handled in model block")
     if kind not in FFN_KINDS:
         raise ValueError(f"unknown mlp kind {kind!r}")
+    if tp is not None:
+        x = tp.enter(x)
     if "b_up" in p:
         return L.apply_mlp(p, cfg, x, mlp_type=kind, tp=tp)
     if "w_up_q" in p:
@@ -123,7 +128,10 @@ def apply_attention_seq(p: dict, cfg: ModelConfig, x: torch.Tensor,
     post-RoPE K/V are absorbed into flat or tiered stores of ``max_len``
     positions, the first ``length`` (default S) valid; else no cache.
     Under ``tp`` the queries are the rank's heads and the stores get
-    every kv head."""
+    every kv head. The region starts at x (`TP.enter`): with the kv
+    heads replicated, the K/V projections run inside it."""
+    if tp is not None:
+        x = tp.enter(x)
     q, k, v = A.qkv_proj(p, cfg, x, positions)
     kr, vr = (k, v) if tp is None else (tp.kv_local(k), tp.kv_local(v))
     if causal:
@@ -229,10 +237,15 @@ def apply_mla_seq(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """Whole-sequence MLA (``cfg.mla_absorbed`` picks the form), causal
     unless an encoder's; with ``build_cache`` the latents are absorbed
     into flat or tiered stores of ``max_len`` positions, the first
-    ``length`` (default S) valid; else no cache."""
+    ``length`` (default S) valid; else no cache. Under ``tp`` the
+    replicated latents and query input enter the head split
+    (`TP.enter`)."""
     S = x.shape[1]
     c_kv, k_rope = A.mla_latents(p, cfg, x, positions)
-    q_nope, q_rope = A.mla_queries(p, cfg, x, positions)
+    q_nope, q_rope = A.mla_queries(p, cfg, x, positions,
+                                   None if tp is None else tp.enter)
+    if tp is not None:
+        c_kv, k_rope = tp.enter(c_kv), tp.enter(k_rope)
     mask = A.causal_mask(S, S, device=x.device) if causal else None
     out = _reduce(A.mla_attention(p, cfg, q_nope, q_rope, c_kv, k_rope,
                                   mask, absorbed=cfg.mla_absorbed), tp)

@@ -267,18 +267,21 @@ def mla_latents(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def mla_queries(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor
+                positions: torch.Tensor, enter=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(q_nope (B,S,H,nope), q_rope (B,S,H,rope) after RoPE), through the
-    low-rank wq_a / wq_b pair when ``q_lora_rank`` is set, else wq."""
+    low-rank wq_a / wq_b pair when ``q_lora_rank`` is set, else wq.
+    ``enter`` (tensor parallel) takes the replicated input of the
+    head-split product: the low-rank query, or x."""
     m = cfg.mla
     cd = torch_dtype(cfg.compute_dtype)
+    enter = enter or (lambda t: t)
     if m.q_lora_rank:
         cq = _rms(torch.einsum("bsd,dr->bsr", x, p["wq_a"].to(cd)),
                   p["q_norm_scale"])
-        q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"].to(cd))
+        q = torch.einsum("bsr,rhk->bshk", enter(cq), p["wq_b"].to(cd))
     else:
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
+        q = torch.einsum("bsd,dhk->bshk", enter(x), p["wq"].to(cd))
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
                         cfg.rope_theta)

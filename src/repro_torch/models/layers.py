@@ -286,6 +286,8 @@ def apply_rwkv_cm(p: dict, cfg: ModelConfig, x: torch.Tensor,
         shifted = x_prev[:, None]
     xk = x + (shifted - x) * p["mu_k"].to(x.dtype)
     xr = x + (shifted - x) * p["mu_r"].to(x.dtype)
+    if tp is not None:        # xk enters the d_ff split
+        xk = tp.enter(xk)
     k = F.relu(xk @ p["w_k"].to(cd)).square()
     kv = k @ p["w_v"].to(cd)
     if tp is not None:        # w_k / w_v split over d_ff
@@ -358,7 +360,7 @@ def moe_combine(contrib: torch.Tensor, order: torch.Tensor,
 
 
 def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
-              dropless: bool = True, tp=None) -> torch.Tensor:
+              dropless: bool = True, tp=None, dp=None) -> torch.Tensor:
     """Top-k routed experts plus the shared experts, x (B,S,D) -> (B,S,D).
 
     The reference's function step by step: an f32 router softmax, top-k
@@ -381,7 +383,14 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
     the shared experts' F is split. The partial sums (routed, shared or
     both) leave in one all-reduce; a part that is replicated (the routed
     sum when the experts are not split, the shared output when its F is
-    not) is added after it, so it is counted once."""
+    not) is added after it, so it is counted once. The split parts read
+    the tokens and the gates through `TP.enter`.
+
+    Under ``dp`` (a `models.tp.DP`: the rank holds its block of a batch
+    split over data ranks) the capacity-dropping form is the global
+    batch's: the capacity comes from the global T, and a row's position
+    in its expert is its position on this rank plus the expert's rows
+    on lower data ranks (one all-gather of the per-expert counts)."""
     m = cfg.moe
     cd = torch_dtype(cfg.compute_dtype)
     B, S, D = x.shape
@@ -405,15 +414,21 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
     offsets = torch.cumsum(counts, 0) - counts
     pos_in_expert = (torch.arange(T * k, device=x.device)
                      - offsets[sorted_expert])
-    cap = moe_capacity(cfg, T, dropless)
-    keep = pos_in_expert < cap
-    # a dropped row lands in the spare last row of the buffer
+    if dp is None or dropless:
+        cap = moe_capacity(cfg, T, dropless)
+        keep = pos_in_expert < cap
+    else:                     # the global batch's positions and capacity
+        cap = moe_capacity(cfg, T * dp.n, dropless)
+        keep = (pos_in_expert + dp.lower(counts)[sorted_expert]) < cap
+    # a dropped row lands in the spare last row of the buffer (a kept
+    # row's local position is at most its global one, so below cap)
     slot = torch.where(keep, sorted_expert * cap + pos_in_expert, E * cap)
+    ep = tp is not None and tp.experts is not None
+    xe = tp.enter(xf) if ep else xf
     buf = xf.new_zeros((E * cap + 1, D))
-    buf[slot] = xf[sorted_token]
+    buf[slot] = xe[sorted_token]
     buf = buf[:-1].view(E, cap, D)
 
-    ep = tp is not None and tp.experts is not None
     if ep:                    # this rank's experts only
         e0, e1 = tp.experts
         buf_all, buf = buf, buf[e0:e1]
@@ -428,14 +443,19 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
     gathered = out_buf[slot.clamp_max(E * cap - 1)]
     gathered = torch.where(keep[:, None], gathered, 0.0)
+    if ep:
+        sorted_w = tp.enter(sorted_w)
     contrib = gathered * sorted_w[:, None].to(out_buf.dtype)
     out = moe_combine(contrib.to(x.dtype), order, k).reshape(B, S, D)
-    shared = (apply_mlp(p["shared"], cfg, x, mlp_type="silu_gated")
+    shared_split = tp is not None and tp.shared
+    shared = (apply_mlp(p["shared"], cfg,
+                        tp.enter(x) if shared_split else x,
+                        mlp_type="silu_gated")
               if m.num_shared_experts > 0 else None)
     # only partial sums go into the one all-reduce: the routed rows when
     # the experts are split, the shared output when its F is split; a
     # part that is whole on every rank is added after the reduction
-    split = ((out, ep), (shared, tp is not None and tp.shared))
+    split = ((out, ep), (shared, shared_split))
     whole = [t for t, s in split if t is not None and not s]
     partial = [t for t, s in split if t is not None and s]
     if partial:
@@ -443,12 +463,21 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return sum(whole[1:], whole[0])
 
 
-def moe_aux_loss(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def moe_aux_loss(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 dp=None) -> torch.Tensor:
     """Switch-style load-balancing loss of one MoE layer on x (B,S,D):
     E * sum_e (share of tokens whose top-1 is e) * (mean router
-    probability of e), from the router's f32 softmax."""
+    probability of e), from the router's f32 softmax. Under ``dp`` both
+    means are over the global batch: the sums and the token count are
+    summed over the data ranks before the product (each rank's gradient
+    is then its own tokens' share)."""
     m = cfg.moe
     probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
                           @ p["router"].float(), dim=-1)
     top1 = F.one_hot(probs.argmax(-1), m.num_experts).float()
-    return m.num_experts * (top1.mean(0) * probs.mean(0)).sum()
+    if dp is None:
+        return m.num_experts * (top1.mean(0) * probs.mean(0)).sum()
+    T = float(probs.shape[0] * dp.n)
+    frac_tokens = dp.sum(top1.sum(0)) / T
+    frac_probs = dp.sum(probs.sum(0)) / T
+    return m.num_experts * (frac_tokens * frac_probs).sum()

@@ -392,12 +392,18 @@ class Model:
                                             cd)
             return params["embed"]["table"][ids].to(cd)
 
+        pl = self.placement
+
+        def whole(name):          # a leaf tree computed replicated
+            return (params[name] if pl is None
+                    else pl.replicated(params[name], pl.pspec[name]))
+
         if cfg.family == "audio":
             frames = torch.as_tensor(batch["frames"], device=dev)
-            x = V.apply_connector(params["frontend"], cfg, frames)
+            x = V.apply_connector(whole("frontend"), cfg, frames)
         elif cfg.frontend is not None and "patches" in batch:
             patches = torch.as_tensor(batch["patches"], device=dev)
-            x = V.apply_connector(params["frontend"], cfg, patches)
+            x = V.apply_connector(whole("frontend"), cfg, patches)
             if "tokens" in batch:
                 x = torch.cat([x, tokens()], dim=1)
         else:
@@ -410,7 +416,7 @@ class Model:
             p = KT.pos_rows(pos, B, dev)[:, None]
             positions = p + ar if ramp else p.expand(B, Sq)
         if cfg.pos_emb == "learned":
-            x = x + params["pos_emb"][
+            x = x + whole("pos_emb")[
                 positions.clamp_max(MAX_LEARNED_POS - 1)].to(cd)
         return x, positions
 
@@ -424,12 +430,14 @@ class Model:
         specs): the leaves are gathered for use (`Placement.block`,
         `cache_in`) and an extend / decode keeps the rank's block of
         the new cache; a committing extend returns it whole, for the
-        slot's owner to store."""
+        slot's owner to store; and the batch's data split (a
+        `models.tp.DP`, the full forward of the loss only)."""
         pl = self.placement
         if pl is None:
             return self._block(spec, bp, x, positions, bcache, pos, mode,
                                plen, commit, {})
         bp, tps, keep = pl.block(spec, bp, bspec[0])
+        tps["dp"] = bspec[2]
         if bcache is not None and mode != "prefill":
             bcache = pl.cache_in(bcache, bspec[1], keep)
         x, nc, aux = self._block(spec, bp, x, positions, bcache, pos, mode,
@@ -460,7 +468,7 @@ class Model:
                 out, new_cache = SSM.apply_mamba2(bp["mixer"], cfg, h,
                                                   None if full else bcache)
             return self._mlp_half(spec, bp, x + out, bcache, new_cache,
-                                  full, tps.get("mlp"))
+                                  full, tps.get("mlp"), tps.get("dp"))
         mla = spec.mixer == "mla"
         first = next(iter(self._cache_inner(spec)))    # "k" or "c_kv"
         if mode in ("full", "prefill"):
@@ -484,10 +492,11 @@ class Model:
                    else fusion.apply_attention_decode)
             out, new_cache = dec(bp["mixer"], cfg, h, bcache, pos, tp)
         return self._mlp_half(spec, bp, x + out, bcache, new_cache, full,
-                              tps.get("mlp"))
+                              tps.get("mlp"), tps.get("dp"))
 
     def _mlp_half(self, spec: BlockSpec, bp: dict, x: torch.Tensor,
-                  bcache: dict, new_cache: dict | None, full: bool, tp=None
+                  bcache: dict, new_cache: dict | None, full: bool, tp=None,
+                  dp=None
                   ) -> tuple[torch.Tensor, dict | None, torch.Tensor | float]:
         """The block's second half: pre-norm, the MLP, the residual."""
         cfg = self.cfg
@@ -507,10 +516,12 @@ class Model:
         # moe.d_ff_dense (their leaves say so), run by ffn_act; the MoE
         # drops past its capacity in the full forward only
         kind = "silu_gated" if spec.mlp == "dense_first" else spec.mlp
-        aux = (L.moe_aux_loss(bp["mlp"], cfg, h2)
+        aux = (L.moe_aux_loss(bp["mlp"], cfg, h2,
+                              *(() if dp is None else (dp,)))
                if full and spec.mlp == "moe" else 0.0)
         return x + fusion.apply_ffn(bp["mlp"], cfg, h2, mlp_type=kind,
-                                    dropless=not full, tp=tp), new_cache, aux
+                                    dropless=not full, tp=tp,
+                                    dp=dp), new_cache, aux
 
     def _block_fn(self, mode: str):
         """`_run_block`, checkpointed in the full forward where autograd
@@ -529,11 +540,12 @@ class Model:
     def _run_unit(self, ui: int, unit: UnitSpec, params: dict,
                   x: torch.Tensor, positions: torch.Tensor,
                   ucache: dict | None, pos, mode: str, plen=None,
-                  commit: bool = False, uspec=None
+                  commit: bool = False, uspec=None, dp=None
                   ) -> tuple[torch.Tensor, dict | None, torch.Tensor | float]:
         """One unit's layers in turn, and their auxiliary losses summed;
         ``ucache`` is None in the full forward, which makes and returns
-        no cache. ``uspec`` (placed models) is the unit's cache specs."""
+        no cache. ``uspec`` (placed models) is the unit's cache specs,
+        ``dp`` the batch's data split."""
         # a shared-attention unit applies the one top-level weight set
         shared = unit.block.mixer == "attn_shared"
         up = params["shared_attn"] if shared else params["units"][f"u{ui}"]
@@ -546,7 +558,7 @@ class Model:
                 strip = lambda t: tree_map(lambda s: s[1:], t)  # noqa: E731
                 ps = ps if shared else strip(ps)
                 uspec = None if uspec is None else strip(uspec)
-            bspec = (ps, uspec)
+            bspec = (ps, uspec, dp)
         if unit.repeats == 1:
             return block(unit.block, up, x, positions, ucache, pos, mode,
                          plen, commit, bspec)
@@ -568,7 +580,7 @@ class Model:
 
     def _forward(self, params: dict, batch: dict, mode: str,
                  cache: dict | None, pos, plen=None, commit: bool = False,
-                 specs: dict | None = None
+                 specs: dict | None = None, dp=None
                  ) -> tuple[torch.Tensor, dict | None, torch.Tensor | float]:
         """``mode`` is "full" (every row's logits, no cache), "prefill"
         (whole prompt from position 0) or "extend" (rows at pos..); the
@@ -585,7 +597,7 @@ class Model:
                     ui, unit, params, x, positions,
                     None if cache is None else cache[f"u{ui}"], pos, mode,
                     plen, commit,
-                    None if specs is None else specs[f"u{ui}"])
+                    None if specs is None else specs[f"u{ui}"], dp)
             aux_total = aux_total + aux
             if cache is not None:
                 new_cache[f"u{ui}"] = nc
@@ -595,9 +607,10 @@ class Model:
                  else x[:, int(plen) - 1:int(plen)])
         pl = self.placement
         if pl is not None:            # the rank's vocab columns
-            w, _ = pl.head_weight(params)
+            w, split = pl.head_weight(params)
             eq = "bsd,vd->bsv" if cfg.tie_embeddings else "bsd,dv->bsv"
-            logits = torch.einsum(eq, x, w.to(x.dtype))
+            logits = torch.einsum(eq, pl.enter(x) if split else x,
+                                  w.to(x.dtype))
             if mode == "full":
                 logits = pl.full_logits(logits)
         elif cfg.tie_embeddings:
@@ -618,14 +631,24 @@ class Model:
         config takes), with no cache; an encoder's only entry point."""
         return self._forward(params, batch, "full", None, None)[0]
 
-    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+    def loss(self, params: dict, batch: dict,
+             batch_axes: tuple[str, ...] = ()) -> torch.Tensor:
         """Mean next-token cross-entropy over ``batch["labels"]`` (f32
         logsumexp), weighted by ``batch["loss_mask"]`` (default all ones)
         and divided by max(sum(mask), 1), plus 0.01 x the MoE layers'
         load-balancing terms. Differentiable: gradients reach every
         float leaf of ``params`` that requires them. Raises TypeError
         where autograd records and a leaf is not floating point (the
-        int8 FFN store), as the reference's `jax.value_and_grad` does."""
+        int8 FFN store), as the reference's `jax.value_and_grad` does.
+
+        On a placed model, ``batch_axes`` names the data axes the batch
+        rows are split over (the rank holds its block; () when every
+        rank holds the whole batch). The masked sum and the mask count
+        are then summed over them, as are the load-balancing terms'
+        means and the capacity MoE's row positions: the loss returned is
+        the global batch's, the same on every rank, and each rank's
+        gradient is its own rows' share (`launch.steps` sums the shares
+        over the data axes)."""
         if torch.is_grad_enabled():
             bad = [t.dtype for t in tree_leaves(params)
                    if not t.is_floating_point()]
@@ -634,7 +657,12 @@ class Model:
                     f"loss: gradients need float parameters, got "
                     f"{sorted(set(map(str, bad)))} leaves (the int8 FFN "
                     f"store is not trainable)")
-        logits, _, aux = self._forward(params, batch, "full", None, None)
+        dp = None
+        if self.placement is not None:
+            from repro_torch.models.tp import DP
+            dp = DP(self.placement.mesh, tuple(batch_axes))
+        logits, _, aux = self._forward(params, batch, "full", None, None,
+                                       dp=dp)
         dev = logits.device
         labels = torch.as_tensor(batch["labels"], device=dev).long()
         lf = logits.float()
@@ -643,8 +671,10 @@ class Model:
         mask = batch.get("loss_mask")
         mask = (torch.ones_like(ll) if mask is None else
                 torch.as_tensor(mask, device=dev).to(ll.dtype))
-        loss = -(ll * mask).sum() / mask.sum().clamp_min(1.0)
-        return loss + 0.01 * aux
+        num, den = -(ll * mask).sum(), mask.sum()
+        if dp is not None:
+            num, den = dp.sum(num), dp.sum(den)
+        return num / den.clamp_min(1.0) + 0.01 * aux
 
     @torch.no_grad()
     def prefill(self, params: dict, batch: dict, max_len: int,

@@ -65,9 +65,13 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _rwkv6_inputs(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                  shifted: torch.Tensor, heads: tuple[int, int] | None = None):
+                  shifted: torch.Tensor, heads: tuple[int, int] | None = None,
+                  enter=None):
     """Token-shift mixing + projections. x, shifted: (B,S,D). Returns
-    r, k, v (B,S,H,K), logw (B,S,H,K) f32 negative log-decay, g (B,S,D)."""
+    r, k, v (B,S,H,K), logw (B,S,H,K) f32 negative log-decay, g (B,S,D).
+    ``enter`` (tensor parallel) takes the replicated tensors the rank's
+    heads read: the r / k / v inputs and the decay."""
+    enter = enter or (lambda t: t)
     cd = torch_dtype(cfg.compute_dtype)
     H, K = cfg.num_heads, cfg.head_dim
     sx = shifted - x
@@ -83,12 +87,12 @@ def _rwkv6_inputs(p: dict, cfg: ModelConfig, x: torch.Tensor,
                  + (xw.float() @ p["decay_a"].float()) @ p["decay_b"].float())
     logw = -torch.exp(decay_raw)                               # (B,S,D) < 0
     B, S, _ = x.shape
-    logw = logw.reshape(B, S, H, K)
+    logw = enter(logw.reshape(B, S, H, K))
     if heads is not None:     # the rank's heads (w_r / w_k / w_v split)
         logw = logw[:, :, heads[0]:heads[1]]
-    rr = _heads(xr, p["w_r"].to(cd))
-    kk = _heads(xk, p["w_k"].to(cd))
-    vv = _heads(xv, p["w_v"].to(cd))
+    rr = _heads(enter(xr), p["w_r"].to(cd))
+    kk = _heads(enter(xk), p["w_k"].to(cd))
+    vv = _heads(enter(xv), p["w_v"].to(cd))
     g = F.silu(xg @ p["w_g"].to(cd))
     return rr, kk, vv, logw, g
 
@@ -194,7 +198,8 @@ def apply_rwkv6(p: dict, cfg: ModelConfig, x: torch.Tensor,
         shifted = state["x_prev"][:, None]
     else:
         shifted = torch.cat([state["x_prev"][:, None], x[:, :-1]], 1)
-    r, k, v, logw, g = _rwkv6_inputs(p, cfg, x, shifted, heads)
+    r, k, v, logw, g = _rwkv6_inputs(p, cfg, x, shifted, heads,
+                                     None if tp is None else tp.enter)
     u = p["bonus_u"].float()
 
     if S == 1:

@@ -23,6 +23,17 @@ each cache leaf at its resolved shard (`Model.cache_shardings` /
     use and the layer computed replicated, with NO all-reduce (a partial
     sum would be counted once a rank).
 
+Training differentiates through the same placement (`sharding`'s
+collectives are autograd Functions where autograd records): a TP region
+starts at `TP.enter` on each replicated tensor its split computation
+reads and ends at its one all-reduce. The attention projections are one
+fused Q/K/V call, so under TP with the kv heads replicated the K/V
+projections sit inside the region and their leaves' gradients are
+partial sums over 'model' (`Placement.partial_over_model`); the train
+step sums them. `DP` is the batch's split over the data axes: the
+loss's and the load-balancing term's global sums, and the capacity
+MoE's global row positions.
+
 A TP layer keeps every dimension bound to 'model' local and gathers the
 rest (an FSDP 'data' dim). Cache leaves are gathered at use over every
 sharded dimension but the slot axis (the rank's own slots) and an RWKV6
@@ -38,6 +49,7 @@ to the lowest global index, as `torch.argmax`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -66,7 +78,14 @@ class TP:
     shared: bool = False
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The region's exit (AttnOut, FFNOut, the expert-parallel sum):
+        the partial sums summed; the gradient passes through."""
         return S.all_reduce(t, self.mesh, MODEL)
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """The region's entry: a replicated tensor read by the rank's
+        split computation (its gradient summed over 'model')."""
+        return S.enter(t, self.mesh, MODEL)
 
     def kv_local(self, t: torch.Tensor) -> torch.Tensor:
         """K or V rows (B, S, Hx, Dh) from the rank's projection -> the
@@ -77,8 +96,8 @@ class TP:
 
     def kv_full(self, t: torch.Tensor) -> torch.Tensor:
         """K or V rows from the rank's projection -> every kv head."""
-        if self.kv_sharded:
-            return S.all_gather(t, self.mesh, MODEL, dim=2)
+        if self.kv_sharded:      # read by heads split over 'model'
+            return S.all_gather(t, self.mesh, MODEL, dim=2, backward="sum")
         return t
 
     def kv_read(self, t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -96,6 +115,30 @@ class TP:
                 for k, v in store.items()}
 
 
+@dataclasses.dataclass(frozen=True)
+class DP:
+    """The batch's split over the mesh's data axes ``axes`` (those its
+    rows are sharded on; () when every rank holds the whole batch)."""
+
+    mesh: S.Mesh
+    axes: tuple[str, ...] = ()
+
+    @property
+    def n(self) -> int:
+        return S.block_of(self.axes, self.mesh)[1]
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data ranks (the gradient passes through:
+        each rank's is its own share's)."""
+        return S.all_reduce(t, self.mesh, self.axes)
+
+    def lower(self, counts: torch.Tensor) -> torch.Tensor:
+        """Per-element sums of ``counts`` over the data ranks before this
+        one (one all-gather), e.g. an expert's rows on lower ranks."""
+        every = S.all_gather(counts[None], self.mesh, self.axes, dim=0)
+        return every[:S.block_of(self.axes, self.mesh)[0]].sum(0)
+
+
 def _model_dims(spec) -> tuple[int, ...]:
     return tuple(d for d, e in enumerate(spec) if e == MODEL)
 
@@ -109,7 +152,9 @@ class Placement:
         self.mesh = mesh
         self.rules = rules or S.ShardingRules(mesh)
         self.cfg = model.cfg
-        self.pspec = model.param_shardings(self.rules)
+        self.plan = model.plan
+        self.shapes, axes = model.abstract_params()
+        self.pspec = S.tree_shardings(self.rules, axes, self.shapes)
         self.m = mesh.shape.get(MODEL, 1)
         self.mi = mesh.coord(MODEL) if MODEL in mesh.shape else 0
 
@@ -119,6 +164,45 @@ class Placement:
 
     def take(self, t: torch.Tensor, spec, keep=()) -> torch.Tensor:
         return S.shard(t, spec, self.mesh, skip=keep).contiguous()
+
+    def replicated(self, p, spec):
+        """Leaves computed replicated: every sharded dim gathered."""
+        return self._work(p, spec, False)
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """A replicated tensor entering a column-parallel product."""
+        return S.enter(t, self.mesh, MODEL)
+
+    def data_axes(self) -> tuple[str, ...]:
+        return tuple(a for a in S.DATA_AXES if a in self.mesh.shape)
+
+    @functools.cached_property
+    def partial_over_model(self) -> set[tuple]:
+        """Paths of the parameter leaves replicated over 'model' whose
+        gradients are partial sums over it: the K/V projections of an
+        attention layer that runs tensor parallel with its kv heads
+        replicated (inside the region of the fused Q/K/V call)."""
+        out = set()
+        for ui, unit in enumerate(self.plan):
+            if unit.block.mixer not in ("attn", "attn_shared"):
+                continue
+            root = (("shared_attn",) if unit.block.mixer == "attn_shared"
+                    else ("units", f"u{ui}"))
+            shp, ps = self.shapes, self.pspec
+            for k in root:
+                shp, ps = shp[k], ps[k]
+            shp, ps = shp["mixer"], ps["mixer"]
+            if unit.repeats > 1 and unit.block.mixer == "attn":
+                shp = {k: v[0] for k, v in shp.items()}
+                ps = {k: v[1:] for k, v in ps.items()}
+            local = {k: torch.empty(S.local_shape(ps[k], tuple(v.shape),
+                                                  self.mesh), device="meta")
+                     for k, v in shp.items()}
+            tp = self._attn_tp(local, ps)
+            if tp is not None and not tp.kv_sharded:
+                out.update(root + ("mixer", k) for k in ("wk", "wv", "bk",
+                                                         "bv") if k in shp)
+        return out
 
     def _work(self, p, spec, tp: bool):
         """A sublayer's leaves at use: under TP every dim bound to
@@ -264,9 +348,9 @@ class Placement:
         """Local-vocab logits (..., Vloc) -> every column."""
         if not self.vocab_split():
             return logits
-        with S.scope("head"):
+        with S.scope("head"):     # read by the replicated loss
             return S.all_gather(logits, self.mesh, MODEL,
-                                dim=logits.dim() - 1)
+                                dim=logits.dim() - 1, backward="slice")
 
     def greedy(self, logits: torch.Tensor) -> torch.Tensor:
         """argmax over the full vocab of local-vocab logits (B, Vloc):

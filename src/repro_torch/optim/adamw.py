@@ -75,24 +75,50 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(s < cfg.warmup_steps, warm, cos)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def _global_sq(grads, shardings, mesh) -> list[torch.Tensor]:
+    """Each leaf's sum of squares over the whole (unsharded) leaf, in
+    the reference's leaf order: the rank's own sums, all-reduced over
+    the axes each leaf is sharded on and only those (a replicated leaf
+    is counted once), one all-reduce per set of axes."""
+    from repro_torch.sharding import all_reduce, axes_of
+    sqs = [g.float().square().sum() for g in sorted_leaves(grads)]
+    if shardings is None:
+        return sqs
+    groups: dict[tuple, list[int]] = {}
+    for i, spec in enumerate(sorted_leaves(shardings)):
+        axes = tuple(sorted({a for e in spec for a in axes_of(e)}))
+        if axes:
+            groups.setdefault(axes, []).append(i)
+    for axes, idx in sorted(groups.items()):
+        summed = all_reduce(torch.stack([sqs[i] for i in idx]), mesh, axes)
+        for j, i in enumerate(idx):
+            sqs[i] = summed[j]
+    return sqs
+
+
+def clip_by_global_norm(grads, max_norm: float, shardings=None, mesh=None):
     """(grads scaled by min(1, max_norm / ||grads||), ||grads||): the
     norm over every leaf in f32 (summed in the reference's leaf order),
-    each leaf scaled in f32 and cast back."""
-    gnorm = torch.sqrt(sum(g.float().square().sum()
-                           for g in sorted_leaves(grads)))
+    each leaf scaled in f32 and cast back. With ``shardings`` (a tree of
+    specs shaped like ``grads``) and ``mesh`` the leaves are this rank's
+    shards and the norm is the whole tree's, the same on every rank."""
+    gnorm = torch.sqrt(sum(_global_sq(grads, shardings, mesh)))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
 
 
 @torch.no_grad()
-def adamw_update(state: TrainState, grads, cfg: AdamWConfig
-                 ) -> tuple[TrainState, dict]:
+def adamw_update(state: TrainState, grads, cfg: AdamWConfig,
+                 shardings=None, mesh=None) -> tuple[TrainState, dict]:
     """One AdamW step of ``grads`` (a tree shaped like the params) in
     place; returns (the state, {"grad_norm", "lr"}) as 0-d tensors.
-    Raises `PartialUpdateError` (from the cause) where a leaf's update
-    fails: the leaves before it are written already."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    With ``shardings`` (the params' specs) and ``mesh``, the params, mu,
+    nu and grads are this rank's shards: the update is elementwise, and
+    only the clipping norm is global. Raises `PartialUpdateError` (from
+    the cause) where a leaf's update fails: the leaves before it are
+    written already."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, shardings,
+                                       mesh)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

@@ -4,12 +4,24 @@ reference's `repro/runtime/fault.py`).
   (a) crash     -> CheckpointManager (atomic publish) + the seekable data
                    pipeline: a restart replays from the last step exactly.
   (b) straggler -> a per-step deadline; a step over it is reported as a
-                   trip; a failing step is retried, and past
-                   ``max_retries_per_step`` the loop restores the last
-                   checkpoint and resumes after it.
+                   trip and counted in ``trips`` (by step); a failing
+                   step is retried, and past ``max_retries_per_step``
+                   the loop restores the last checkpoint and resumes
+                   after it. ``suspect_threshold`` is the reference's
+                   field, which it declares and never reads: neither
+                   package evicts a host.
   (c) elastic   -> `shrink_mesh_axes` picks the smaller mesh after a pod
-                   drops (the decision only: the port's mesh comes with
-                   ROADMAP Queue 1 item 10).
+                   drops (the decision only); a checkpoint saved on one
+                   mesh restores onto another (`CheckpointManager` with
+                   the new mesh's shardings).
+
+One difference on a mesh. The reference's step is one SPMD program: a
+fault fails it on every device at once, and every device retries. On a
+torch mesh each rank runs its own loop; a rank whose step raises alone
+retries while its peers wait in the step's next collective until the
+process group's timeout. The retry is right only where every rank
+raises (e.g. one input fault every rank sees); a rank-local fault ends
+in that timeout, and the job restarts from the last checkpoint.
 
 The loop runs in-process; on a cluster the same state machine runs in
 the job coordinator. A retried step must find the state as the failed
@@ -36,6 +48,7 @@ class FaultPolicy:
     step_deadline_s: float = 300.0      # straggler trip wire
     max_retries_per_step: int = 2       # then restore the last checkpoint
     checkpoint_every: int = 50
+    suspect_threshold: int = 3          # trips before a host is suspect
 
 
 @dataclasses.dataclass
@@ -55,6 +68,7 @@ class FaultTolerantLoop:
         self.step_fn = step_fn
         self.ckpt = ckpt
         self.policy = policy
+        self.trips: dict[int, int] = {}
         self.reports: list[StepReport] = []
 
     def resume_or_init(self, state):
@@ -93,6 +107,8 @@ class FaultTolerantLoop:
                         retries = 0
             dur = time.time() - t0
             trip = dur > self.policy.step_deadline_s
+            if trip:
+                self.trips[step] = self.trips.get(step, 0) + 1
             self.reports.append(StepReport(step, dur, retries, trip))
             if on_metrics is not None:
                 on_metrics(step, metrics)

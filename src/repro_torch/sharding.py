@@ -21,18 +21,42 @@ them by hand, and only through the counted wrappers of this module, one
 per kind, each over the process group of one mesh axis (or, for a tuple
 of axes, over each in turn):
 
-  * `all_reduce`     ("all-reduce", a sum),
+  * `all_reduce`     ("all-reduce", a sum or a max),
   * `all_gather`     ("all-gather", concatenated along one dimension),
   * `reduce_scatter` ("reduce-scatter"),
   * `broadcast`      ("broadcast", from one coordinate of the axis),
-  * `send` / `recv`  ("collective-permute", point to point).
+  * `send` / `recv`  ("collective-permute", point to point),
+  * `barrier`        ("barrier").
 
 Serving issues all-reduces, all-gathers and broadcasts (evict, restore
-and prefix blocks move by broadcast from their owner). `reduce_scatter`
-has no caller yet: it is for multi-device training, whose gradients of
-data-sharded optimizer state reduce-scatter over 'data' (ROADMAP Queue
-1, item 10b). Nor have `send` / `recv`: they are for a slot moved
+and prefix blocks move by broadcast from their owner). Training issues
+all-reduces, all-gathers and reduce-scatters, most of them in the
+backward. `send` / `recv` have no caller yet: they are for a slot moved
 between two data ranks alone (ROADMAP "Performance work", h).
+
+Differentiation. Where autograd records (grad mode on and the input
+requires a gradient) `all_reduce`, `all_gather`, `reduce_scatter` and
+`enter` are `torch.autograd.Function`s; elsewhere they are the plain
+collectives (serving is unchanged). The backward of a collective depends
+on what consumes its output, so the call site says which it needs:
+
+  * `all_reduce` (a sum) passes its gradient through unchanged: it is
+    the exit of a tensor-parallel region (AttnOut, FFNOut, the MoE's
+    expert-parallel sum, the vocab-parallel embedding), or the sum of
+    the data ranks' shares of the loss, each rank's gradient being its
+    own share;
+  * `enter` is the matching entry: the identity forward, an all-reduce
+    of the gradient backward (a replicated tensor entering
+    column-parallel projections or local experts, each rank's gradient
+    a partial sum);
+  * `all_gather(..., backward="sum")` reduce-scatters the gradient: the
+    consumer's gradient differs rank by rank (an FSDP weight gathered
+    over 'data', each data rank its own batch; K/V rows gathered over
+    'model' for heads split over it); ``backward="slice"`` takes the
+    rank's block of it: the consumer is replicated, its gradient the
+    same on every rank (vocab-split logits; a leaf gathered over
+    'model' and computed replicated), and a sum would be m times it;
+  * `reduce_scatter` all-gathers the gradient.
 
 Each call adds one to `COUNTS[(scope, kind)]`, ``scope`` being the
 innermost `scope` context (the model names its units, the embedding and
@@ -226,6 +250,19 @@ def local_shape(spec: Spec, shape: Sequence[int], mesh: Mesh
                  for d, e in zip(shape, spec))
 
 
+def full_shape(spec: Spec, shape: Sequence[int], mesh: Mesh
+               ) -> tuple[int, ...]:
+    """The whole tensor's shape of a ``shape`` block placed by ``spec``."""
+    return tuple(d * math.prod(mesh.shape[a] for a in axes_of(e))
+                 for d, e in zip(shape, spec))
+
+
+def rank() -> int:
+    """This process's rank in the default group (0 without one)."""
+    dist = _dist()
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def shard(t: torch.Tensor, spec: Spec, mesh: Mesh,
           skip: Sequence[int] = ()) -> torch.Tensor:
     """This rank's contiguous block of a full tensor (a view), every
@@ -239,14 +276,23 @@ def shard(t: torch.Tensor, spec: Spec, mesh: Mesh,
     return t
 
 
+DATA_AXES = ("pod", "data")
+
+
 def unshard(t: torch.Tensor, spec: Spec, mesh: Mesh,
             skip: Sequence[int] = ()) -> torch.Tensor:
     """The all-gather back to full: every sharded dimension of a rank's
-    block but those in ``skip`` gathered over its axes."""
+    block but those in ``skip`` gathered over its axes. Differentiated,
+    a dimension over data axes reduce-scatters its gradient (each data
+    rank computes on its own rows), one over 'model' takes the rank's
+    block of it (the gathered leaf feeds a replicated computation)."""
     for d, e in enumerate(spec):
         if d in skip or e is None:
             continue
-        t = all_gather(t, mesh, axes_of(e), dim=d)
+        axes = axes_of(e)
+        t = all_gather(t, mesh, axes, dim=d,
+                       backward="sum" if set(axes) <= set(DATA_AXES)
+                       else "slice")
     return t
 
 
@@ -294,20 +340,23 @@ def _axes_list(axis) -> tuple[str, ...]:
     return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
-def all_reduce(t: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
-    """Sum ``t`` over ``axis`` (one name or a tuple), in place when it is
-    contiguous; returns the sum."""
+def _records(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _all_reduce(t: torch.Tensor, mesh: Mesh, axis, op: str = "sum"
+                ) -> torch.Tensor:
+    dist = _dist()
+    rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     out = t.contiguous()
     for a in _axes_list(axis):
         _count("all-reduce")
-        _dist().all_reduce(out, group=mesh.group(a))
+        dist.all_reduce(out, op=rop, group=mesh.group(a))
     return out
 
 
-def all_gather(t: torch.Tensor, mesh: Mesh, axis, dim: int = 0
-               ) -> torch.Tensor:
-    """The blocks of ``axis`` concatenated along ``dim`` in coordinate
-    order (a tuple of axes is gathered minor axis first)."""
+def _all_gather(t: torch.Tensor, mesh: Mesh, axis, dim: int
+                ) -> torch.Tensor:
     dist = _dist()
     gather = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
@@ -323,18 +372,113 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis, dim: int = 0
     return t
 
 
-def reduce_scatter(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0
-                   ) -> torch.Tensor:
-    """Sum over ``axis``, then this rank's block along ``dim``."""
+def _reduce_scatter(t: torch.Tensor, mesh: Mesh, axis, dim: int
+                    ) -> torch.Tensor:
     dist = _dist()
     rs = getattr(dist, "reduce_scatter_single", None) \
         or dist.reduce_scatter_tensor
-    n = mesh.shape[axis]
-    src = t.movedim(dim, 0).contiguous()
-    out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
-    _count("reduce-scatter")
-    rs(out, src, group=mesh.group(axis))
-    return out.movedim(0, dim).contiguous()
+    for a in _axes_list(axis):            # major axis first
+        n = mesh.shape[a]
+        src = t.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
+        _count("reduce-scatter")
+        rs(out, src, group=mesh.group(a))
+        t = out.movedim(0, dim).contiguous()
+    return t
+
+
+def _block(t: torch.Tensor, mesh: Mesh, axis, dim: int) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` over ``axis``."""
+    i, n = block_of(tuple(_axes_list(axis)), mesh)
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size).contiguous()
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return _all_reduce(t.clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), ctx.mesh, ctx.axis), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim, backward):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.bwd = mesh, axis, dim, backward
+        return _all_gather(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.bwd == "sum":
+            g = _reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim)
+        else:
+            g = _block(g, ctx.mesh, ctx.axis, ctx.dim)
+        return g, None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _reduce_scatter(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def all_reduce(t: torch.Tensor, mesh: Mesh, axis, op: str = "sum"
+               ) -> torch.Tensor:
+    """Sum (or, ``op="max"``, the max of) ``t`` over ``axis`` (one name
+    or a tuple), in place when it is contiguous; returns the result.
+    Differentiated (a sum): out of place, the gradient passed through."""
+    if op == "sum" and _records(t):
+        return _AllReduce.apply(t, mesh, axis)
+    return _all_reduce(t, mesh, axis, op)
+
+
+def enter(t: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
+    """The entry of a tensor-parallel region: ``t`` itself forward (no
+    collective), its gradient summed over ``axis`` backward."""
+    if _records(t):
+        return _Enter.apply(t, mesh, axis)
+    return t
+
+
+def all_gather(t: torch.Tensor, mesh: Mesh, axis, dim: int = 0,
+               backward: str = "slice") -> torch.Tensor:
+    """The blocks of ``axis`` concatenated along ``dim`` in coordinate
+    order (a tuple of axes is gathered minor axis first). Differentiated,
+    ``backward`` is "sum" (reduce-scatter the gradient) or "slice" (the
+    rank's block of it)."""
+    if backward not in ("sum", "slice"):
+        raise ValueError(f"all_gather backward {backward!r}")
+    if _records(t):
+        return _AllGather.apply(t, mesh, axis, dim, backward)
+    return _all_gather(t, mesh, axis, dim)
+
+
+def reduce_scatter(t: torch.Tensor, mesh: Mesh, axis, dim: int = 0
+                   ) -> torch.Tensor:
+    """Sum over ``axis`` (a tuple: major axis first), then this rank's
+    block along ``dim``; differentiated, the gradient is all-gathered."""
+    if _records(t):
+        return _ReduceScatter.apply(t, mesh, axis, dim)
+    return _reduce_scatter(t, mesh, axis, dim)
 
 
 def broadcast(t: torch.Tensor, mesh: Mesh, axis: str, src: int
@@ -348,6 +492,12 @@ def broadcast(t: torch.Tensor, mesh: Mesh, axis: str, src: int
     dist.broadcast(out, src=dist.get_global_rank(g, src), group=g)
     return out
 
+
+def barrier(mesh: Mesh) -> None:
+    """Every rank of ``mesh`` waits here for the others."""
+    dist = _dist()
+    _count("barrier")
+    dist.all_reduce(torch.zeros(1, device=mesh.device or "cpu"))
 
 def send(t: torch.Tensor, mesh: Mesh, axis: str, dst: int) -> None:
     """Point to point: ``t`` to coordinate ``dst`` of ``axis``."""

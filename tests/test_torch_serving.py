@@ -232,9 +232,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_unported_paths_raise_not_implemented():
-    """What is still to port raises, naming its ROADMAP item: the train
-    CLI's production mesh (multi-device training). The sharded backend
-    builds, on a world-1 gloo mesh. Learned position embeddings
+    """Nothing left raises NotImplementedError: the train CLI's
+    production mesh (multi-device training) builds the 256-rank mesh,
+    which a one-process world refuses with the mesh module's ValueError
+    naming both sizes. The sharded backend builds, on a world-1 gloo
+    mesh. Learned position embeddings
     (hubert-xlarge's) build, and an encoder is refused by the backend
     with the reference's ValueError. (Every mixer, spill lanes, the
     paged prefix store and weight streaming are ported: they work.)"""
@@ -251,7 +253,8 @@ def test_unported_paths_raise_not_implemented():
                            max_len=16, device="cpu")
     assert sharded.mesh.shape == {"data": 1, "model": 1}
     assert sharded.weight_bytes() == be.weight_bytes()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*10b"):
+    with pytest.raises(ValueError, match="has 256 devices, the world size "
+                                         "is 1"):
         train_main(["--reduced", "--device", "cpu", "--production-mesh"])
     assert be.evict_slot(be.init_pool(), 0, 0, 4).num_spill_lanes == 2
     assert be.ensure_prefix(be.init_pool()).prefix is not None

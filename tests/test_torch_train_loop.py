@@ -503,5 +503,9 @@ def test_train_cli_reduces_loss_and_resumes(tmp_path, capsys):
 
 
 def test_train_cli_production_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """--production-mesh builds the (data 16, model 16) mesh: 256 ranks,
+    which a one-process world cannot hold (torchrun with 256 ranks
+    can); the mesh module's ValueError names both sizes."""
+    with pytest.raises(ValueError, match="has 256 devices, the world size "
+                                         "is 1"):
         train_cli.main(["--reduced", "--device", "cpu", "--production-mesh"])

@@ -27,10 +27,18 @@ def spawn(job: str, payload: dict, shape: tuple[int, ...], tmp,
           timeout: float = 240.0) -> list:
     """Run ``job`` (a function of this module) on every rank of a
     (data, model) mesh of ``shape``; returns each rank's result."""
+    return join(start(job, payload, shape, tmp, timeout))
+
+
+def start(job: str, payload: dict, shape: tuple[int, ...], tmp,
+          timeout: float = 240.0):
+    """`spawn` without the wait: the ranks run while the caller works;
+    `join` collects their results."""
     import multiprocessing as mp
 
     world = int(np.prod(shape))
     tmp = str(tmp)
+    os.makedirs(tmp, exist_ok=True)
     pay = os.path.join(tmp, f"payload_{job}.pkl")
     with open(pay, "wb") as f:
         pickle.dump(payload, f)
@@ -43,7 +51,12 @@ def spawn(job: str, payload: dict, shape: tuple[int, ...], tmp,
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + timeout
+    return procs, outs, tuple(shape), time.monotonic() + timeout
+
+
+def join(handle) -> list:
+    """Each rank's result of a `start`ed job (its traceback raised)."""
+    procs, outs, shape, deadline = handle
     for p in procs:
         p.join(max(deadline - time.monotonic(), 0.1))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -255,3 +268,105 @@ def dataflow(mesh, payload: dict) -> dict:
                      "decode": audit_decode_collectives(
                          cfg.replace(kv_policy="tiered"), mesh)}
     return out
+
+
+# ---------------------------------------------------------------------------
+# training cases
+# ---------------------------------------------------------------------------
+def _whole(tree, specs, mesh):
+    """A tree of rank shards -> the whole tensors, as numpy."""
+    import torch
+
+    from repro_torch import sharding as S
+    from repro_torch.bridge import tree_to_numpy
+    from repro_torch.tree import tree_map
+
+    with torch.no_grad():
+        return tree_to_numpy(tree_map(lambda t, s: S.unshard(t, s, mesh),
+                                      tree, specs))
+
+
+def _state_whole(state, pspec, mesh) -> dict:
+    return {"params": _whole(state.params, pspec, mesh),
+            "mu": _whole(state.mu, pspec, mesh),
+            "nu": _whole(state.nu, pspec, mesh), "step": int(state.step)}
+
+
+def train(mesh, payload: dict) -> dict:
+    """Each case's sharded train steps from the payload's weights: the
+    step-1 gradients as AdamW receives them (whole), every step's loss /
+    grad norm / lr, the whole state after the last step and the first
+    step's collectives by kind. A case with ``save_dir`` checkpoints the
+    state after step 1 there (this mesh's shardings); ``resume``
+    restores that checkpoint on this mesh and runs the next step."""
+    from repro_torch import sharding as S
+    from repro_torch.bridge import params_from_jax, shard_params
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    out = {}
+    real = ST.adamw_update
+    for name, case in payload["cases"].items():
+        model = Model(case["cfg"]).place(mesh)
+        pl = model.placement
+        opt = AdamWConfig(**case["opt"])
+        state = adamw_init(shard_params(params_from_jax(case["weights"]),
+                                        pl.pspec, mesh), opt)
+        shardings = ST.train_state_shardings(model, pl.rules, opt)
+        ckpt = CheckpointManager(case.get("save_dir") or case.get(
+            "resume_dir") or ".", keep=2, mesh=mesh, shardings=shardings)
+        first = 0
+        if case.get("resume_dir"):
+            state, first = ckpt.restore(state)
+            first += 1
+        seen = {}
+
+        def spy(st, grads, ocfg, *a):
+            if "grads" not in seen:       # gathers not charged to the step
+                counts = S.COUNTS.copy()
+                seen["grads"] = _whole(grads, pl.pspec, mesh)
+                S.COUNTS.clear()
+                S.COUNTS.update(counts)
+            return real(st, grads, ocfg, *a)
+        step = ST.make_train_step(model, opt, case.get("microbatches", 1))
+        res = {"metrics": []}
+        ST.adamw_update = spy
+        try:
+            for i in range(first, len(case["batches"])):
+                S.reset_counts()
+                state, m = step(state, case["batches"][i])
+                res.setdefault("collectives", S.counts_by_kind())
+                res["metrics"].append({k: float(v) for k, v in m.items()})
+                if case.get("save_dir") and i == 0:
+                    ckpt.save(state, i)
+        finally:
+            ST.adamw_update = real
+        res["grads"] = seen.get("grads")
+        res["state"] = _state_whole(state, pl.pspec, mesh)
+        out[name] = res
+    if "cli" in payload:
+        import contextlib
+        import io
+
+        from repro_torch.launch import train as cli
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            got = cli.run(cli.parse_args(payload["cli"]), mesh)
+        out["cli"] = {"printed": buf.getvalue(), "losses": got["losses"]}
+    return out
+
+
+def pod_allreduce(mesh, payload: dict):
+    """`compressed_pod_allreduce` of this pod's gradient (``payload``'s
+    row at the rank's 'pod' coordinate) over a (pod, 1, 1) mesh."""
+    import torch
+
+    from repro_torch import sharding as S
+    from repro_torch.runtime.overlap import compressed_pod_allreduce
+
+    g = torch.from_numpy(payload["grads"][mesh.coord("pod")])
+    S.reset_counts()
+    out = compressed_pod_allreduce({"w": g}, mesh)["w"]
+    return {"out": out.numpy(), "collectives": S.counts_by_kind()}
