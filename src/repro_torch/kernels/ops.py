@@ -13,6 +13,15 @@ differentiates its plain path), so none is written here. Where no
 gradient is needed (serving, `no_grad`) the wrapper is called directly
 and nothing is saved. `ffn_act_int8` and the paged decodes are never
 differentiated: training does not reach them.
+
+The analytic walk (`launch.hlo_analysis.analyze`) sets `WALK` while it
+runs a step on meta tensors. Each kernel wrapper's call is then one
+call site (`WALK.call_site`): its FLOPs are the twin's products inside
+it, its bytes only its operands and outputs, as the card's kernel moves
+them. `KernelGrad`'s rerun of the twin's forward in the backward is
+ordinary ops (the card materialises them), reported apart as
+recompute (`WALK.recompute`). With `WALK` None (always, outside the
+walk) each call is the plain call.
 """
 
 from __future__ import annotations
@@ -30,6 +39,17 @@ from repro_torch.kernels import qkv_proj as _qkv
 
 PAGED_DECODE_BLOCK = 128  # cold-page tokens per table entry (= endurance blk)
 
+# the analytic walk's observer while it runs (`launch.hlo_analysis`)
+WALK = None
+
+
+def _call(fn, *args, **kw):
+    """``fn(*args, **kw)``, a kernel wrapper's call: one call site of the
+    analytic walk while it runs."""
+    if WALK is None:
+        return fn(*args, **kw)
+    return WALK.call_site(fn, args, kw)
+
 
 class KernelGrad(torch.autograd.Function):
     """``kernel(*inputs)`` forward; backward through ``plain(*inputs)``,
@@ -41,7 +61,7 @@ class KernelGrad(torch.autograd.Function):
     def forward(ctx, kernel, plain, *inputs):
         ctx.plain = plain
         ctx.save_for_backward(*inputs)
-        return kernel(*inputs)
+        return _call(kernel, *inputs)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -49,7 +69,8 @@ class KernelGrad(torch.autograd.Function):
         with torch.enable_grad():
             xs = [t if t is None else t.detach().requires_grad_(n)
                   for t, n in zip(ctx.saved_tensors, need)]
-            outs = ctx.plain(*xs)
+            outs = (ctx.plain(*xs) if WALK is None
+                    else WALK.recompute(ctx.plain, xs))
             outs = outs if isinstance(outs, tuple) else (outs,)
             wrt = [x for x, n in zip(xs, need) if n]
             got = iter(torch.autograd.grad(outs, wrt, grads,
@@ -87,7 +108,7 @@ def attn_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return KernelGrad.apply(functools.partial(_attn_call, causal=causal),
                                 functools.partial(_attn_plain, causal=causal),
                                 q, k, v)
-    return _attn_call(q, k, v, causal)
+    return _call(_attn_call, q, k, v, causal)
 
 
 def paged_decode_tiered_operands(q: torch.Tensor, k_store: dict,
@@ -119,7 +140,8 @@ def paged_decode_tiered(q: torch.Tensor, k_store: dict, v_store: dict,
     B, _, H, D = q.shape
     args, kw = paged_decode_tiered_operands(q, k_store, v_store, pos,
                                             tau=tau, block_k=block_k)
-    return _paged.paged_decode_tiered(*args, **kw).reshape(B, H, D)[:, None]
+    return _call(_paged.paged_decode_tiered, *args, **kw).reshape(
+        B, H, D)[:, None]
 
 
 def paged_decode_flat_operands(q: torch.Tensor, k_store: dict,
@@ -148,7 +170,8 @@ def paged_decode_flat(q: torch.Tensor, k_store: dict, v_store: dict, pos, *,
     B, _, H, D = q.shape
     args, kw = paged_decode_flat_operands(q, k_store, v_store, pos,
                                           block_k=block_k)
-    return _paged.paged_decode_flat(*args, **kw).reshape(B, H, D)[:, None]
+    return _call(_paged.paged_decode_flat, *args, **kw).reshape(
+        B, H, D)[:, None]
 
 
 def _qkv_call(proj, x, wq, wk, wv, bq, bk, bv):
@@ -171,7 +194,7 @@ def qkv_proj(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
             functools.partial(_qkv_call, _qkv.qkv_proj),
             functools.partial(_qkv_call, _qkv.qkv_proj_plain),
             x, wq, wk, wv, bq, bk, bv)
-    return _qkv_call(_qkv.qkv_proj, x, wq, wk, wv, bq, bk, bv)
+    return _call(_qkv_call, _qkv.qkv_proj, x, wq, wk, wv, bq, bk, bv)
 
 
 def ffn_act_int8(x: torch.Tensor, w_up_q: torch.Tensor,
@@ -179,9 +202,9 @@ def ffn_act_int8(x: torch.Tensor, w_up_q: torch.Tensor,
                  w_down_q: torch.Tensor, w_down_scale: torch.Tensor,
                  kind: str) -> torch.Tensor:
     lead = x.shape[:-1]
-    out = _ffn.ffn_act_int8(x.reshape(-1, x.shape[-1]), w_up_q, w_up_scale,
-                            w_gate_q, w_gate_scale, w_down_q, w_down_scale,
-                            kind)
+    out = _call(_ffn.ffn_act_int8, x.reshape(-1, x.shape[-1]), w_up_q,
+                w_up_scale, w_gate_q, w_gate_scale, w_down_q, w_down_scale,
+                kind)
     return out.reshape(*lead, -1)
 
 
@@ -198,7 +221,7 @@ def ffn_act(x: torch.Tensor, w_up: torch.Tensor, w_gate, w_down: torch.Tensor,
             functools.partial(_rows, _ffn.ffn_act, kind=kind),
             functools.partial(_rows, _ffn.ffn_act_plain, kind=kind),
             x, w_up, w_gate, w_down)
-    return _rows(_ffn.ffn_act, x, w_up, w_gate, w_down, kind=kind)
+    return _call(_rows, _ffn.ffn_act, x, w_up, w_gate, w_down, kind=kind)
 
 
 def fused_norm(x: torch.Tensor, scale: torch.Tensor, bias, kind: str = "rms"
@@ -208,4 +231,4 @@ def fused_norm(x: torch.Tensor, scale: torch.Tensor, bias, kind: str = "rms"
             functools.partial(_rows, _norm.fused_norm, kind=kind),
             functools.partial(_rows, _norm.fused_norm_plain, kind=kind),
             x, scale, bias)
-    return _rows(_norm.fused_norm, x, scale, bias, kind=kind)
+    return _call(_rows, _norm.fused_norm, x, scale, bias, kind=kind)

@@ -33,9 +33,14 @@ PRODUCTION = ((16, 16), ("data", "model"))
 MULTIPOD = ((2, 16, 16), ("pod", "data", "model"))
 
 
-def init_process_group(device=None) -> torch.device:
+def init_process_group(device=None, timeout: float | None = None
+                       ) -> torch.device:
     """Join (or, alone, create) the default process group for ``device``
-    ("cuda" -> NCCL, "cpu" -> gloo); returns the rank's device."""
+    ("cuda" -> NCCL, "cpu" -> gloo); returns the rank's device.
+    ``timeout`` (seconds) bounds every collective of a group it creates
+    (torch's default where None)."""
+    import datetime
+
     import torch.distributed as dist
 
     dev = resolve_device(device)
@@ -49,22 +54,26 @@ def init_process_group(device=None) -> torch.device:
             raise ValueError(f"the process group runs {have}, the device "
                              f"{dev} needs {backend}")
         return dev
+    kw = {} if timeout is None else {
+        "timeout": datetime.timedelta(seconds=timeout)}
     if "WORLD_SIZE" in os.environ and int(os.environ["WORLD_SIZE"]) > 1:
         dist.init_process_group(backend, device_id=dev
-                                if dev.type == "cuda" else None)
+                                if dev.type == "cuda" else None, **kw)
         return dev
     path = os.path.join(tempfile.mkdtemp(prefix="repro_mesh_"), "store")
     dist.init_process_group(backend, store=dist.FileStore(path, 1),
-                            rank=0, world_size=1)
+                            rank=0, world_size=1, **kw)
     return dev
 
 
-def make_mesh(shape, axis_names, device=None) -> Mesh:
-    """A live mesh of ``shape`` over every rank of the process group."""
+def make_mesh(shape, axis_names, device=None,
+              timeout: float | None = None) -> Mesh:
+    """A live mesh of ``shape`` over every rank of the process group
+    (``timeout``: `init_process_group`'s, where it creates the group)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    dev = init_process_group(device)
+    dev = init_process_group(device, timeout)
     size = 1
     for s in shape:
         size *= int(s)
@@ -77,14 +86,15 @@ def make_mesh(shape, axis_names, device=None) -> Mesh:
     return Mesh(shape, axis_names, device_mesh=dm, device=dev)
 
 
-def make_local_mesh(device=None) -> Mesh:
+def make_local_mesh(device=None, timeout: float | None = None) -> Mesh:
     """The 1-device mesh with the production axis names."""
-    return make_mesh((1, 1), ("data", "model"), device)
+    return make_mesh((1, 1), ("data", "model"), device, timeout)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         timeout: float | None = None) -> Mesh:
     shape, names = MULTIPOD if multi_pod else PRODUCTION
-    return make_mesh(shape, names, device)
+    return make_mesh(shape, names, device, timeout)
 
 
 def abstract_mesh(name: str) -> Mesh:

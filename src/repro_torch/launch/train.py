@@ -15,7 +15,11 @@ parameter and AdamW shards (`train_state_shardings`) -> the sharded
 train step -> the synthetic pipeline (every rank draws the global
 batch, host 0 of 1, and the step takes its block) -> the fault-tolerant
 loop, with checkpoints resuming from the latest one in ``--ckpt-dir``.
-Rank 0 alone prints and writes checkpoints.
+Rank 0 alone prints and writes checkpoints. On a mesh of more than one
+rank the loop agrees on every failure across ranks before it retries
+(`runtime.fault`); a fault inside a collective is bounded by the
+process group's timeout, `PG_TIMEOUT_S` (twice the loop's step
+deadline).
 """
 
 from __future__ import annotations
@@ -38,6 +42,10 @@ from repro_torch.models import Model
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime.fault import FaultPolicy, FaultTolerantLoop
 from repro_torch.sharding import ShardingRules, rank
+
+# seconds a collective waits for its peers before the process group
+# fails: a fault inside a collective cannot be agreed on (runtime/fault)
+PG_TIMEOUT_S = 2 * FaultPolicy.step_deadline_s
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -86,7 +94,8 @@ def run(args: argparse.Namespace, mesh, step_hook=None, ckpt=None) -> dict:
             args.ckpt_dir, keep=2, mesh=mesh,
             shardings=train_state_shardings(model, rules, opt_cfg))
     loop = FaultTolerantLoop(step_fn, ckpt,
-                             FaultPolicy(checkpoint_every=args.ckpt_every))
+                             FaultPolicy(checkpoint_every=args.ckpt_every),
+                             mesh=mesh)
     state, start = loop.resume_or_init(state)
     lead = rank() == 0
     if start and lead:
@@ -119,8 +128,8 @@ def run(args: argparse.Namespace, mesh, step_hook=None, ckpt=None) -> dict:
 def main(argv=None):
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    mesh = (make_production_mesh(device=dev) if args.production_mesh
-            else make_local_mesh(dev))
+    mesh = (make_production_mesh(device=dev, timeout=PG_TIMEOUT_S)
+            if args.production_mesh else make_local_mesh(dev, PG_TIMEOUT_S))
     return run(args, mesh)["losses"]
 
 

@@ -458,10 +458,14 @@ class Model:
         if spec.mixer in SSM_MIXERS:
             # the state rides in every mode but full: zeros at prefill,
             # the extend workspace's state, the committed one at decode;
-            # the full forward starts from a zero state of its own
+            # the full forward starts from a zero state of its own, and
+            # so does RWKV6's prefill (the same zeros, at the rank's
+            # heads on a placed model, where the prefill's fresh cache
+            # holds every head)
             if spec.mixer == "rwkv6":
+                fresh = full or mode == "prefill"
                 out, tm = SSM.apply_rwkv6(bp["mixer"], cfg, h,
-                                          None if full else bcache["tm"],
+                                          None if fresh else bcache["tm"],
                                           tp)
                 new_cache = {"tm": tm}
             else:

@@ -15,13 +15,25 @@ reference's `repro/runtime/fault.py`).
                    mesh restores onto another (`CheckpointManager` with
                    the new mesh's shardings).
 
-One difference on a mesh. The reference's step is one SPMD program: a
-fault fails it on every device at once, and every device retries. On a
-torch mesh each rank runs its own loop; a rank whose step raises alone
-retries while its peers wait in the step's next collective until the
-process group's timeout. The retry is right only where every rank
-raises (e.g. one input fault every rank sees); a rank-local fault ends
-in that timeout, and the job restarts from the last checkpoint.
+On a mesh. The reference's step is one SPMD program: a fault fails it
+on every device at once, and every device retries. On a torch mesh each
+rank runs its own loop, so on a mesh of more than one rank (``mesh``)
+the ranks agree on every failure before acting on it: the batch fetch
+(``batches(step)``) runs outside the step, and each attempt agrees
+twice, each time in one world-group all-reduce (max) of failure flags
+issued by every rank (`sharding.world_max`, charged to scope "fault"):
+
+  * after the fetch, before the step's first collective: a fetch that
+    failed on any rank makes every rank retry the step together;
+  * after the step: where it failed on some rank and no rank wrote its
+    state, every rank retries together; where some rank wrote (its step
+    returned, or `PartialUpdateError`), every rank restores the last
+    checkpoint, as for `PartialUpdateError` alone.
+
+A fault inside a collective that peers are blocked in cannot be agreed
+on: it is bounded by the process group's timeout, which the train CLI
+sets (`launch.train.PG_TIMEOUT_S`), and the job then restarts from the last
+checkpoint. A 1-rank mesh, or no mesh, issues no collective.
 
 The loop runs in-process; on a cluster the same state machine runs in
 the job coordinator. A retried step must find the state as the failed
@@ -39,6 +51,9 @@ import dataclasses
 import time
 from typing import Callable
 
+import torch
+
+from repro_torch import sharding as S
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.optim import PartialUpdateError
 
@@ -61,13 +76,15 @@ class StepReport:
 
 class FaultTolerantLoop:
     """Wraps a step callable with the deadline, checkpoint and resume
-    logic."""
+    logic; on a ``mesh`` of more than one rank, with the agreement
+    described above."""
 
     def __init__(self, step_fn: Callable, ckpt: CheckpointManager,
-                 policy: FaultPolicy = FaultPolicy()):
+                 policy: FaultPolicy = FaultPolicy(), mesh=None):
         self.step_fn = step_fn
         self.ckpt = ckpt
         self.policy = policy
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.trips: dict[int, int] = {}
         self.reports: list[StepReport] = []
 
@@ -75,8 +92,18 @@ class FaultTolerantLoop:
         latest = self.ckpt.latest_step()
         if latest is None:
             return state, 0
-        state, step = self.ckpt.restore(state, latest)
+        state, step = self.ckpt.restore(state)
         return state, step + 1
+
+    def _agree(self, *flags: bool) -> list[bool]:
+        """Each flag or-ed over every rank (as given, without a mesh)."""
+        if self.mesh is None:
+            return list(flags)
+        t = torch.tensor([float(f) for f in flags],
+                         device=self.mesh.device or "cpu")
+        with S.scope("fault"):
+            t = S.world_max(t, self.mesh)
+        return [bool(v) for v in t.tolist()]
 
     def run(self, state, batches: Callable[[int], dict], start_step: int,
             num_steps: int, on_metrics: Callable | None = None):
@@ -86,25 +113,46 @@ class FaultTolerantLoop:
             t0 = time.time()
             retries = 0
             while True:
+                partial = None
+                failed = wrote = False
                 try:
-                    state, metrics = self.step_fn(state, batches(step))
+                    batch = batches(step)
+                except Exception:  # noqa: BLE001 — host fault surface
+                    failed = True
+                (failed,) = self._agree(failed)   # before any collective
+                if not failed:
+                    try:
+                        state, metrics = self.step_fn(state, batch)
+                        wrote = True
+                    except PartialUpdateError as e:
+                        failed = wrote = True
+                        partial = e
+                    except Exception:  # noqa: BLE001 — host fault surface
+                        failed = True
+                    failed, wrote = self._agree(failed, wrote)
+                if not failed:
                     break
-                except PartialUpdateError:
-                    # half written: a retry would apply the update twice
-                    # to the leaves already written
+                if wrote:
+                    # (partly) written somewhere: a retry would apply the
+                    # update twice to the leaves already written
                     if self.ckpt.latest_step() is None:
-                        raise
+                        if partial is not None:
+                            raise partial
+                        raise RuntimeError(
+                            f"step {step} failed on a rank after another "
+                            f"rank wrote its state, and there is no "
+                            f"checkpoint to restore")
                     state, ck_step = self.ckpt.restore(state)
                     step = ck_step + 1
                     retries = 0
-                except Exception:  # noqa: BLE001 — host fault surface
-                    retries += 1
-                    if retries > self.policy.max_retries_per_step:
-                        # escalate: restore the last checkpoint (the
-                        # re-mesh entry point on a cluster)
-                        state, ck_step = self.ckpt.restore(state)
-                        step = ck_step + 1
-                        retries = 0
+                    continue
+                retries += 1
+                if retries > self.policy.max_retries_per_step:
+                    # escalate: restore the last checkpoint (the re-mesh
+                    # entry point on a cluster)
+                    state, ck_step = self.ckpt.restore(state)
+                    step = ck_step + 1
+                    retries = 0
             dur = time.time() - t0
             trip = dur > self.policy.step_deadline_s
             if trip:

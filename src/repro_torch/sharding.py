@@ -26,7 +26,9 @@ of axes, over each in turn):
   * `reduce_scatter` ("reduce-scatter"),
   * `broadcast`      ("broadcast", from one coordinate of the axis),
   * `send` / `recv`  ("collective-permute", point to point),
-  * `barrier`        ("barrier").
+  * `barrier`        ("barrier"),
+  * `world_max`      ("all-reduce", a max over every rank at once: the
+                      fault loop's agreement, `runtime.fault`).
 
 Serving issues all-reduces, all-gathers and broadcasts (evict, restore
 and prefix blocks move by broadcast from their owner). Training issues
@@ -58,10 +60,21 @@ on what consumes its output, so the call site says which it needs:
     'model' and computed replicated), and a sum would be m times it;
   * `reduce_scatter` all-gathers the gradient.
 
-Each call adds one to `COUNTS[(scope, kind)]`, ``scope`` being the
-innermost `scope` context (the model names its units, the embedding and
-the head); `core.dataflow.count_collectives` reads the counter by the
-reference's HLO kind names.
+Each call adds one to `COUNTS[(scope, kind)]` and the bytes of its
+result at the rank's local shape to `BYTES[(scope, kind)]` (the
+reference's `hlo_analysis` counts a collective by its result shape),
+``scope`` being the innermost `scope` context (the model names its
+units, the embedding and the head); `core.dataflow.count_collectives`
+reads the counts by the reference's HLO kind names, `bytes_by_kind` the
+bytes.
+
+On an abstract mesh (`Mesh.is_abstract`: no process groups) every
+wrapper moves nothing: it returns a tensor of the shape and dtype the
+live call would (an all-reduce's, a broadcast's and a recv's the
+input's; an all-gather's the gathered shape; a reduce-scatter's the
+scattered one; a barrier nothing) and counts it as the live call does.
+A step run on meta tensors over such a mesh is the analytic walk of
+`launch.hlo_analysis`.
 """
 
 from __future__ import annotations
@@ -300,6 +313,7 @@ def unshard(t: torch.Tensor, spec: Spec, mesh: Mesh,
 # counted collectives
 # ---------------------------------------------------------------------------
 COUNTS: collections.Counter = collections.Counter()
+BYTES: collections.Counter = collections.Counter()
 _SCOPES: list[str] = ["other"]
 
 
@@ -315,6 +329,7 @@ def scope(name: str):
 
 def reset_counts() -> None:
     COUNTS.clear()
+    BYTES.clear()
 
 
 def counts_by_kind(scope_prefix: str | None = None) -> dict[str, int]:
@@ -327,8 +342,20 @@ def counts_by_kind(scope_prefix: str | None = None) -> dict[str, int]:
     return out
 
 
-def _count(kind: str) -> None:
-    COUNTS[(_SCOPES[-1], kind)] += 1
+def bytes_by_kind(scope_prefix: str | None = None) -> dict[str, int]:
+    """Collective result bytes by kind, as `counts_by_kind` counts."""
+    out: dict[str, int] = {}
+    for (sc, kind), n in BYTES.items():
+        if scope_prefix is None or sc.startswith(scope_prefix):
+            out[kind] = out.get(kind, 0) + n
+    return out
+
+
+def _count(kind: str, result: torch.Tensor | None) -> None:
+    key = (_SCOPES[-1], kind)
+    COUNTS[key] += 1
+    BYTES[key] += 0 if result is None else \
+        result.numel() * result.element_size()
 
 
 def _dist():
@@ -350,8 +377,9 @@ def _all_reduce(t: torch.Tensor, mesh: Mesh, axis, op: str = "sum"
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     out = t.contiguous()
     for a in _axes_list(axis):
-        _count("all-reduce")
-        dist.all_reduce(out, op=rop, group=mesh.group(a))
+        _count("all-reduce", out)
+        if not mesh.is_abstract:
+            dist.all_reduce(out, op=rop, group=mesh.group(a))
     return out
 
 
@@ -366,8 +394,9 @@ def _all_gather(t: torch.Tensor, mesh: Mesh, axis, dim: int
         # dim they are moved there and back (one block: no move needed)
         src = (t if n == 1 else t.movedim(dim, 0)).contiguous()
         out = src.new_empty((n * src.shape[0],) + src.shape[1:])
-        _count("all-gather")
-        gather(out, src, group=mesh.group(a))
+        _count("all-gather", out)
+        if not mesh.is_abstract:
+            gather(out, src, group=mesh.group(a))
         t = out if n == 1 else out.movedim(0, dim).contiguous()
     return t
 
@@ -381,8 +410,9 @@ def _reduce_scatter(t: torch.Tensor, mesh: Mesh, axis, dim: int
         n = mesh.shape[a]
         src = t.movedim(dim, 0).contiguous()
         out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
-        _count("reduce-scatter")
-        rs(out, src, group=mesh.group(a))
+        _count("reduce-scatter", out)
+        if not mesh.is_abstract:
+            rs(out, src, group=mesh.group(a))
         t = out.movedim(0, dim).contiguous()
     return t
 
@@ -487,30 +517,48 @@ def broadcast(t: torch.Tensor, mesh: Mesh, axis: str, src: int
     place when contiguous); returns it."""
     dist = _dist()
     out = t.contiguous()
-    g = mesh.group(axis)
-    _count("broadcast")
-    dist.broadcast(out, src=dist.get_global_rank(g, src), group=g)
+    _count("broadcast", out)
+    if not mesh.is_abstract:
+        g = mesh.group(axis)
+        dist.broadcast(out, src=dist.get_global_rank(g, src), group=g)
     return out
 
 
 def barrier(mesh: Mesh) -> None:
-    """Every rank of ``mesh`` waits here for the others."""
+    """Every rank of ``mesh`` waits here for the others (counted with
+    no bytes)."""
     dist = _dist()
-    _count("barrier")
-    dist.all_reduce(torch.zeros(1, device=mesh.device or "cpu"))
+    _count("barrier", None)
+    if not mesh.is_abstract:
+        dist.all_reduce(torch.zeros(1, device=mesh.device or "cpu"))
+
+
+def world_max(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The elementwise max of ``t`` over every rank of ``mesh``: one
+    all-reduce over the default (world) group, in place when ``t`` is
+    contiguous; returns the result. The fault loop's agreement."""
+    dist = _dist()
+    out = t.contiguous()
+    _count("all-reduce", out)
+    if not mesh.is_abstract:
+        dist.all_reduce(out, op=dist.ReduceOp.MAX)
+    return out
+
 
 def send(t: torch.Tensor, mesh: Mesh, axis: str, dst: int) -> None:
     """Point to point: ``t`` to coordinate ``dst`` of ``axis``."""
     dist = _dist()
-    _count("collective-permute")
-    dist.send(t.contiguous(), dst=dist.get_global_rank(mesh.group(axis),
-                                                        dst))
+    t = t.contiguous()
+    _count("collective-permute", t)
+    if not mesh.is_abstract:
+        dist.send(t, dst=dist.get_global_rank(mesh.group(axis), dst))
 
 
 def recv(t: torch.Tensor, mesh: Mesh, axis: str, src: int) -> torch.Tensor:
     """Point to point: fill ``t`` from coordinate ``src`` of ``axis``."""
     dist = _dist()
     out = t.contiguous()
-    _count("collective-permute")
-    dist.recv(out, src=dist.get_global_rank(mesh.group(axis), src))
+    _count("collective-permute", out)
+    if not mesh.is_abstract:
+        dist.recv(out, src=dist.get_global_rank(mesh.group(axis), src))
     return out

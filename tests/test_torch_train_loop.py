@@ -13,7 +13,8 @@ seekable, host-sharded, the Markov rule, the VLM and audio layouts; its
 torch random stream differs from the reference's threefry by design),
 checkpoint round trips (a bf16 leaf included), integrity and shape
 errors, keep-N retention, the fault-tolerant loop's retry / restore /
-resume, and the train CLI on the CPU.
+resume (on two gloo ranks too: a fault on one rank is agreed on and
+retried by both), and the train CLI on the CPU.
 
 Tolerances (f32): the loss, the grad norm and the lr 1e-5 relative; an
 optimizer state after three updates 1e-6 of each leaf's largest
@@ -457,6 +458,37 @@ def test_fault_loop_restores_after_partial_update(tmp_path, monkeypatch):
     assert end == 4 and _equal_states(got, want)
     assert [(r.step, r.retries) for r in loop.reports] == [
         (0, 0), (1, 0), (2, 0), (2, 0), (3, 0)]
+
+
+def test_fault_loop_on_two_ranks_retries_together(tmp_path):
+    """Two gloo ranks of a (1, 2) mesh run reduced granite through
+    `FaultTolerantLoop` for 3 steps, with step 1's batch fetch raising
+    once on rank 1 only. Both ranks agree on the failure and retry step
+    1 together (each reports one retry), issue the same agreements (two
+    a fetched attempt, one after the failed fetch: 7), and end
+    `torch.equal` to an unfaulted run. The ranks' group times out after
+    60 s and the join after 150 s, so a loop that stalls fails."""
+    import time
+
+    from torch_sharded_worker import spawn
+
+    t0 = time.monotonic()
+    res = spawn("fault", {"arch": "granite-3-2b", "steps": 3, "rank": 1,
+                          "step": 1, "dir": str(tmp_path / "ck")},
+                (1, 2), tmp_path, timeout=150.0, pg_timeout=60.0)
+    assert time.monotonic() - t0 < 150.0
+    for r in res:
+        assert r["clean"]["reports"] == [(0, 0), (1, 0), (2, 0)]
+        assert r["faulted"]["reports"] == [(0, 0), (1, 1), (2, 0)]
+        assert r["faulted"]["end"] == r["clean"]["end"] == 3
+        assert r["faulted"]["agreements"] == {"all-reduce": 7}
+        assert r["clean"]["agreements"] == {"all-reduce": 6}
+        got, want = r["faulted"]["state"], r["clean"]["state"]
+        assert got["step"] == want["step"] == 3
+        for f in ("params", "mu", "nu"):
+            a, b = got[f], want[f]
+            pairs = list(zip(sorted_leaves(a), sorted_leaves(b)))
+            assert pairs and all(np.array_equal(x, y) for x, y in pairs), f
 
 
 def test_prefill_and_serve_steps_call_the_model():

@@ -24,14 +24,16 @@ import torch
 
 
 def spawn(job: str, payload: dict, shape: tuple[int, ...], tmp,
-          timeout: float = 240.0) -> list:
+          timeout: float = 240.0, pg_timeout: float | None = None) -> list:
     """Run ``job`` (a function of this module) on every rank of a
-    (data, model) mesh of ``shape``; returns each rank's result."""
-    return join(start(job, payload, shape, tmp, timeout))
+    (data, model) mesh of ``shape``; returns each rank's result.
+    ``pg_timeout`` (seconds) bounds each collective of the ranks' group
+    (torch's default where None)."""
+    return join(start(job, payload, shape, tmp, timeout, pg_timeout))
 
 
 def start(job: str, payload: dict, shape: tuple[int, ...], tmp,
-          timeout: float = 240.0):
+          timeout: float = 240.0, pg_timeout: float | None = None):
     """`spawn` without the wait: the ranks run while the caller works;
     `join` collects their results."""
     import multiprocessing as mp
@@ -47,7 +49,7 @@ def start(job: str, payload: dict, shape: tuple[int, ...], tmp,
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,
                          args=(r, world, tuple(shape), job, pay, store,
-                               outs[r]), daemon=True)
+                               outs[r], pg_timeout), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
@@ -77,14 +79,19 @@ def join(handle) -> list:
     return results
 
 
-def _rank_main(rank, world, shape, job, payload_path, store, out):
+def _rank_main(rank, world, shape, job, payload_path, store, out,
+               pg_timeout=None):
     try:
         torch.set_num_threads(1)
+        import datetime
+
         import torch.distributed as dist
 
         from repro_torch.launch.mesh import make_mesh
+        kw = {} if pg_timeout is None else {
+            "timeout": datetime.timedelta(seconds=pg_timeout)}
         dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                                rank=rank, world_size=world)
+                                rank=rank, world_size=world, **kw)
         names = ("data", "model") if len(shape) == 2 else \
             ("pod", "data", "model")
         mesh = make_mesh(shape, names, device="cpu")
@@ -325,10 +332,11 @@ def train(mesh, payload: dict) -> dict:
 
         def spy(st, grads, ocfg, *a):
             if "grads" not in seen:       # gathers not charged to the step
-                counts = S.COUNTS.copy()
+                counts, moved = S.COUNTS.copy(), S.BYTES.copy()
                 seen["grads"] = _whole(grads, pl.pspec, mesh)
-                S.COUNTS.clear()
+                S.reset_counts()
                 S.COUNTS.update(counts)
+                S.BYTES.update(moved)
             return real(st, grads, ocfg, *a)
         step = ST.make_train_step(model, opt, case.get("microbatches", 1))
         res = {"metrics": []}
@@ -338,6 +346,7 @@ def train(mesh, payload: dict) -> dict:
                 S.reset_counts()
                 state, m = step(state, case["batches"][i])
                 res.setdefault("collectives", S.counts_by_kind())
+                res.setdefault("collective_bytes", S.bytes_by_kind())
                 res["metrics"].append({k: float(v) for k, v in m.items()})
                 if case.get("save_dir") and i == 0:
                     ckpt.save(state, i)
@@ -355,6 +364,56 @@ def train(mesh, payload: dict) -> dict:
         with contextlib.redirect_stdout(buf):
             got = cli.run(cli.parse_args(payload["cli"]), mesh)
         out["cli"] = {"printed": buf.getvalue(), "losses": got["losses"]}
+    return out
+
+
+def fault(mesh, payload: dict) -> dict:
+    """`FaultTolerantLoop` over the rank's mesh, twice from the same
+    init: unfaulted, then with the batch fetch of step
+    ``payload["step"]`` raising once on rank ``payload["rank"]`` only.
+    Each run's step reports, the whole state after it and the loop's
+    agreement collectives ("fault" scope)."""
+    import torch
+
+    from repro_torch import sharding as S
+    from repro_torch.bridge import shard_params
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.fault import FaultPolicy, FaultTolerantLoop
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(payload["arch"], reduced=True).replace(
+        param_dtype="float32", compute_dtype="float32", remat="none")
+    model = Model(cfg).place(mesh)
+    pspec = model.placement.pspec
+    opt = AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=payload["steps"])
+    pipe = SyntheticPipeline(cfg, DataConfig(4, 16, seed=0))
+    full = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    me, fired = S.rank(), []
+
+    def faulty(step):
+        if (me == payload["rank"] and step == payload["step"]
+                and not fired):
+            fired.append(step)
+            raise RuntimeError("injected batch fetch failure")
+        return pipe.host_slice(step)
+    out = {}
+    for name, batches in (("clean", pipe.host_slice), ("faulted", faulty)):
+        state = adamw_init(shard_params(tree_map(torch.clone, full), pspec,
+                                        mesh), opt)   # updated in place
+        loop = FaultTolerantLoop(
+            make_train_step(model, opt),
+            CheckpointManager(f"{payload['dir']}/{name}{me}", keep=1),
+            FaultPolicy(checkpoint_every=100), mesh=mesh)
+        S.reset_counts()
+        state, end = loop.run(state, batches, 0, payload["steps"])
+        out[name] = {"reports": [(r.step, r.retries) for r in loop.reports],
+                     "end": end, "agreements": S.counts_by_kind("fault"),
+                     "state": _state_whole(state, pspec, mesh)}
     return out
 
 
