@@ -421,12 +421,19 @@ def card_line() -> str:
 
 
 def peaks(name: str) -> dict:
-    """Published dense peaks of the card (NVIDIA data sheets)."""
+    """Published dense peaks of the card (NVIDIA data sheets); "tf32" is
+    the TF32 tensor cores' rate, and "tf32x3" the f32 work it does in
+    the 3xTF32 split (three TF32 products a product)."""
     if "PCIe" in name:
-        return {"bw": 2.0e12, "bfloat16": 756e12, "float32": 51e12}
-    if "NVL" in name:
-        return {"bw": 3.9e12, "bfloat16": 835e12, "float32": 60e12}
-    return {"bw": 3.35e12, "bfloat16": 989e12, "float32": 67e12}  # SXM
+        pk = {"bw": 2.0e12, "bfloat16": 756e12, "float32": 51e12,
+              "tf32": 378e12}
+    elif "NVL" in name:
+        pk = {"bw": 3.9e12, "bfloat16": 835e12, "float32": 60e12,
+              "tf32": 417.5e12}
+    else:  # SXM
+        pk = {"bw": 3.35e12, "bfloat16": 989e12, "float32": 67e12,
+              "tf32": 495e12}
+    return dict(pk, tf32x3=pk["tf32"] / 3)
 
 
 def bound(pk: dict, nbytes: float, flops: float, dtype: str):
@@ -452,35 +459,54 @@ def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
     return statistics.median(ts)
 
 
+# `device_ms` windows by outcome: device events recorded, or none at all.
+# Across three full runs on the H100 the profiler lost the first device
+# events of a window whatever their time (a lead-in spin kernel of 5 to
+# 80 ms, or the first norm and projection of a profiled step after a
+# 0.5 ms spin) and, late in a run, every event of a short window; a
+# warm-up step on the profiler's schedule neither stopped the first loss
+# nor kept the per-call times (3-5x the CUDA-event times), so windows
+# open plainly, with spins at both ends, and a lost window is read again
+# (ROADMAP Queue 3).
+DROPPED = {"measured": 0, "empty": 0}
+
+
+def _name(fn) -> str:
+    """A short name of a timed callable (never a tensor's repr)."""
+    fn = getattr(fn, "func", fn)
+    return getattr(fn, "__qualname__", type(fn).__name__)
+
+
 def device_ms(fn, reps: int = 20, tries: int = 3):
     """Device time of one call: the summed time of the device events
     (kernels, copies) that ``reps`` calls launch, per call, from
-    torch.profiler — the wrapper's host time excluded. A window that
-    recorded no device event besides the lead-in is read again, up to
-    ``tries`` windows; after that the time is None (not measured), never
-    0."""
+    torch.profiler — the wrapper's host time excluded. The calls sit
+    between two spin kernels (`lead_in`, `lead_out`; left out of the
+    sum), which take the profiler's loss of a window's first events. A
+    window that recorded no device event is read again, up to ``tries``
+    windows (counted in DROPPED); after that the time is None (not
+    measured), never 0."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        # the window opens with the profiles' spin kernel (`lead_in`, left
-        # out of the sum): a window of a few short launches alone recorded
-        # no device events at all now and then
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             lead_in()
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
+            lead_out()
         evs = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.count
                and "spin_kernel" not in e.key]
         if evs:
+            DROPPED["measured"] += 1
             return sum(e.self_device_time_total for e in evs) / 1e3 / reps
-    print(f"[time] the profiler recorded no device event of {fn} in "
-          f"{tries} windows: its device time is not measured")
+        DROPPED["empty"] += 1
+        print(f"[time] a profiled window of {_name(fn)} recorded no device "
+              f"event; windows so far {DROPPED}")
+    print(f"[time] the profiler recorded no device event of {_name(fn)} "
+          f"in {tries} windows: its device time is not measured")
     return None
 
 
@@ -520,11 +546,9 @@ def device_kernels(fn, reps: int = 10) -> dict:
     from torch.profiler: how many kernels a library call is."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         lead_in()
         for _ in range(reps):
             fn()
@@ -544,18 +568,56 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+# the 3xTF32 split's bound on one term of a sum, relative to |a b|
+# (csrc/tf32x3.cuh): sum_k a_k b_k moves by <= TF32X3_TERM sum_k |a_k b_k|
+TF32X3_TERM = 3 * 2.0 ** -22
+
+
+def tf32x3_qkv_bound(x, ws) -> float:
+    """The split's bound on the tf32x3 projection's largest error:
+    TF32X3_TERM max sum_d |x_md w_dn| over the three weights (the f32
+    accumulation error, which the twin's sum has as well, left out)."""
+    return TF32X3_TERM * max(float((x.abs() @ w.abs()).max()) for w in ws)
+
+
+def tf32x3_ffn_bound(x, wu, wg, wd, kind) -> float:
+    """The split's bound on the tf32x3 FFN's largest error: phase 1's
+    errors (TF32X3_TERM sum_d |x w| in u and g) carried through act (its
+    slope: |silu'| <= 1.1, |gelu'| <= 1.13, relu2's 2|u|) and the gate
+    into h, times |W_down|, plus phase 2's own TF32X3_TERM sum_f |h w|
+    (f32 accumulation's error left out, as for the projection)."""
+    from repro_torch.kernels import ffn_act as FF
+    u = x @ wu
+    du = TF32X3_TERM * (x.abs() @ wu.abs())
+    slope = 2 * u.abs() if kind == "relu2" else 1.13
+    a = FF.activation(u, kind)
+    if wg is None:
+        h, dh = a, slope * du
+    else:
+        g = x @ wg
+        dg = TF32X3_TERM * (x.abs() @ wg.abs())
+        h, dh = a * g, slope * du * g.abs() + a.abs() * dg
+    return float((dh @ wd.abs() + TF32X3_TERM * (h.abs() @ wd.abs())).max())
+
+
 # what the SASS of each library must hold: the bf16 tensor-core kernels
 # warpgroup MMAs (HGMMA) over shared-memory tiles filled by cp.async
 # (LDGSTS; the FFN's stream form fills its ring with it too); the paged
-# decode library's two split-K kernels their cp.async key rings, counted
-# in every instance of each kernel function
+# decode library's two split-K kernels their cp.async key rings, and the
+# f32 3xTF32 GEMMs TF32 warpgroup MMAs (HGMMA ... .TF32) over cp.async
+# rings, counted in every instance of each kernel function
 SASS_NEEDS = {"attn_stream": ("HGMMA", "LDGSTS"),
               "qkv_proj": ("HGMMA", "LDGSTS"),
               "ffn_act": ("HGMMA", "LDGSTS"),
               "ffn_act_int8": ("HGMMA", "LDGSTS"),
               "paged_decode": ("LDGSTS",)}
-SASS_PER_FUNCTION = {"paged_decode": ("paged_decode_tiered_kernel",
-                                      "paged_decode_flat_kernel")}
+TF32_NEEDS = ("HGMMA", "LDGSTS", "TF32")
+SASS_PER_FUNCTION = {
+    "paged_decode": {"paged_decode_tiered_kernel": ("LDGSTS",),
+                     "paged_decode_flat_kernel": ("LDGSTS",)},
+    "ffn_act": {"ffn_up_tf32_kernel": TF32_NEEDS,
+                "ffn_down_tf32_kernel": TF32_NEEDS},
+    "qkv_proj": {"qkv_tf32_kernel": TF32_NEEDS}}
 
 
 def sass_functions(sass: str) -> dict:
@@ -570,11 +632,20 @@ def sass_functions(sass: str) -> dict:
     return {k: "\n".join(v) for k, v in out.items()}
 
 
+def sass_count(sass: str, op: str) -> int:
+    """Instructions of kind ``op`` in SASS text; "TF32" counts the HGMMA
+    instructions with TF32 operands."""
+    if op == "TF32":
+        return sum(1 for line in sass.splitlines()
+                   if "HGMMA" in line and "TF32" in line)
+    return sass.count(op)
+
+
 def sass_check() -> dict:
     """Count HGMMA and LDGSTS instructions in the built libraries of
     SASS_NEEDS with cuobjdump (beside nvcc) and require what each
-    needs; for SASS_PER_FUNCTION also LDGSTS in every instance of each
-    named kernel function."""
+    needs; for SASS_PER_FUNCTION also what each named kernel function
+    needs, in every instance of it."""
     from repro_torch.kernels import build
     tool = pathlib.Path(build.nvcc_path()).with_name("cuobjdump")
     out = {}
@@ -591,17 +662,19 @@ def sass_check() -> dict:
             require(out[name][op] > 0,
                     f"{name}: no {op} instruction in the built library")
         funcs = sass_functions(sass)
-        for kern in SASS_PER_FUNCTION.get(name, ()):
-            counts = [f.count("LDGSTS") for k, f in funcs.items()
-                      if kern in k]
-            out[name][kern] = {"instances": len(counts),
-                               "LDGSTS_min": min(counts, default=0),
-                               "LDGSTS_max": max(counts, default=0)}
-            print(f"[sass]   {kern}: {len(counts)} instances, LDGSTS "
-                  f"{min(counts, default=0)}-{max(counts, default=0)} "
-                  f"each")
-            require(counts and min(counts) > 0,
-                    f"{name}: an instance of {kern} has no LDGSTS")
+        for kern, ops in SASS_PER_FUNCTION.get(name, {}).items():
+            bodies = [f for k, f in funcs.items() if kern in k]
+            out[name][kern] = {"instances": len(bodies)}
+            for op in ops:
+                counts = [sass_count(f, op) for f in bodies]
+                out[name][kern].update({f"{op}_min": min(counts, default=0),
+                                        f"{op}_max": max(counts,
+                                                         default=0)})
+                print(f"[sass]   {kern}: {len(counts)} instances, {op} "
+                      f"{min(counts, default=0)}-{max(counts, default=0)} "
+                      f"each")
+                require(counts and min(counts) > 0,
+                        f"{name}: an instance of {kern} has no {op}")
     return out
 
 
@@ -657,7 +730,16 @@ def tile_banner(dev: str = "cuda") -> dict:
                  "wgmma_stages": {f"w{es} phase{ph} wgs{w}": FF.wgmma_stages(
                      es, 64 * w, 3 - ph)[0] for es in (2, 1)
                      for ph in (1, 2) for w in (1, 2)},
-                 "stream_smem": ffn_stream, "wgmma_smem": ffn_tc},
+                 "stream_smem": ffn_stream, "wgmma_smem": ffn_tc,
+                 "tf32x3_tile": [FF.TF32_BM, FF.TF32_BN, FF.TF32_BK],
+                 "tf32x3_min_m": FF.TF32X3_MIN_M,
+                 "tf32x3_stages": FF.tf32x3_stages()[0],
+                 "tf32x3_flush_tiles": FF.TF32_FLUSH,
+                 "tf32x3_smem": FF.tf32x3_smem_bytes(),
+                 "tf32x3_plans (ks, k_chunk)": {
+                     f"M{m} D{d} F{f}": FF.tf32x3_plan(m, d, f, 132)[:2]
+                     for (m, d, f) in ((2048, D_MODEL, D_FF),
+                                       (320, D_MODEL, D_FF))}},
              "attn_stream": {
                  "BQ": AS.WGMMA_BQ, "BK": AS.WGMMA_BK,
                  "stages": AS.WGMMA_STAGES,
@@ -669,7 +751,9 @@ def tile_banner(dev: str = "cuda") -> dict:
                  "smem": [QK.wgmma_smem_bytes(w) for w in (1, 2)],
                  "gemv_threads": QK.GEMV_THREADS,
                  "gemv_blocks_per_sm": QK.GEMV_BLOCKS_PER_SM,
-                 "gemv_max_split": QK.GEMV_MAX_SPLIT},
+                 "gemv_max_split": QK.GEMV_MAX_SPLIT,
+                 "tf32x3_min_m": QK.TF32X3_MIN_M,
+                 "tf32x3_smem": QK.tf32x3_smem_bytes()},
              "paged_decode_flat": {
                  "warps": PD.FLAT_WARPS, "stages": PD.FLAT_STAGES,
                  "stage_bytes": PD.FLAT_STAGE_BYTES,
@@ -734,6 +818,9 @@ def tile_banner(dev: str = "cuda") -> dict:
         got, want = lq.qkv_proj_smem_bytes(10 + wgs), QK.wgmma_smem_bytes(wgs)
         require(got == want, f"qkv_proj GEMM smem at {wgs} warpgroups: "
                              f"library {got}, mirror {want}")
+    got, want = lq.qkv_proj_smem_bytes(21), QK.tf32x3_smem_bytes()
+    require(got == want, f"qkv_proj tf32x3 GEMM smem: library {got}, "
+                         f"mirror {want}")
     for code, dt in ((1, "float32"), (2, "bfloat16")):
         want = QK.gemv_smem_bytes(0, 0, getattr(torch, dt))
         require(lq.qkv_proj_smem_bytes(code) == want,
@@ -756,6 +843,17 @@ def tile_banner(dev: str = "cuda") -> dict:
                 want = ffn_tc[f"w{es} phase{ph} wgs{w}"]
                 require(got == want, f"{lib_name} phase-{ph} smem at wgs "
                                      f"{w}: library {got}, mirror {want}")
+        if lib_name == "ffn_act":
+            got, want = lf.ffn_smem_bytes(3, 0, 0, 0), FF.tf32x3_smem_bytes()
+            require(got == want, f"ffn_act tf32x3 smem: library {got}, "
+                                 f"mirror {want}")
+            for (m, d, f) in ((TRAIN_B * TRAIN_S, D_MODEL, D_FF),
+                              (77, 320, 1000)):
+                got = lf.ffn_smem_bytes(5, m, d, f)
+                want = FF.tf32x3_scratch(m, d, f, True)
+                require(got == want, f"ffn_act tf32x3 workspace at M {m} D "
+                                     f"{d} F {f}: library {got} floats, "
+                                     f"mirror {want}")
     print("[kernels] tile mirrors match the built libraries")
     return tiles
 
@@ -878,6 +976,8 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                 h = h * (x.float() @ wg)
             extra = {"h_round_bound": 2.0 ** (-11 if int8 else -9) * float(
                 (h.abs() @ wd.abs()).max())}
+        elif got == "tf32x3":
+            extra = {"split_bound": tf32x3_ffn_bound(x, *w, kind)}
         main = None
         if row is not None:
             (M, D_), F_ = x.shape, w[0].shape[1]
@@ -908,11 +1008,20 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         record(name, f"{label} ({got})", dt, err, main if is_main else None,
                extra)
 
-    def ffn_form(M, dt):
-        """The FFN form expected for M rows of ``dt`` x, rows aligned."""
+    def ffn_form(M, dt, int8=False):
+        """The FFN form expected for M rows of ``dt`` x, rows aligned; f32
+        x with int8 weights (``int8``) keeps the fma form."""
         if dt == "float32":
-            return "fma"
+            return "tf32x3" if M >= FF.TF32X3_MIN_M and not int8 else "fma"
         return "stream" if M <= FF.STREAM_MAX_M else "wgmma"
+
+    def qkv_form(M, bf):
+        """The qkv_proj form expected for M aligned rows."""
+        if M <= QK.GEMV_MAX_M:
+            return "gemv"
+        if bf:
+            return "wgmma"
+        return "tf32x3" if M >= QK.TF32X3_MIN_M else "fma"
 
     def chain_of(x, wu, wg, wd, kind="silu_gated"):
         def call():
@@ -1008,8 +1117,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
             for M in (1, 4, 5, M_pre):
                 x = randn(M, D_, dtype=tdt)
                 want_v = QK.kernel_variant(M, tdt)
-                require(want_v == ("gemv" if M <= 4 else
-                                   "wgmma" if bf else "fma"),
+                require(want_v == qkv_form(M, bf),
                         f"qkv_proj {arch} M={M}: form {want_v}")
                 record("qkv_proj", f"{arch}{' bias' if bias else ''} M={M} "
                                    f"({want_v})", dt,
@@ -1173,7 +1281,8 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         for M in (4, 65):
             ffn_case("ffn_act_int8", randn(M, 5120, dtype=tdt),
                      int8_ffn(5120, 2048, True), "silu_gated", dt,
-                     f"silu_gated M={M} D=5120 F=2048", ffn_form(M, dt))
+                     f"silu_gated M={M} D=5120 F=2048",
+                     ffn_form(M, dt, int8=True))
 
     def ssm_widths(dt):
         """The kernels of the rwkv6-7b and zamba2-1.2b paths at their
@@ -1212,8 +1321,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         for M in (1, 4, 5, 256):
             x = randn(M, D_, dtype=tdt)
             want_v = QK.kernel_variant(M, tdt)
-            require(want_v == ("gemv" if M <= 4 else
-                               "wgmma" if bf else "fma"),
+            require(want_v == qkv_form(M, bf),
                     f"qkv_proj zamba2 M={M}: form {want_v}")
             record("qkv_proj", f"zamba2 M={M} ({want_v})", dt,
                    max(max_err(a, b) for a, b in zip(
@@ -1327,8 +1435,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                 for M in (4, 256):
                     x = randn(M, D_, dtype=tdt)
                     want_v = QK.kernel_variant(M, tdt)
-                    require(want_v == ("gemv" if M <= 4 else
-                                       "wgmma" if bf else "fma"),
+                    require(want_v == qkv_form(M, bf),
                             f"qkv_proj {tag} M={M}: form {want_v}")
                     record("qkv_proj", f"{tag} M={M} N={ns} ({want_v})", dt,
                            max(max_err(a, b) for a, b in zip(
@@ -1442,8 +1549,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
             for M in Ms:
                 x = randn(M, D_, dtype=tdt)
                 want_v = QK.kernel_variant(M, tdt)
-                require(want_v == ("gemv" if M <= 4 else
-                                   "wgmma" if bf else "fma"),
+                require(want_v == qkv_form(M, bf),
                         f"qkv_proj {arch} M={M}: form {want_v}")
                 record("qkv_proj", f"{arch} M={M} N={ns} ({want_v})", dt,
                        max(max_err(a, b) for a, b in zip(
@@ -1900,6 +2006,12 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                 err = max(max_err(a, b) for a, b in zip(
                     QK.qkv_proj(x, *wq3, *bq3),
                     QK.qkv_proj_plain(x, *wq3, *bq3)))
+                form = qkv_form(M, dt == "bfloat16")
+                require(dev.type != "cuda" or QK.qkv_proj.variant == form,
+                        f"qkv_proj {tag} M={M} {dt}: ran the "
+                        f"{QK.qkv_proj.variant} form, expected {form}")
+                extra = ({"split_bound": tf32x3_qkv_bound(x, wq3)}
+                         if form == "tf32x3" else None)
                 main = None
                 if dt == "bfloat16" and M in (4, M_pre):
                     ms, dms = timed(lambda: QK.qkv_proj(x, *wq3, *bq3))
@@ -1926,8 +2038,8 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                           f"plain {plain:.3f} ms; "
                           f"torch.addmm {us(lib_dev, 1)} device, "
                           f"{lib:.3f} ms call; bound {1e3 * b_ms:.1f} us")
-                record("qkv_proj", f"{tag}{' bias' if bias else ''} M={M}",
-                       dt, err, main)
+                record("qkv_proj", f"{tag}{' bias' if bias else ''} M={M} "
+                                   f"({form})", dt, err, main, extra)
             del wq3, wcat
         # ---- ffn_act_int8: mobilevlm-3b silu_gated M=4 and M=256 --------
         def int8w(k, n):
@@ -1945,7 +2057,8 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
             if dt == "bfloat16":
                 row = (3 * D3 * F3 + 4 * (2 * F3 + D3), chain_of(x, *deq))
             ffn_case("ffn_act_int8", x, wq8, "silu_gated", dt,
-                     f"silu_gated M={M}", ffn_form(M, dt), row, M == 4)
+                     f"silu_gated M={M}", ffn_form(M, dt, int8=True), row,
+                     M == 4)
         del wq8, deq
         # ---- ffn_act and fused_norm at mobilevlm-3b (path A's shapes) ---
         w3 = (randn(D3, F3, dtype=tdt, std=0.5 * D3 ** -0.5),
@@ -2045,7 +2158,8 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
             for gated in (True, False):
                 kind = "silu_gated" if gated else ("gelu", "relu2")[i % 2]
                 ffn_case("ffn_act_int8", x, int8_ffn(320, 1024, gated), kind,
-                         dt, f"{kind} M={M} D=320 F=1024", ffn_form(M, dt))
+                         dt, f"{kind} M={M} D=320 F=1024",
+                         ffn_form(M, dt, int8=True))
         for (M, D, F_, kind) in ((5, 320, 1000, "gelu"),
                                  (65, 320, 1000, "relu2"),
                                  (3, 200, 1000, "silu_gated")):
@@ -3133,7 +3247,6 @@ def hubert_phase(pk: dict, dev: str = "cuda") -> dict:
     alone against its row of the batch of 4, <= 1e-5 of the largest
     |logit|."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
     from repro_torch.tree import tree_leaves, tree_map
@@ -3197,8 +3310,7 @@ def hubert_phase(pk: dict, dev: str = "cuda") -> dict:
     res["floor_ms"] = 1e3 * flops / pk["bfloat16"]
     if dev == "cuda":
         kernels.reset_launch_counts()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             lead_in()
             t0 = time.perf_counter()
             model.forward(params, batch)
@@ -3356,11 +3468,17 @@ def llama4_phase(pk: dict, dev: str = "cuda") -> dict:
 # visual + 192 text) a step, f32 (TF32 off), as the train CLI trains; the
 # card-vs-host gradient check and the resume check at a 2-layer cut
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CUT = 8, 256, 6, 2
+# device µs a call of the f32 fma forms at these shapes, measured before
+# the tf32x3 forms (PERF.md §6 rows 3 and 5; NVIDIA H100 80GB HBM3,
+# 700.00 W): the times the tf32x3 forms are printed beside
+FMA_US_BEFORE = {"ffn_act": 19_646.0, "qkv_proj": 631.1}
 # the port's kernels by device name: a profiled step's forward kernels
 OWN_KERNELS = ("fused_norm_kernel", "qkv_fma_kernel", "qkv_gemv_kernel",
-               "qkv_wgmma_kernel", "attn_fma_kernel", "attn_wgmma_kernel",
-               "ffn_up_kernel", "ffn_act_kernel", "ffn_down_kernel",
-               "ffn_reduce_kernel", "ffn_stream_mma_kernel")
+               "qkv_wgmma_kernel", "qkv_tf32_kernel", "attn_fma_kernel",
+               "attn_wgmma_kernel", "ffn_up_kernel", "ffn_act_kernel",
+               "ffn_down_kernel", "ffn_reduce_kernel", "ffn_stream_mma_kernel",
+               "ffn_up_tf32_kernel", "ffn_down_tf32_kernel",
+               "tf32_split_kernel")
 
 
 def _train_model(dev: str, layers: int | None = None):
@@ -3406,7 +3524,9 @@ def train_kernel_grads(pk: dict, dev: str = "cuda") -> dict:
     `KernelGrad` node. On the card each kernel's forward is timed
     beside its plain twin, one library call computing the same function
     and its bound at the f32 peak, with the Function's forward and
-    backward together."""
+    backward together; `qkv_proj` and `ffn_act` (the tf32x3 form) also
+    with their profiler device time, the 3xTF32 bound (three TF32
+    products at the TF32 peak) and their fma form's earlier time."""
     import functools
 
     import torch
@@ -3517,6 +3637,35 @@ def train_kernel_grads(pk: dict, dev: str = "cuda") -> dict:
                   f"{times['library_ms']:.3f}, bound {b_ms:.3f} ({b_by}); "
                   f"the Function's forward + backward "
                   f"{times['fwd_bwd_ms']:.3f} ms")
+            wrapper = {"ffn_act": FF.ffn_act, "qkv_proj": QK.qkv_proj}.get(
+                name)
+            if wrapper is not None:
+                with torch.no_grad():
+                    call = functools.partial(fn, *inputs)
+                    libc = functools.partial(lib, *inputs)
+                    dms, lib_dms = (device_ms(call, reps=10),
+                                    device_ms(libc, reps=10))
+                    ev, lib_ev = (event_ms(call, n=5, reps=3),
+                                  event_ms(libc, n=5, reps=3))
+                # a profiler window that lost events reads far below the
+                # CUDA events' time of the same calls: not a measurement
+                dms, lib_dms = (None if d is not None and d < 0.5 * e else d
+                                for d, e in ((dms, ev), (lib_dms, lib_ev)))
+                b3_ms, b3_by = bound(pk, nbytes, flops, "tf32x3")
+                res[name].update(form=wrapper.variant, device_ms=dms,
+                                 event_ms=ev, library_device_ms=lib_dms,
+                                 library_event_ms=lib_ev,
+                                 tf32x3_bound_ms=b3_ms,
+                                 tf32x3_bound_by=b3_by,
+                                 fma_device_us_before=FMA_US_BEFORE[name])
+                print(f"[train] {name} f32 at M {M} ({wrapper.variant} "
+                      f"form): {us(dms)} device (profiler), "
+                      f"{1e3 * ev:.1f} us (CUDA events), was "
+                      f"{FMA_US_BEFORE[name]:,} us in the fma form; "
+                      f"library {us(lib_dms)} device, {1e3 * lib_ev:.1f} "
+                      f"us (events); bounds {1e3 * b_ms:.1f} us at the "
+                      f"f32 CUDA-core peak, {1e3 * b3_ms:.1f} us "
+                      f"({b3_by}) at three TF32 products")
         del xs, cot
     return res
 
@@ -3581,7 +3730,6 @@ def train_run(pk: dict, dev: str = "cuda") -> dict:
     FLOP and its floor at the f32 CUDA-core peak, and a profile of step
     6 (busy ms, idle share, the forward kernels against the rest)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
     from repro_torch.data import DataConfig, SyntheticPipeline
@@ -3639,9 +3787,7 @@ def train_run(pk: dict, dev: str = "cuda") -> dict:
         for t in range(TRAIN_STEPS):
             batch = pipe.host_slice(t)
             kernels.reset_launch_counts()
-            prof = (profile(activities=[ProfilerActivity.CPU,
-                                        ProfilerActivity.CUDA])
-                    if cuda and t == TRAIN_STEPS - 1
+            prof = (device_profile() if cuda and t == TRAIN_STEPS - 1
                     else contextlib.nullcontext())
             with prof:
                 if cuda and t == TRAIN_STEPS - 1:
@@ -4452,10 +4598,11 @@ def serve_run(label, arch, knobs, bknobs, text_with_image, needs,
 # the two FFN wrappers share their kernels' names
 HEAD_KERNELS = {
     ("fused_norm",): ("fused_norm_kernel",),
-    ("qkv_proj",): ("qkv_gemv_kernel", "qkv_wgmma_kernel", "qkv_fma_kernel"),
+    ("qkv_proj",): ("qkv_gemv_kernel", "qkv_wgmma_kernel", "qkv_fma_kernel",
+                    "qkv_tf32_kernel"),
     ("attn_stream",): ("attn_wgmma_kernel", "attn_fma_kernel"),
     ("ffn_act", "ffn_act_int8"): ("ffn_stream_mma_kernel", "ffn_up_kernel",
-                                  "ffn_act_kernel"),
+                                  "ffn_act_kernel", "ffn_up_tf32_kernel"),
     ("paged_decode_tiered",): ("paged_decode_tiered_kernel",),
     ("paged_decode_flat",): ("paged_decode_flat_kernel",)}
 
@@ -4479,15 +4626,34 @@ def profile_launch_check(label, what, rows, counts) -> dict:
     return out
 
 
-def lead_in() -> None:
-    """The start of a profiled window, before its measured work: a ~0.5 ms
-    spin kernel, synchronized. The profiler's device tracing starts a
-    little after the window opens and may drop the first kernels
-    launched in it (the first layer's norm and projection); the spin
-    kernel takes that place and is left out of the rows
-    (`device_rows`)."""
+# spin cycles at each end of a profiled window: ~5 ms at the H100's ~2 GHz
+SPIN_MARGIN = 10_000_000
+
+
+def device_profile(cuda: bool = True):
+    """torch.profiler over CPU and, with ``cuda``, CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if cuda else []))
+
+
+def lead_in(cycles: int = SPIN_MARGIN) -> None:
+    """The start of a profiled window, before its measured work: a spin
+    kernel, synchronized. The profiler loses the first device events of
+    a window (DROPPED); the spin kernel takes their place and is left out
+    of the rows (`device_rows`). It does not always suffice: the first
+    norm and projection of a profiled step are still lost at times
+    (printed as a launch-count MISMATCH)."""
     import torch
-    torch.cuda._sleep(1_000_000)
+    torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+
+
+def lead_out(cycles: int = SPIN_MARGIN) -> None:
+    """The end of a `device_ms` window: a spin kernel queued behind the
+    measured calls, synchronized (left out of the rows, as `lead_in`'s)."""
+    import torch
+    torch.cuda._sleep(cycles)
     torch.cuda.synchronize()
 
 
@@ -4513,7 +4679,6 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
     share is 1 - kernel time / wall time of the window. Runs after the
     main path's launch counts were read."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
     from repro_torch.kernels import ops
@@ -4553,9 +4718,7 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
     if kern_name:
         setattr(ops, kern_name, keep)
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof, \
-                ssm_ranges(model):
+        with device_profile() as prof, ssm_ranges(model):
             lead_in()
             t0 = time.perf_counter()
             for _ in range(n_steps):
@@ -4585,6 +4748,15 @@ def profile_decode(label, model, params, cfg, text_with_image, bknobs,
                  "device_us": None, "event_us": 1e3 * event_ms(
                      lambda: kern(*a, **kw))}
         alone_ms = device_ms(lambda: kern(*a, **kw))
+        if alone_ms is not None and alone_ms < 0.5 * alone["event_us"] / 1e3:
+            # a window that lost most of its events reads far below the
+            # CUDA events' time of the same calls (1.05 against 21.87 us
+            # on the H100 once): not a measurement
+            print(f"[profile] {label}: the profiler's {1e3 * alone_ms:.2f} "
+                  f"us for {kern_name} alone is under half the CUDA "
+                  f"events' {alone['event_us']:.2f} us: events were lost; "
+                  f"not measured")
+            alone_ms = None
         if alone_ms is not None:
             alone["device_us"] = 1e3 * alone_ms
         in_prof = alone["profile_us_per_launch"]
@@ -4726,7 +4898,6 @@ def profile_prefill(label, model, params, cfg, bknobs, dev: str = "cuda",
     launch counts were read."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
     from repro_torch.serving import LocalBackend
@@ -4742,9 +4913,7 @@ def profile_prefill(label, model, params, cfg, bknobs, dev: str = "cuda",
     call()
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof, \
-            ssm_ranges(model):
+    with device_profile() as prof, ssm_ranges(model):
         lead_in()
         t0 = time.perf_counter()
         call()
@@ -4802,11 +4971,8 @@ def _decode_window(engine, n_steps: int, dev: str = "cuda") -> dict:
     device ms a step, and the NCCL kernels' share (on the CPU the rows
     are empty and read 0)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                     if dev == "cuda" else [])
-    with profile(activities=acts) as prof:
+    with device_profile(dev == "cuda") as prof:
         if dev == "cuda":
             lead_in()
         t0 = time.perf_counter()
@@ -4997,7 +5163,6 @@ def sharded_train_phase(pk: dict, dev: str = "cuda") -> dict:
     per leaf kind, within `PARAM_TOL` of each leaf's largest element)."""
     import torch
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
     from repro_torch import sharding as S
@@ -5032,9 +5197,8 @@ def sharded_train_phase(pk: dict, dev: str = "cuda") -> dict:
             kernels.reset_launch_counts()
             S.reset_counts()
             last = profile_last and i == n - 1
-            prof = (profile(activities=[ProfilerActivity.CPU,
-                                        ProfilerActivity.CUDA])
-                    if last and cuda else contextlib.nullcontext())
+            prof = (device_profile() if last and cuda
+                    else contextlib.nullcontext())
             with prof:
                 if last and cuda:
                     lead_in()
@@ -5531,6 +5695,8 @@ def main(argv=None) -> int:
             rows[-1]["event_ms"] = r["event_ms"]
     report["kernels"] = rows
     report["kernel_cases"] = kern.get("cases", {})
+    report["profiler_windows"] = dict(DROPPED)
+    print(f"[time] device_ms windows: {DROPPED}")
     for k in ("ffn_rows", "extra_rows", "tiles", "fused_norm_mobilevlm",
               *(f"qkv_proj_{t}_{w}" for t in ("mobilevlm", "fastvlm")
                 for w in ("decode", "prefill"))):

@@ -50,9 +50,21 @@ pre-dequantized) weights -- a chain of kernels, not one call. The host
 section also breaks down the host time of an `ffn_act` / `ffn_act_int8`
 call at decode (x (4, D), a narrow F so the card keeps up).
 
+The tf32 section times the f32 forms of `ffn_act` and `qkv_proj` at
+fastvlm-1.7b's widths (D 1536, F 8960; N 1536 / 256 / 256 with bias) over
+M from 16 to the training path's 2048 rows: the CUDA-core "fma" form and
+the 3xTF32 tensor-core "tf32x3" form at every M (each forced by swapping
+the module's TF32X3_MIN_M, the form that ran asserted), each checked
+against its plain twin (f32, TF32 off, 1e-4 of the largest element),
+beside the cuBLAS chain / torch.addmm x 3; the crossing sets
+`TF32X3_MIN_M`; at M 2048 the device µs of each kernel of a call (the
+split, the GEMMs). Then every phase-2 F split of the FFN's tf32x3 form
+(`ffn_act.tf32x3_plan`) at M 2048 and 320, and ptxas's registers,
+spills and injected waits (C7517) for the new kernel functions.
+
 It prints the card's name and power limit first and writes
 chiprun_out/kernel_sweep.json (kernel_sweep_host.json for ``--only
-host``).
+host``, kernel_sweep_tf32.json for ``--only tf32``).
 """
 
 from __future__ import annotations
@@ -65,7 +77,8 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-SECTIONS = ("attn", "qkv", "flat", "tiered", "norm", "host", "ffn")
+SECTIONS = ("attn", "qkv", "flat", "tiered", "norm", "host", "ffn",
+            "tf32")
 
 
 @contextlib.contextmanager
@@ -239,6 +252,115 @@ def host_section(res: dict, build) -> None:
         print(f"[sweep] ffn host {res['ffn_host'][-1]}", flush=True)
 
 
+def kernel_us(fn, reps: int = 10) -> dict:
+    """Device µs a call of each kernel ``fn`` launches (torch.profiler,
+    ``reps`` calls between chip_smoke's spin kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    import chip_smoke as CS
+    fn()
+    torch.cuda.synchronize()
+    with CS.device_profile() as prof:
+        CS.lead_in()
+        for _ in range(reps):
+            fn()
+        CS.lead_out()
+    return {e.key[:60]: e.self_device_time_total / reps
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count
+            and "spin_kernel" not in e.key}
+
+
+def tf32_section(out: dict, CS, build, save) -> None:
+    """The f32 forms' crossing and the tf32x3 form's phase-2 split (see
+    the module docstring), into out["tf32"]."""
+    import torch
+
+    from repro_torch.kernels import ffn_act as FF
+    from repro_torch.kernels import qkv_proj as QK
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(1)
+    D, F_, ns = 1536, 8960, (1536, 256, 256)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+    wf = (rn(D, F_, std=D ** -0.5), rn(D, F_, std=D ** -0.5),
+          rn(F_, D, std=F_ ** -0.5))
+    wq = [rn(D, n, std=D ** -0.5) for n in ns]
+    bq = [rn(n, std=0.1) for n in ns]
+    wcat, bcat = torch.cat(wq, 1), torch.cat(bq)
+    rows = out.setdefault("tf32", [])
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    forms = {"fma": 10 ** 9, "tf32x3": 1}
+    for M in (16, 32, 48, 64, 96, 128, 192, 256, 320, 2048):
+        x = rn(M, D)
+        ref_f = FF.ffn_act_plain(x, *wf)
+        ref_q = QK.qkv_proj_plain(x, *wq, *bq)
+        row = {"M": M, "ffn_chain_us": 1e3 * CS.device_ms(
+                   lambda: (torch.nn.functional.silu(x @ wf[0])
+                            * (x @ wf[1])) @ wf[2]),
+               "qkv_addmm_us": 1e3 * CS.device_ms(
+                   lambda: [torch.addmm(b, x, w) for w, b in zip(wq, bq)]),
+               "qkv_split_bound": 3 * 2.0 ** -22 * float(
+                   (x.abs() @ wcat.abs()).max()
+                   / torch.addmm(bcat, x, wcat).abs().max())}
+        for form, lim in forms.items():
+            with swapped(FF, "TF32X3_MIN_M", lim), \
+                    swapped(QK, "TF32X3_MIN_M", lim):
+                e_f = rel(FF.ffn_act(x, *wf), ref_f)
+                CS.require(FF.ffn_act.variant == form,
+                           f"ffn_act M {M}: ran {FF.ffn_act.variant}")
+                e_q = max(rel(a, b) for a, b in zip(
+                    QK.qkv_proj(x, *wq, *bq), ref_q))
+                CS.require(QK.qkv_proj.variant == form,
+                           f"qkv_proj M {M}: ran {QK.qkv_proj.variant}")
+                row[f"ffn_{form}_err"], row[f"qkv_{form}_err"] = e_f, e_q
+                row[f"ffn_{form}_us"] = 1e3 * CS.device_ms(
+                    lambda: FF.ffn_act(x, *wf))
+                row[f"qkv_{form}_us"] = 1e3 * CS.device_ms(
+                    lambda: QK.qkv_proj(x, *wq, *bq))
+        if M == 2048:
+            row["ffn_tf32x3_kernels_us"] = kernel_us(
+                lambda: FF.ffn_act(x, *wf))
+            row["qkv_tf32x3_kernels_us"] = kernel_us(
+                lambda: QK.qkv_proj(x, *wq, *bq))
+        rows.append(row)
+        save()
+        print(f"[sweep] tf32 {row}", flush=True)
+        CS.require(max(v for k, v in row.items() if k.endswith("_err"))
+                   <= 1e-4, f"f32 forms at M {M} off their twins: {row}")
+    for M in (320, 2048):
+        x = rn(M, D)
+        ref_f = FF.ffn_act_plain(x, *wf)
+        row = {"M": M, "planned (ks, k_chunk)":
+               FF.tf32x3_plan(M, D, F_, build.sm_count(0))[:2]}
+        steps = -(-F_ // FF.TF32_BK)
+        for ks in (1, 2, 3, 4, 6, 8):
+            kc = -(-steps // ks) * FF.TF32_BK
+            if -(-F_ // kc) != ks:
+                continue
+            with swapped(FF, "tf32x3_plan", lambda *a, _p=(ks, kc, 0): _p):
+                err = rel(FF.ffn_act(x, *wf), ref_f)
+                row[f"ks{ks}_us"] = (1e3 * CS.device_ms(
+                    lambda: FF.ffn_act(x, *wf)) if err <= 1e-4
+                    else f"error {err}")
+        rows.append(row)
+        save()
+        print(f"[sweep] tf32 ffn phase-2 split {row}", flush=True)
+    for name in ("ffn_act", "qkv_proj"):
+        lines = build.build_logs.get(name, "").splitlines()
+        for i, line in enumerate(lines):
+            if "tf32" in line and "Compiling entry" in line:
+                print(f"[sweep] ptxas {name}: {line.strip()} :: "
+                      + " | ".join(v.strip() for v in lines[i + 1:i + 4]))
+            elif "C7517" in line and "tf32" in line:
+                print(f"[sweep] ptxas {name}: {line.strip()}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default=",".join(SECTIONS),
@@ -269,6 +391,13 @@ def main(argv=None) -> int:
         host_section(res, build)
         (dst / "kernel_sweep_host.json").write_text(json.dumps(res,
                                                                indent=1))
+        return 0
+    if only == {"tf32"}:
+        build.build_all(("ffn_act", "qkv_proj"))
+        res = {"card": CS.card_line()}
+        tf32_section(res, CS, build, lambda: (
+            dst / "kernel_sweep_tf32.json").write_text(json.dumps(res,
+                                                                  indent=1)))
         return 0
     from repro_torch.core import kv_tiers as KT
     from repro_torch.kernels import attn_stream as AS
@@ -592,6 +721,8 @@ def main(argv=None) -> int:
     if "host" in only:
         host_section(out, build)
         save()
+    if "tf32" in only:
+        tf32_section(out, CS, build, save)
     return 0
 
 

@@ -3,8 +3,9 @@
 #include "ffn_act.cuh"
 
 // x, weights and out all f32 (dtype 0) or all bf16 (dtype 1); scratch
-// the f32 partials of the stream and fma forms or the (M, F) bf16 hidden
-// of the wgmma form; variant VAR_* with its plan p0..p2
+// the f32 partials of the stream and fma forms, the (M, F) bf16 hidden
+// of the wgmma form or the pair planes of the tf32x3 form; variant VAR_*
+// with its plan p0..p2
 extern "C" int ffn_act(const void* x, const void* w1, const void* wg,
                        const void* w2, void* scratch, void* out, int M,
                        int D, int F, int act, int dtype, int variant, int p0,

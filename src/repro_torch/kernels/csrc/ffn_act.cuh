@@ -13,7 +13,7 @@
 // ungated only; the model's int8 path (apply_mlp's int8 branch) also runs
 // silu_gated, so this kernel takes an optional int8 W_gate with its scales.
 //
-// The wrapper (`ffn_act.kernel_variant`) picks one of three forms:
+// The wrapper (`ffn_act.kernel_variant`) picks one of four forms:
 //
 // 1. "stream", decode (bf16 x, M <= 8; bf16 and int8 weights). Bound
 //    by bytes: the three weight matrices are read once (82.6 MB a layer
@@ -64,17 +64,34 @@
 //    h. h is 3.5 MB (mobilevlm-3b, M 256) or 5.7 MB (fastvlm-1.7b, M
 //    320) in bf16, so it stays in the 50 MB L2 between the phases. The
 //    only new rounding is h in bf16, as attn_stream rounds P for P·V.
-// 3. "fma": f32 activations at every M (the f32 parity path: wgmma and
-//    mma.sync have no f32 mode that holds 1e-4), and any shape whose rows
-//    do not start 16-byte aligned (the other forms copy 16 bytes at a
-//    time). Blocks over (16-row tile, F chunk, band of 3072 output
-//    columns) with f32 FMAs, the hidden tile in shared memory and one f32
-//    partial per F chunk, added in chunk order by the same reduction
-//    kernel. A thread holds 12 output columns of 16 rows (192
-//    accumulators); a d_model above 3072 (stablelm-12b's 5120) takes a
-//    second band of blocks, each recomputing its chunk's hidden tile (an
-//    f32 parity path: the bands double phase 1's FMAs, not its bytes in
-//    flight).
+// 3. "fma": f32 activations below `ffn_act.TF32X3_MIN_M` rows (decode)
+//    or with int8 weights, and any shape whose rows do not start 16-byte
+//    aligned (the other forms copy 16 bytes at a time). Blocks over
+//    (16-row tile, F chunk, band of 3072 output columns) with f32 FMAs,
+//    the hidden tile in shared memory and one f32 partial per F chunk,
+//    added in chunk order by the same reduction kernel. A thread holds 12
+//    output columns of 16 rows (192 accumulators); a d_model above 3072
+//    (stablelm-12b's 5120) takes a second band of blocks, each
+//    recomputing its chunk's hidden tile (the bands double phase 1's
+//    FMAs, not its bytes in flight).
+// 4. "tf32x3": f32 activations and weights from `ffn_act.TF32X3_MIN_M`
+//    rows (training, and the f32 parity runs' prefill). Bound by
+//    operations: 2·M·D·F·(2 or 3) f32 flops, done as three TF32 products
+//    each (the 3xTF32 split of tf32x3.cuh: hi·hi + hi·lo + lo·hi, error
+//    <= 3·2^-22 sum_k |a_k b_k| beyond f32 summation's), 1,024 µs at the
+//    TF32 peak of 495 TFLOP/s for fastvlm-1.7b's training call (M 2048,
+//    D 1536, F 8960) against 2,524 µs for f32 FMAs at 67. A split kernel
+//    writes x and the transposed weights as hi / lo pair planes (wgmma
+//    takes TF32 only K-major); two GEMMs over tf32x3.cuh's main loop
+//    follow, as in the wgmma form: phase 1 (128 rows by 64 columns of F,
+//    W_up's beside W_gate's in one 128-row B tile) applies act and the
+//    gate and writes h in f32 (split again into its pair plane: rounding
+//    h to bf16 as the wgmma form does would miss the 1e-4 gate; 147 MB at
+//    M 2048, F 8960); phase 2 multiplies h into W_down in 128 x 128
+//    tiles, F split over a cluster where the tile grid leaves the last
+//    wave short (`ffn_act.tf32x3_plan`), merged in rank order through
+//    distributed shared memory. No float atomics: the result is the same
+//    on every run.
 // Ragged M, D and F are masked (zero rows, columns, hidden units).
 #pragma once
 
@@ -83,12 +100,13 @@
 #include <cuda_fp16.h>
 
 #include "common.cuh"
+#include "tf32x3.cuh"
 #include "wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
 enum { ACT_SILU = 0, ACT_GELU = 1, ACT_RELU2 = 2 };
-enum { VAR_FMA = 0, VAR_STREAM = 1, VAR_WGMMA = 2 };
+enum { VAR_FMA = 0, VAR_STREAM = 1, VAR_WGMMA = 2, VAR_TF32X3 = 3 };
 // bits of ``vec`` (fma form): rows of W_up / W_gate, and of W_down, start
 // 16-byte aligned, so their tiles may load 16 bytes at a time
 enum { VEC_UP = 1, VEC_DOWN = 2 };
@@ -145,8 +163,9 @@ static void launch_reduce(const float* partial, const float* s2, void* out,
 struct FfnArgs {
   const void *x, *w1, *wg, *w2;
   const float *s1, *sg, *s2;
-  void* scratch;   // f32 partials (stream, fma: (n_part, M, D)) or the
-                   // bf16 hidden (wgmma: (M, F))
+  void* scratch;   // f32 partials (stream, fma: (n_part, M, D)), the
+                   // bf16 hidden (wgmma: (M, F)) or the pair planes
+                   // (tf32x3: `tf_ffn_scratch` floats)
   void* out;
   int M, D, F, act;
   int p[3];        // the form's plan (see ffn_run)
@@ -628,7 +647,8 @@ static int launch_stream(const FfnArgs& a, cudaStream_t st) {
 }
 
 // ===========================================================================
-// 3. fma: f32 x and rows not 16-byte aligned
+// 3. fma: f32 x at decode or with int8 weights, and rows not 16-byte
+//    aligned
 // ===========================================================================
 constexpr int BF = 32;   // hidden units per inner step
 constexpr int NT = 256;  // threads; phase 2 gives each thread D / NT columns
@@ -1189,6 +1209,209 @@ static int launch_wgmma(const FfnArgs& a, cudaStream_t st) {
 }
 
 // ===========================================================================
+// 4. tf32x3: f32 prefill and training (3xTF32 on the tensor cores)
+// ===========================================================================
+// Phase 1: h = act(x·W_up) [* x·W_gate] for TF_BM rows of x by 64
+// columns of F (gated: the B tile holds those 64 rows of W_up^T above the
+// same 64 of W_gate^T, so a thread holds u and g of one column) or 128
+// (ungated), from the pair planes of x (M, D) and W_up^T, W_gate^T (F,
+// D); the epilogue splits h again into its pair plane (M, F), phase 2's
+// A. T is float (a template, so that only the library of f32 weights
+// builds it)
+template <typename T>
+__global__ void __launch_bounds__(TF_NT, 1)
+    ffn_up_tf32_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w_up,
+                       const float* __restrict__ w_gate,
+                       float* __restrict__ h, int M, int D, int F, int act) {
+  extern __shared__ uint8_t tc_smem[];
+  const bool gated = w_gate != nullptr;
+  const int row0 = blockIdx.x * TF_BM, col0 = blockIdx.y * (gated ? 64 : 128);
+  const long long ld = tf_pair_ld(D), ldh = tf_pair_ld(F);
+  const TfOperand b1 =
+      gated ? TfOperand{w_gate + col0 * ld, F - col0}
+            : TfOperand{w_up + (col0 + 64) * ld, F - col0 - 64};
+  float acc[TF_BN / 2];
+  tf_mainloop(tf_ring(tc_smem), {x + row0 * ld, M - row0}, ld,
+              {w_up + col0 * ld, F - col0}, b1, ld, D, acc);
+  const int tid = threadIdx.x, wgi = tid / 128;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r = row0 + 64 * wgi + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int c = 0; c < TF_BN / 8; ++c) {
+    if (gated && c >= 8) continue;  // columns 64.. hold x·W_gate
+    const int n = col0 + 8 * c + 2 * (lane & 3);
+    if (n >= F) continue;  // F % 4 == 0: n + 1 < F too
+    const int gc = 4 * ((c + 8) % 16);  // the gate's fragment column
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rr = r + 8 * i;
+      if (rr >= M) continue;
+      float h0 = activate(acc[4 * c + 2 * i], act);
+      float h1 = activate(acc[4 * c + 2 * i + 1], act);
+      if (gated) {
+        h0 *= acc[gc + 2 * i];
+        h1 *= acc[gc + 2 * i + 1];
+      }
+      float2 hi, lo;
+      tf32_split(h0, hi.x, lo.x);
+      tf32_split(h1, hi.y, lo.y);
+      // n even: n and n + 1 sit side by side in one 16-column block
+      float* o = h + rr * ldh + tf_pair_col(n);
+      *reinterpret_cast<float2*>(o) = hi;
+      *reinterpret_cast<float2*>(o + TF_PB) = lo;
+    }
+  }
+}
+
+// Phase 2: out = h·W_down for a TF_BM x TF_BN tile over hidden units
+// [z k_chunk, +k_chunk) (the pair planes of h (M, F) and W_down^T (D,
+// F)); the blocks of a cluster (gridDim.z of them) add their tiles in
+// rank order through distributed shared memory, as ffn_down_kernel does
+template <typename T>
+__global__ void __launch_bounds__(TF_NT, 1)
+    ffn_down_tf32_kernel(const float* __restrict__ h,
+                         const float* __restrict__ w_down,
+                         float* __restrict__ out, int M, int D, int F,
+                         int k_chunk) {
+  static_assert(TF_BM * TF_BN * 4 <= TfShape::RING,
+                "the partial goes over the ring");
+  extern __shared__ uint8_t tc_smem[];
+  uint8_t* ring = tf_ring(tc_smem);
+  const int row0 = blockIdx.x * TF_BM, col0 = blockIdx.y * TF_BN;
+  const int kb = blockIdx.z * k_chunk, kl = max(0, min(k_chunk, F - kb));
+  const long long ld = tf_pair_ld(F), ko = 2LL * kb;  // kb % TF_BK == 0
+  float acc[TF_BN / 2];
+  tf_mainloop(ring, {h + row0 * ld + ko, M - row0}, ld,
+              {w_down + col0 * ld + ko, D - col0},
+              {w_down + (col0 + 64) * ld + ko, D - col0 - 64}, ld, kl, acc);
+  const int tid = threadIdx.x, wgi = tid / 128;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int rl = 64 * wgi + 16 * warp + (lane >> 2);
+  if (gridDim.z == 1) {
+#pragma unroll
+    for (int c = 0; c < TF_BN / 8; ++c) {
+      const int n = col0 + 8 * c + 2 * (lane & 3);
+      if (n >= D) continue;  // D % 4 == 0
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int rr = row0 + rl + 8 * i;
+        if (rr < M)
+          *reinterpret_cast<float2*>(out + (long long)rr * D + n) =
+              make_float2(acc[4 * c + 2 * i], acc[4 * c + 2 * i + 1]);
+      }
+    }
+    return;
+  }
+  cg::cluster_group cl = cg::this_cluster();
+  __syncthreads();  // every warpgroup is done with the ring
+  float* part = reinterpret_cast<float*>(ring);  // [TF_BM][TF_BN]
+#pragma unroll
+  for (int c = 0; c < TF_BN / 8; ++c)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(part + (rl + 8 * i) * TF_BN + 8 * c +
+                                 2 * (lane & 3)) =
+          make_float2(acc[4 * c + 2 * i], acc[4 * c + 2 * i + 1]);
+  cl.sync();
+  const int ks = cl.num_blocks(), rank = cl.block_rank();
+  for (int p = rank * TF_NT + tid; p < TF_BM * TF_BN / 2; p += ks * TF_NT) {
+    float2 v[ST_MAX_SPLIT];
+#pragma unroll
+    for (int q = 0; q < ST_MAX_SPLIT; ++q)
+      v[q] = q < ks ? reinterpret_cast<const float2*>(
+                          cl.map_shared_rank(part, q))[p]
+                    : make_float2(0.f, 0.f);
+    float sx = 0.f, sy = 0.f;
+#pragma unroll
+    for (int q = 0; q < ST_MAX_SPLIT; ++q) {
+      sx += v[q].x;
+      sy += v[q].y;
+    }
+    const int rr = row0 + (2 * p) / TF_BN, n = col0 + (2 * p) % TF_BN;
+    if (rr < M && n < D)
+      *reinterpret_cast<float2*>(out + (long long)rr * D + n) =
+          make_float2(sx, sy);
+  }
+  cl.sync();  // keep ``part`` alive until every block of the cluster read it
+}
+
+// f32 elements of the tf32x3 workspace: the pair planes of x (M rows of
+// D), of W_up^T and W_gate^T (F rows of D), of W_down^T (D rows of F)
+// and of h (M rows of F)
+__host__ __device__ constexpr long long tf_ffn_scratch(int M, int D, int F,
+                                                       bool gated) {
+  return (M + (gated ? 2LL : 1LL) * F) * tf_pair_ld(D) +
+         (long long)(D + M) * tf_pair_ld(F);
+}
+
+// p = {ks, k_chunk}: the split, phase 1 in TF_BM x 64 (gated) or x 128
+// tiles of h, phase 2 in TF_BM x TF_BN tiles of out with F split over ks
+// blocks of k_chunk (a multiple of TF_BK), a cluster
+template <typename T>
+static int launch_tf32x3(const FfnArgs& a, cudaStream_t st) {
+  const int ks = a.p[0], k_chunk = a.p[1];
+  if (ks < 1 || ks > ST_MAX_SPLIT || k_chunk < TF_BK || k_chunk % TF_BK ||
+      (long long)ks * k_chunk < a.F || (long long)(ks - 1) * k_chunk >= a.F ||
+      a.D % 4 || a.F % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool gated = a.wg != nullptr;
+  const long long ldd = tf_pair_ld(a.D), ldf = tf_pair_ld(a.F);
+  float* x = static_cast<float*>(a.scratch);
+  float* up = x + a.M * ldd;
+  float* gate = gated ? up + a.F * ldd : nullptr;
+  float* down = up + (gated ? 2 : 1) * a.F * ldd;
+  float* h = down + a.D * ldf;
+  SplitArgs sp = {};
+  auto add = [&](const void* src, float* dst, int r, int c, int tr) {
+    sp.src[sp.n] = static_cast<const float*>(src);
+    sp.dst[sp.n] = dst;
+    sp.rows[sp.n] = r;
+    sp.cols[sp.n] = c;
+    sp.trans[sp.n] = tr;
+    ++sp.n;
+  };
+  add(a.x, x, a.M, a.D, 0);
+  add(a.w1, up, a.D, a.F, 1);
+  if (gated) add(a.wg, gate, a.D, a.F, 1);
+  add(a.w2, down, a.F, a.D, 1);
+  launch_split(sp, st);
+  static bool granted = false;
+  if (!granted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        ffn_up_tf32_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TfShape::SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ffn_down_tf32_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               TfShape::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    granted = true;
+  }
+  const int mt = (a.M + TF_BM - 1) / TF_BM;
+  const int fw = gated ? 64 : 128;  // phase 1's columns of F a tile
+  ffn_up_tf32_kernel<T><<<dim3(mt, (a.F + fw - 1) / fw), TF_NT,
+                          TfShape::SMEM, st>>>(x, up, gate, h, a.M, a.D,
+                                               a.F, a.act);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(mt, (a.D + TF_BN - 1) / TF_BN, ks);
+  cfg.blockDim = dim3(TF_NT);
+  cfg.dynamicSmemBytes = TfShape::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = ks;
+  cfg.attrs = attr;
+  cfg.numAttrs = ks > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, ffn_down_tf32_kernel<T>, static_cast<const float*>(h),
+      static_cast<const float*>(down), static_cast<float*>(a.out), a.M, a.D,
+      a.F, k_chunk));
+}
+
+// ===========================================================================
 // entry
 // ===========================================================================
 // Run ``variant`` (VAR_*) with its plan a.p; T is x's and out's type, WT
@@ -1204,6 +1427,9 @@ static int ffn_run(int variant, const FfnArgs& a, cudaStream_t st) {
     if constexpr (sizeof(T) == 2) bad = launch_stream<WT>(a, st);
   } else if (variant == VAR_WGMMA) {
     if constexpr (sizeof(T) == 2) bad = launch_wgmma<WT>(a, st);
+  } else if (variant == VAR_TF32X3) {
+    if constexpr (sizeof(T) == 4 && sizeof(WT) == 4)
+      bad = launch_tf32x3<T>(a, st);
   }
   if (bad) {
     cudaGetLastError();
@@ -1214,7 +1440,9 @@ static int ffn_run(int variant, const FfnArgs& a, cudaStream_t st) {
 
 // Shared memory of the forms, for the Python mirrors: form 0 the stream
 // kernel at (M = a, D = b, ds = c); 1 phase 1 of the GEMM at wgs = a; 2
-// its phase 2 at wgs = a. 0 for anything else.
+// its phase 2 at wgs = a; 3 either GEMM of the tf32x3 form (one ring
+// shape); 5 the tf32x3 workspace's floats at (M = a, D = b, F = c),
+// gated. 0 for anything else.
 template <typename WT>
 static int ffn_smem_query(int form, int a, int b, int c) {
   if (form == 0) return sm_smem_bytes(a, b, c, sizeof(WT) == 1);
@@ -1222,5 +1450,7 @@ static int ffn_smem_query(int form, int a, int b, int c) {
   if (form == 1 && a == 2) return TcShape<WT, 128, TC_BN, 2>::SMEM;
   if (form == 2 && a == 1) return TcShape<WT, 64, TC_BN, 1>::SMEM;
   if (form == 2 && a == 2) return TcShape<WT, 128, TC_BN, 1>::SMEM;
+  if (form == 3) return TfShape::SMEM;
+  if (form == 5) return static_cast<int>(tf_ffn_scratch(a, b, c, true));
   return 0;
 }

@@ -38,15 +38,28 @@
 //     prefill, measured slower.) The bias is added in f32 in the epilogue, with one
 //     rounding to bf16. Row tiles run fastest in the grid, so the blocks
 //     that share a weight tile run together and reread it from L2.
-//   * M > 4, f32: wgmma has no f32 mode that holds the port's f32 parity,
-//     so f32 keeps the CUDA-core GEMM: 64 x 64 output tiles over 16-deep
-//     shared-memory tiles, 4 x 4 outputs a thread, f32 FMAs.
-// Ragged M and N are masked. Needs N_i * sizeof(T) % 16 == 0, D *
-// sizeof(T) % 16 == 0 and 16-byte aligned operands for the vector and
-// cp.async loads (the wrapper checks).
+//   * M > 4, f32, M >= the wrapper's threshold (`qkv_proj.TF32X3_MIN_M`;
+//     the training path's M 2048 and the f32 parity prefills): "tf32x3",
+//     a 3xTF32 tensor-core GEMM (tf32x3.cuh: each f32 operand split into
+//     TF32 hi + lo, three TF32 wgmma products a k-step, error <=
+//     3·2^-22 sum_k |x_k w_k| beyond f32 accumulation's). wgmma takes
+//     .tf32 only K-major, so one split launch first writes x's hi / lo
+//     planes as stored and the three weights' transposed, stacked
+//     (N_q + N_k + N_v, D), into the wrapper's workspace; then 128 x 128
+//     output tiles over a 7-stage cp.async ring of 16-deep tiles, the
+//     bias added in f32 in the epilogue. Bound: 3 TF32 products at 495
+//     TFLOP/s (78 µs at fastvlm-1.7b's training M 2048), or the bytes.
+//   * M > 4, f32, fewer rows or rows not 16-byte aligned: "fma", the
+//     CUDA-core GEMM: 64 x 64 output tiles over 16-deep shared-memory
+//     tiles, 4 x 4 outputs a thread, f32 FMAs (scalar loads: any
+//     alignment).
+// Ragged M and N are masked. The GEMV and the tensor-core forms need N_i
+// * sizeof(T) % 16 == 0, D * sizeof(T) % 16 == 0 and 16-byte aligned
+// operands for the vector and cp.async loads (the wrapper checks).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "tf32x3.cuh"
 #include "wgmma.cuh"
 
 namespace cg = cooperative_groups;
@@ -368,6 +381,85 @@ static int col_tiles(const QkvArgs& a, int bn) {
   return t;
 }
 
+// ---- prefill, f32: 3xTF32 tensor-core GEMM -------------------------------
+// B is the three weights' pair planes stacked as (N_q + N_k + N_v) rows of
+// D (tf32x3.cuh); a block's column tile picks its operand
+// (`pick_operand` over TF_BN-wide tiles) and reads only that operand's
+// rows of the stack. T is float (a template: built where the f32 form is
+// dispatched).
+template <typename T>
+__global__ void __launch_bounds__(TF_NT, 1)
+    qkv_tf32_kernel(QkvArgs a, const float* __restrict__ x,
+                    const float* __restrict__ w) {
+  extern __shared__ uint8_t tc_smem[];
+  int bx = blockIdx.y;
+  const int t0 = (a.n[0] + TF_BN - 1) / TF_BN;
+  const int t1 = (a.n[1] + TF_BN - 1) / TF_BN;
+  const int stack0 = bx < t0 ? 0 : bx < t0 + t1 ? a.n[0] : a.n[0] + a.n[1];
+  const Operand op = pick_operand(a, TF_BN, bx);
+  const int N = op.n, col0 = bx * TF_BN, row0 = blockIdx.x * TF_BM;
+  const int M = a.M, D = a.D;
+  const long long ld = tf_pair_ld(D);
+  const float* wo = w + (stack0 + col0) * ld;
+  float acc[TF_BN / 2];
+  tf_mainloop(tf_ring(tc_smem), {x + row0 * ld, M - row0}, ld,
+              {wo, N - col0}, {wo + 64 * ld, N - col0 - 64}, ld, D, acc);
+  const T* bias = static_cast<const T*>(op.b);
+  T* o = static_cast<T*>(op.o);
+  const int tid = threadIdx.x, wgi = tid / 128;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r = row0 + 64 * wgi + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int c = 0; c < TF_BN / 8; ++c) {
+    const int n = col0 + 8 * c + 2 * (lane & 3);
+    if (n >= N) continue;  // N % 4 == 0: n + 1 < N too
+    const float b0 = bias ? bias[n] : 0.f, b1 = bias ? bias[n + 1] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rr = r + 8 * i;
+      if (rr < M)
+        *reinterpret_cast<float2*>(o + (long long)rr * N + n) = make_float2(
+            acc[4 * c + 2 * i] + b0, acc[4 * c + 2 * i + 1] + b1);
+    }
+  }
+}
+
+// the split, then the GEMM; ``scratch`` holds the pair planes of x (M
+// rows of D) and of the stacked weights (N_q + N_k + N_v rows of D):
+// (M + N_q + N_k + N_v) tf_pair_ld(D) floats
+template <typename T>
+static int launch_tf32x3(const QkvArgs& a, void* scratch, cudaStream_t st) {
+  if (!scratch || a.D % 4 || a.n[0] % 4 || a.n[1] % 4 || a.n[2] % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long ld = tf_pair_ld(a.D);
+  float* x = static_cast<float*>(scratch);
+  float* w = x + a.M * ld;
+  SplitArgs sp = {};
+  sp.n = 4;
+  long long row = 0;  // the weight's first row in the stack
+  for (int i = 0; i < 4; ++i) {
+    const bool xm = i == 0;
+    sp.src[i] = static_cast<const float*>(xm ? a.x : a.w[i - 1]);
+    sp.dst[i] = xm ? x : w + row * ld;
+    sp.rows[i] = xm ? a.M : a.D;
+    sp.cols[i] = xm ? a.D : a.n[i - 1];
+    sp.trans[i] = xm ? 0 : 1;
+    if (!xm) row += a.n[i - 1];
+  }
+  launch_split(sp, st);
+  static bool granted = false;
+  if (!granted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qkv_tf32_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TfShape::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    granted = true;
+  }
+  const dim3 grid((a.M + TF_BM - 1) / TF_BM, col_tiles(a, TF_BN));
+  qkv_tf32_kernel<T><<<grid, TF_NT, TfShape::SMEM, st>>>(a, x, w);
+  return 0;
+}
+
 template <typename T>
 static int launch_gemv(const QkvArgs& a, int n_split, int d_chunk,
                        cudaStream_t st) {
@@ -419,29 +511,34 @@ static int launch_fma(const QkvArgs& a, cudaStream_t st) {
 }
 
 // x (M, D); wq/wk/wv (D, nq/nk/nv); bq/bk/bv (n,) or null; q/k/v out
-// (M, n); all f32 (dtype 0) or all bf16 (dtype 1). M <= 4 runs the GEMV
-// with D split into n_split chunks of d_chunk rows (`gemv_split`); larger
-// M the wgmma GEMM with ``wgs`` (1 or 2) warpgroups a block
-// (`gemm_warpgroups`, bf16) or the CUDA-core GEMM (f32).
+// (M, n); all f32 (dtype 0) or all bf16 (dtype 1); scratch the tf32x3
+// form's workspace (see launch_tf32x3) or null. ``form`` (the
+// wrapper's `kernel_variant`): 0 the GEMV (M <= 4; D split into n_split
+// chunks of d_chunk rows, `gemv_split`), 1 the bf16 wgmma GEMM with
+// ``wgs`` (1 or 2) warpgroups a block (`gemm_warpgroups`), 2 the f32
+// CUDA-core GEMM, 3 the f32 3xTF32 GEMM.
+enum { FORM_GEMV = 0, FORM_WGMMA = 1, FORM_FMA = 2, FORM_TF32X3 = 3 };
 extern "C" int qkv_proj(const void* x, const void* wq, const void* wk,
                         const void* wv, const void* bq, const void* bk,
-                        const void* bv, void* q, void* k, void* v, int M,
-                        int D, int nq, int nk, int nv, int n_split,
-                        int d_chunk, int wgs, int dtype, void* stream) {
+                        const void* bv, void* q, void* k, void* v,
+                        void* scratch, int M, int D, int nq, int nk, int nv,
+                        int n_split, int d_chunk, int wgs, int dtype,
+                        int form, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M == 0) return static_cast<int>(cudaGetLastError());
   const QkvArgs a{x, {wq, wk, wv}, {bq, bk, bv}, {q, k, v}, {nq, nk, nv},
                   M, D};
-  int bad;
-  if (M <= GV_MMAX)
-    bad = dtype == DT_F32 ? launch_gemv<float>(a, n_split, d_chunk, st)
-                          : launch_gemv<__nv_bfloat16>(a, n_split, d_chunk, st);
-  else if (dtype == DT_F32)
+  const bool f32 = dtype == DT_F32;
+  int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (form == FORM_GEMV && M <= GV_MMAX)
+    bad = f32 ? launch_gemv<float>(a, n_split, d_chunk, st)
+              : launch_gemv<__nv_bfloat16>(a, n_split, d_chunk, st);
+  else if (form == FORM_FMA && f32)
     bad = launch_fma(a, st);
-  else if (wgs == 1 || wgs == 2)
+  else if (form == FORM_TF32X3 && f32)
+    bad = launch_tf32x3<float>(a, scratch, st);
+  else if (form == FORM_WGMMA && !f32 && (wgs == 1 || wgs == 2))
     bad = wgs == 1 ? launch_wgmma<1>(a, st) : launch_wgmma<2>(a, st);
-  else
-    bad = static_cast<int>(cudaErrorInvalidValue);
   if (bad) {
     cudaGetLastError();  // clear it: the next call must not report it again
     return bad;
@@ -452,13 +549,14 @@ extern "C" int qkv_proj(const void* x, const void* wq, const void* wk,
 // Shared memory of the kernels, for the Python mirror's check: 1 and 2
 // the GEMV's static bytes for f32 and bf16 (its dynamic part is M *
 // d_chunk floats); 11 and 12 the tensor-core GEMM's dynamic bytes at 1
-// and 2 warpgroups a block.
+// and 2 warpgroups a block; 21 the 3xTF32 GEMM's.
 extern "C" int qkv_proj_smem_bytes(int which) {
   switch (which) {
     case 1: return (GV_NT / 32 + 1) * GV_MMAX * 32 * (int)sizeof(float);
     case 2: return (GV_NT / 32 + 1) * GV_MMAX * 64 * (int)sizeof(float);
     case 11: return tc_smem_bytes(1);
     case 12: return tc_smem_bytes(2);
+    case 21: return TfShape::SMEM;
   }
   return 0;
 }

@@ -4,9 +4,9 @@
 (weights in the model's type); `ffn_act_int8` replaces
 `repro/kernels/ffn_act.py::ffn_act_int8` (the "RRAM" weight store: int8
 weights with per-output-column f32 scales, factored out of the sums).
-Both CUDA wrappers run one of three forms of `csrc/ffn_act.cuh` (see its
-header), picked by `kernel_variant` from M, x's dtype and whether every
-row starts 16-byte aligned:
+Both CUDA wrappers run one of four forms of `csrc/ffn_act.cuh` (see its
+header), picked by `kernel_variant` from M, x's dtype, the weights' type
+and whether every row starts 16-byte aligned:
 
 - "stream" (bf16 x, M <= STREAM_MAX_M, decode): one fused kernel bound
   by the weight bytes, its products on tensor cores (mma.sync). A slice
@@ -22,13 +22,28 @@ row starts 16-byte aligned:
   kernel's (block_m, D) f32 VMEM accumulator does not fit a Hopper
   block's shared memory), phase 2 multiplies h into W_down, F split over
   a cluster when the tile grid underfills the card (`wgmma_plan`).
-- "fma" (f32 x at every M, the f32 parity path; or rows not 16-byte
-  aligned): f32 FMA tiles over (16-row tile, F chunk, band of FMA_BAND
-  output columns), one f32 partial per chunk (`f_chunking`).
+- "tf32x3" (f32 x and f32 weights, M >= TF32X3_MIN_M: training and the
+  f32 parity prefills): the two GEMMs on the TF32 tensor cores with the
+  3xTF32 split (`csrc/tf32x3.cuh`): each f32 operand is cut into TF32
+  hi + lo and a product is hi·hi + hi·lo + lo·hi, within 3·2^-22
+  sum_k |a_k b_k| of the exact sum beyond f32 accumulation's error
+  (one TF32 product, 2^-11 a term, would miss the f32 paths' 1e-4
+  gate); the tensor cores, which round their sums toward zero, sum
+  TF32_FLUSH k-tiles at a time, added into f32 on the CUDA cores. A
+  split launch writes x and the transposed weights (wgmma takes TF32
+  only K-major) as hi / lo pair planes into a workspace; phase 1 writes
+  h = act(x·W_up) [* x·W_gate] in f32, split again, to the workspace;
+  phase 2 multiplies h into W_down, F split over a cluster
+  (`tf32x3_plan`). Bound: three TF32 products at 495 TFLOP/s.
+- "fma" (f32 x below TF32X3_MIN_M rows or with int8 weights; and any x
+  whose rows, or whose weights' rows, are not 16-byte aligned): f32 FMA
+  tiles over (16-row tile, F chunk, band of FMA_BAND output columns),
+  one f32 partial per chunk (`f_chunking`).
 
 d_model is bounded only by the stream form's shared memory (x's rows and
 the (M, D) f32 partial: `stream_smem_bytes` <= SMEM_LIMIT, D 5120 at M 8
-in bf16); the wgmma form loops over D, the fma form over its bands.
+in bf16); the wgmma and tf32x3 forms loop over D, the fma form over its
+bands.
 
 Ragged M, D and F are masked, not asserted. Activations: ``silu_gated``,
 ``gelu``, ``gelu_gated`` (tanh GELU) and ``relu2``; the int8 TPU kernel is
@@ -65,13 +80,24 @@ STREAM_INT8_STAGE_BYTES = 12_288  # 8 KB of int8 rows and pads
 STREAM_MAX_SPLIT = 8     # the portable cluster size
 # the wgmma form (TC_* in csrc/ffn_act.cuh)
 WGMMA_BK, WGMMA_MAX_STAGES, WGMMA_BN = 64, 6, 128
+# the tf32x3 form (TF_* in csrc/tf32x3.cuh): 128 x 128 tiles of two
+# warpgroups, 32-deep f32 tiles (two pair blocks a row: 16 hi values, then
+# their 16 lo values), the ring as deep as a block's shared memory allows;
+# the tensor cores' sums are added into the f32 accumulator every
+# TF32_FLUSH tiles
+TF32_BM, TF32_BN, TF32_BK, TF32_MAX_STAGES = 128, 128, 32, 8
+TF32_PAIR = 16           # a pair block: 16 hi values, then their 16 lo
+TF32_FLUSH = 2
+TF32X3_MIN_M = 48        # f32 rows from which the tf32x3 form runs:
+                         # kernel_sweep.py's tf32 section (fma 484 µs
+                         # at M 32, 630 at 48; tf32x3 521, 510)
 # the fma form
 BF = 32                  # its hidden-unit step
 FMA_ROWS = 16            # its rows a block
 BLOCKS_PER_SM = 4        # grid target its F-chunk count is sized for
 FMA_BAND = 12 * 256      # the fma form's output columns a block: 12 a
                          # thread; a wider d_model takes more bands
-VARIANTS = ("fma", "stream", "wgmma")           # the C entry's codes
+VARIANTS = ("fma", "stream", "wgmma", "tf32x3")  # the C entry's codes
 
 
 def activation(h: torch.Tensor, kind: str) -> torch.Tensor:
@@ -97,17 +123,21 @@ def ffn_act_plain(x: torch.Tensor, w_up: torch.Tensor,
     return (h @ w_down.float()).to(x.dtype)
 
 
-def kernel_variant(M: int, dtype: torch.dtype, aligned: bool = True
-                   ) -> str:
+def kernel_variant(M: int, dtype: torch.dtype, aligned: bool = True,
+                   int8: bool = False) -> str:
     """The form a CUDA call runs: for bf16 x "stream" at M <=
-    STREAM_MAX_M, else "wgmma"; "fma" for f32 x, and at any M where a row
-    of x or of a weight does not start 16-byte aligned (``aligned``
-    False). Raises for any other dtype."""
+    STREAM_MAX_M, else "wgmma"; for f32 x "tf32x3" at M >= TF32X3_MIN_M
+    with weights in the model's type, else "fma" (fewer rows, or int8
+    weights: ``int8``); "fma" at any M where a row of x or of a weight
+    does not start 16-byte aligned (``aligned`` False). Raises for any
+    other dtype."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ffn_act kernels take float32 or bfloat16, got "
                         f"{dtype}")
-    if not aligned or dtype == torch.float32:
+    if not aligned:
         return "fma"
+    if dtype == torch.float32:
+        return "tf32x3" if M >= TF32X3_MIN_M and not int8 else "fma"
     return "stream" if M <= STREAM_MAX_M else "wgmma"
 
 
@@ -179,6 +209,59 @@ def wgmma_plan(M: int, D: int, F_: int, n_sms: int
     return wgs, -(-F_ // k_chunk), k_chunk
 
 
+def tf32x3_stages() -> tuple[int, int]:
+    """(ring stages, dynamic shared memory) of a tf32x3 GEMM (both phases):
+    a stage holds the hi and lo tiles of A (TF32_BM rows) and of B
+    (TF32_BN rows: phase 1 of a gated FFN 64 of W_up above the same 64 of
+    W_gate), TF32_BK f32 deep; 1 KB aligns them."""
+    stage = 2 * 4 * TF32_BK * (TF32_BM + TF32_BN)
+    stages = min(TF32_MAX_STAGES, (SMEM_LIMIT - 1024) // stage)
+    return stages, stages * stage + 1024
+
+
+def tf32x3_smem_bytes() -> int:
+    """Dynamic shared memory of either GEMM of the tf32x3 form (one ring
+    shape for both)."""
+    return tf32x3_stages()[1]
+
+
+def tf32x3_columns(gated: bool) -> int:
+    """Columns of F a phase-1 tile of the tf32x3 form covers: 64 of W_up
+    beside the same 64 of W_gate, or 128 of an ungated W_up."""
+    return TF32_BN // 2 if gated else TF32_BN
+
+
+def tf32x3_plan(M: int, D: int, F_: int, n_sms: int
+                ) -> tuple[int, int, int]:
+    """(ks, k_chunk, 0) of the tf32x3 form: phase 2's F split into ks
+    chunks of k_chunk (a multiple of TF32_BK), ks of 1, 2, 3, 4, 6, 8 (a
+    cluster of at most STREAM_MAX_SPLIT) with the least waves / ks of its
+    TF32_BM x TF32_BN tiles (one block an SM), the smaller on a tie (set
+    from kernel_sweep.py's tf32 section: at M 320 ks 3 measured 877 µs,
+    8 916, 2 983)."""
+    tiles = -(-M // TF32_BM) * -(-D // TF32_BN)
+    steps = -(-F_ // TF32_BK)
+    ks = min((k for k in (1, 2, 3, 4, 6, 8) if k <= steps),
+             key=lambda k: (-(-tiles * k // n_sms) / k, k))
+    k_chunk = -(-steps // ks) * TF32_BK
+    return -(-F_ // k_chunk), k_chunk, 0
+
+
+def tf32x3_pair_ld(K: int) -> int:
+    """f32 elements a row of K columns takes in a tf32x3 pair plane:
+    blocks of TF32_PAIR hi values, each followed by its TF32_PAIR lo
+    values."""
+    return -(-K // TF32_PAIR) * 2 * TF32_PAIR
+
+
+def tf32x3_scratch(M: int, D: int, F_: int, gated: bool) -> int:
+    """f32 elements of the tf32x3 workspace: the pair planes of x (M rows
+    of D), of W_up and W_gate transposed (F rows of D), of W_down
+    transposed (D rows of F) and of h (M rows of F)."""
+    return ((M + (2 if gated else 1) * F_) * tf32x3_pair_ld(D)
+            + (D + M) * tf32x3_pair_ld(F_))
+
+
 def f_chunking(M: int, F_: int, n_sms: int, D: int) -> tuple[int, int]:
     """(f_per_block, n_fchunks) of the fma form: split F so the grid
     (row tiles x F chunks x column bands of D) holds about BLOCKS_PER_SM
@@ -213,15 +296,17 @@ INT8_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
 
 @functools.lru_cache(maxsize=256)
 def _plan(M: int, D: int, F_: int, x_bf16: bool, vec: int, x_ok: bool,
-          dev: int) -> tuple:
+          dev: int, int8: bool = False, gated: bool = True) -> tuple:
     """(form code, form, the three plan ints, the scratch's shape and
-    dtype: the f32 partials, or the bf16 hidden of the wgmma form) of a
-    CUDA call on device ``dev``. ``vec``: bit 1 when the rows of W_up /
-    W_gate start 16-byte aligned, bit 2 those of W_down; ``x_ok`` those
-    of x. Cached: a decode step calls with the same shapes every layer
-    (code that swaps a planner clears the cache: kernel_sweep.py)."""
+    dtype: the f32 partials, the bf16 hidden of the wgmma form or the
+    tf32x3 form's planes) of a CUDA call on device ``dev``. ``vec``: bit
+    1 when the rows of W_up / W_gate start 16-byte aligned, bit 2 those
+    of W_down; ``x_ok`` those of x; ``int8`` for int8 weights, ``gated``
+    when W_gate is given. Cached: a decode step calls with the same
+    shapes every layer (code that swaps a planner clears the cache:
+    kernel_sweep.py)."""
     variant = kernel_variant(M, torch.bfloat16 if x_bf16 else torch.float32,
-                             vec == 3 and x_ok)
+                             vec == 3 and x_ok, int8)
     n_sms = build.sm_count(dev)
     if variant == "stream":
         plan = stream_plan(F_, n_sms)
@@ -229,6 +314,9 @@ def _plan(M: int, D: int, F_: int, x_bf16: bool, vec: int, x_ok: bool,
     elif variant == "wgmma":
         plan = wgmma_plan(M, D, F_, n_sms)
         scratch = (M, F_), torch.bfloat16
+    elif variant == "tf32x3":
+        plan = tf32x3_plan(M, D, F_, n_sms)
+        scratch = (tf32x3_scratch(M, D, F_, gated),), torch.float32
     else:
         per, n_fc = f_chunking(M, F_, n_sms, D)
         plan = (per, n_fc, vec)
@@ -270,7 +358,8 @@ def _launch(entry: str, fn, x: torch.Tensor, dev: int, ptrs: list,
            | 2 * int((D * w_es) % 16 == 0 and down % 16 == 0))
     code, variant, plan, shape, sdt = _plan(
         M, D, F_, dt == 1, vec,
-        (D * x.element_size()) % 16 == 0 and px % 16 == 0, dev)
+        (D * x.element_size()) % 16 == 0 and px % 16 == 0, dev, w_es == 1,
+        gate != 0)
     if (variant == "stream"
             and stream_smem_bytes(M, D, plan[0], w_es == 1) > SMEM_LIMIT):
         raise ValueError(f"{entry} stream form: d_model {D} at M {M} "

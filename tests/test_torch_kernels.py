@@ -249,14 +249,29 @@ def test_ffn_wgmma_plan_covers_f(M, D, F_, sms):
     assert ks == 1 or tiles < sms
 
 
-@pytest.mark.parametrize("M,dtype,aligned,want", [
-    (1, torch.bfloat16, True, "stream"), (4, torch.float32, True, "fma"),
-    (8, torch.bfloat16, True, "stream"), (9, torch.bfloat16, True, "wgmma"),
-    (256, torch.bfloat16, True, "wgmma"), (9, torch.float32, True, "fma"),
-    (320, torch.float32, True, "fma"), (4, torch.bfloat16, False, "fma"),
-    (256, torch.bfloat16, False, "fma")])
-def test_ffn_kernel_variant(M, dtype, aligned, want):
-    assert FF.kernel_variant(M, dtype, aligned) == want
+@pytest.mark.parametrize("M,dtype,aligned,int8,want", [
+    (1, torch.bfloat16, True, False, "stream"),
+    (4, torch.float32, True, False, "fma"),
+    (8, torch.bfloat16, True, False, "stream"),
+    (9, torch.bfloat16, True, False, "wgmma"),
+    (256, torch.bfloat16, True, False, "wgmma"),
+    (9, torch.float32, True, False, "fma"),
+    (320, torch.float32, True, False, "tf32x3"),
+    (4, torch.bfloat16, False, False, "fma"),
+    (256, torch.bfloat16, False, False, "fma"),
+    (256, torch.float32, True, False, "tf32x3"),
+    (2048, torch.float32, True, False, "tf32x3"),
+    (FF.TF32X3_MIN_M, torch.float32, True, False, "tf32x3"),
+    (FF.TF32X3_MIN_M - 1, torch.float32, True, False, "fma"),
+    (2048, torch.float32, False, False, "fma"),
+    (2048, torch.float32, True, True, "fma"),
+    (256, torch.bfloat16, True, True, "wgmma"),
+    (4, torch.bfloat16, True, True, "stream")])
+def test_ffn_kernel_variant(M, dtype, aligned, int8, want):
+    """f32 x with weights in the model's type takes the tf32x3 form from
+    TF32X3_MIN_M rows; below it, with unaligned rows and with int8
+    weights f32 keeps the fma form."""
+    assert FF.kernel_variant(M, dtype, aligned, int8) == want
 
 
 def test_ffn_kernel_variant_rejects_other_dtypes():
@@ -1135,16 +1150,23 @@ def test_attn_stream_variant_rejects_before_launch(dtype, head_dim, exc):
         AS.kernel_variant(dtype, head_dim)
 
 
-@pytest.mark.parametrize("M,dtype,want", [
-    (1, torch.bfloat16, "gemv"), (4, torch.bfloat16, "gemv"),
-    (5, torch.bfloat16, "wgmma"), (320, torch.bfloat16, "wgmma"),
-    (4, torch.float32, "gemv"), (5, torch.float32, "fma"),
-    (256, torch.float32, "fma")])
-def test_qkv_proj_variant_boundary(M, dtype, want):
+@pytest.mark.parametrize("M,dtype,aligned,want", [
+    (1, torch.bfloat16, True, "gemv"), (4, torch.bfloat16, True, "gemv"),
+    (5, torch.bfloat16, True, "wgmma"), (320, torch.bfloat16, True, "wgmma"),
+    (4, torch.float32, True, "gemv"), (5, torch.float32, True, "fma"),
+    (256, torch.float32, True, "tf32x3"),
+    (2048, torch.float32, True, "tf32x3"),
+    (QK.TF32X3_MIN_M, torch.float32, True, "tf32x3"),
+    (QK.TF32X3_MIN_M - 1, torch.float32, True, "fma"),
+    (256, torch.float32, False, "fma"), (4, torch.float32, False, "gemv"),
+    (256, torch.bfloat16, False, "wgmma")])
+def test_qkv_proj_variant_boundary(M, dtype, aligned, want):
     """The decode/prefill boundary stays at M = 4; bf16 prefill runs the
-    tensor-core GEMM, f32 the CUDA-core one."""
+    tensor-core GEMM; f32 the 3xTF32 tensor-core GEMM from TF32X3_MIN_M
+    aligned rows, the CUDA-core one below it or with unaligned rows (the
+    GEMV and the bf16 GEMM take aligned rows only: the wrapper raises)."""
     assert QK.GEMV_MAX_M == 4
-    assert QK.kernel_variant(M, dtype) == want
+    assert QK.kernel_variant(M, dtype, aligned) == want
 
 
 def test_qkv_proj_variant_rejects_other_dtypes():
