@@ -21,13 +21,21 @@ source, all started together; seven kernels), then:
      fused_norm and ffn_act there too); attn_stream also on an extend
      chunk (S = 64 at q_offset 256 over a strided slice of the
      (1, 512, Hkv, 128) workspace: the hit tail's attention), at
-     ragged S = L = 200 and at fastvlm-0.6b's Dh 64; fused_norm at M = 1,
-     4, 64, 320 and D 1536, 2560, 1000 and 1001 (the scalar kernel),
-     LayerNorm with bias, a scale in the other type and strided rows
-     (pitch 1544: vector kernel; pitch 1542 or a base one element in:
-     scalar kernel); paged_decode_flat at lengths 0, 1, 127, 128, with a
-     slot's last live page dead, at max_len 500 (ragged tail page), at
-     every head dim, at G 1 to 16 and at B * Hkv = 160 (no key split);
+     ragged S = L = 200 and at fastvlm-0.6b's Dh 64; in f32 also at the
+     training shape (8, 12, 256, 128) G 6, on extends of 1 and 16
+     query rows over 300 keys and a 16-row prefill at Dh 128 and 64,
+     and with a NaN in one q feature and in one k feature (the kernel
+     must give NaN exactly where the twin does), the form that ran
+     asserted on every attention case (f32: "tf32x3" at Dh 64 / 128 /
+     160, each tf32x3 case's error held to and printed beside the bound
+     of its 3xTF32 split, `tf32x3_attn_bound`; "fma" at Dh 256);
+     fused_norm at M = 1, 4, 64, 320 and D 1536, 2560, 1000 and 1001
+     (the scalar kernel), LayerNorm with bias, a scale in the other
+     type and strided rows (pitch 1544: vector kernel; pitch 1542 or a
+     base one element in: scalar kernel); paged_decode_flat at lengths
+     0, 1, 127, 128, with a slot's last live page dead, at max_len 500
+     (ragged tail page), at every head dim, at G 1 to 16 and at
+     B * Hkv = 160 (no key split);
      paged_decode_tiered at lengths 0, 1, W - 1, W, W + 1 and max_len - 1,
      with dead pages (a slot's last live one, a slot with none), at G 1,
      2, 3, 4, 6, 8 and 16, every head dim, B * Hkv = 160, and the sparse
@@ -51,8 +59,11 @@ source, all started together; seven kernels), then:
      from their Python mirrors and holds each mirrored shared-memory size
      against the built library's; the SASS of the tensor-core libraries
      (attn_stream, qkv_proj, ffn_act, ffn_act_int8) must hold HGMMA and
-     LDGSTS, and every instance of the paged decode library's two kernel
-     functions LDGSTS (their cp.async key rings); every tiered instance
+     LDGSTS, every instance of the paged decode library's two kernel
+     functions LDGSTS (their cp.async key rings), and every instance of
+     the tf32x3 kernels (`attn_tf32_kernel`, `qkv_tf32_kernel`,
+     `ffn_up_tf32_kernel`, `ffn_down_tf32_kernel`) HGMMA with TF32
+     operands and LDGSTS; every tiered instance
      must leave room for the planner's 2 blocks an SM. Tolerances:
      max-abs error <= 1e-4 in f32 (f32 sums in another order) and <= 2e-2
      in bf16 (inputs are scaled so outputs stay below magnitude 2, where
@@ -268,7 +279,11 @@ source, all started together; seven kernels), then:
      kv heads; F 8960): its output (the kernel) and every input gradient
      (the twin's VJP) against autograd through the plain twin, <= 1e-4
      of the largest element, each forward timed beside the twin, one
-     library call and its f32 bound. At a 2-layer cut (full width, B 2 x S 128):
+     library call and its f32 bound; the tf32x3 forms of `qkv_proj`,
+     `attn_stream` and `ffn_act` also by profiler and CUDA events beside
+     their 3xTF32 bound, the library call's device time (SDPA in f32,
+     TF32 off, beside attn_stream) and the fma form's earlier time. At a
+     2-layer cut (full width, B 2 x S 128):
      the loss and every gradient leaf on the card against the host
      CPU's, <= 1e-4 of the leaf's largest element, no leaf None,
      non-finite or all zero, remat "none" and "full". At full width and
@@ -278,9 +293,9 @@ source, all started together; seven kernels), then:
      finite, finite losses, exactly fused_norm 57 and qkv_proj /
      attn_stream / ffn_act 28 launches a step (none in backward); step
      ms, tokens/s, peak memory, 6 N T FLOP beside its f32 floor, a
-     profiled step (busy, idle share, the forward kernels against the
-     rest). Then checkpoint + resume at the cut under deterministic
-     algorithms: a `FaultTolerantLoop` with an injected failure past
+     profiled step (busy, idle share, the forward kernels, each
+     wrapper's among them, against the rest). Then checkpoint + resume
+     at the cut under deterministic algorithms: a `FaultTolerantLoop` with an injected failure past
      its retry, and a fresh resume from the checkpoint, each `torch.equal`
      to an uninterrupted run (params, mu, nu, step); save and restore
      seconds.
@@ -600,12 +615,49 @@ def tf32x3_ffn_bound(x, wu, wg, wd, kind) -> float:
     return float((dh @ wd.abs() + TF32X3_TERM * (h.abs() @ wd.abs())).max())
 
 
+def tf32x3_attn_bound(q, k, v, causal: bool = True) -> float:
+    """The bound on the tf32x3 attention's largest error against exact
+    math (csrc/attn_stream.cu), q (B, H, S, D), k / v (B, Hkv, L, D): a
+    score moves by at most delta = (TF32X3_TERM + 3 (D / 8) 2^-23) scale
+    sum_d |q_d k_d| (the split and the tensor cores' truncating adds
+    over D), which moves each softmax weight pi_j by at most
+    (e^(2 max delta) - 1) pi_j; the P.V product adds its split, its
+    truncating adds inside a key tile (3 BK / 8 of 2^-23), exp2f's 2 ulp
+    in P and in the sum of P, and the f32 rescale and add of each tile
+    and the final division ((2 tiles + 5) 2^-24); all times sum_j pi_j
+    |v_jd|, the largest over rows and features."""
+    import torch
+
+    from repro_torch.kernels import attn_stream as AS
+    B, H, S, D = q.shape
+    Hkv, L = k.shape[1], k.shape[2]
+    G, scale = H // Hkv, D ** -0.5
+    qf = q.float().reshape(B, Hkv, G, S, D)
+    kf, vf = k.float(), v.float()
+    live = torch.ones(S, L, dtype=torch.bool, device=q.device)
+    if causal:
+        live = (torch.arange(L, device=q.device)[None, :]
+                <= torch.arange(S, device=q.device)[:, None] + (L - S))
+    mag = torch.einsum("bkgsd,bkld->bkgsl", qf.abs(), kf.abs()) * scale
+    delta = (TF32X3_TERM + 3 * (D // 8) * 2.0 ** -23) * torch.where(
+        live, mag, 0.0).amax(-1)
+    del mag
+    pi = torch.softmax(torch.where(
+        live, torch.einsum("bkgsd,bkld->bkgsl", qf, kf) * scale,
+        AS.NEG_INF), -1)
+    pv = torch.einsum("bkgsl,bkld->bkgsd", pi, vf.abs())
+    bk = AS.tf32x3_bk(D)
+    c = (TF32X3_TERM + 3 * (bk // 8) * 2.0 ** -23 + 4 * 2.0 ** -22
+         + (2 * -(-L // bk) + 5) * 2.0 ** -24)
+    return float(((torch.expm1(2 * delta) + c)[..., None] * pv).max())
+
+
 # what the SASS of each library must hold: the bf16 tensor-core kernels
 # warpgroup MMAs (HGMMA) over shared-memory tiles filled by cp.async
 # (LDGSTS; the FFN's stream form fills its ring with it too); the paged
 # decode library's two split-K kernels their cp.async key rings, and the
-# f32 3xTF32 GEMMs TF32 warpgroup MMAs (HGMMA ... .TF32) over cp.async
-# rings, counted in every instance of each kernel function
+# f32 3xTF32 GEMMs and attention TF32 warpgroup MMAs (HGMMA ... .TF32)
+# over cp.async rings, counted in every instance of each kernel function
 SASS_NEEDS = {"attn_stream": ("HGMMA", "LDGSTS"),
               "qkv_proj": ("HGMMA", "LDGSTS"),
               "ffn_act": ("HGMMA", "LDGSTS"),
@@ -617,7 +669,8 @@ SASS_PER_FUNCTION = {
                      "paged_decode_flat_kernel": ("LDGSTS",)},
     "ffn_act": {"ffn_up_tf32_kernel": TF32_NEEDS,
                 "ffn_down_tf32_kernel": TF32_NEEDS},
-    "qkv_proj": {"qkv_tf32_kernel": TF32_NEEDS}}
+    "qkv_proj": {"qkv_tf32_kernel": TF32_NEEDS},
+    "attn_stream": {"attn_tf32_kernel": TF32_NEEDS}}
 
 
 def sass_functions(sass: str) -> dict:
@@ -744,7 +797,13 @@ def tile_banner(dev: str = "cuda") -> dict:
                  "BQ": AS.WGMMA_BQ, "BK": AS.WGMMA_BK,
                  "stages": AS.WGMMA_STAGES,
                  "smem": {hd: AS.wgmma_smem_bytes(hd)
-                          for hd in AS.HEAD_DIMS}},
+                          for hd in AS.HEAD_DIMS},
+                 "tf32x3_BQ": AS.TF32X3_BQ,
+                 "tf32x3_warpgroups": AS.TF32X3_WGS,
+                 "tf32x3_BK": {hd: AS.tf32x3_bk(hd)
+                               for hd in AS.TF32X3_HEAD_DIMS},
+                 "tf32x3_smem": {hd: AS.tf32x3_smem_bytes(hd)
+                                 for hd in AS.TF32X3_HEAD_DIMS}},
              "qkv_proj": {
                  "BM": [64, 128], "BN": QK.WGMMA_BN, "BK": QK.WGMMA_BK,
                  "stages": [QK.wgmma_stages(w) for w in (1, 2)],
@@ -784,8 +843,8 @@ def tile_banner(dev: str = "cuda") -> dict:
         return tiles
     la, lq = build.load("attn_stream"), build.load("qkv_proj")
     lp = build.load("paged_decode")
-    for fn in (la.attn_stream_smem_bytes, lq.qkv_proj_smem_bytes,
-               lp.paged_decode_flat_smem_bytes):
+    for fn in (la.attn_stream_smem_bytes, la.attn_stream_tf32_smem_bytes,
+               lq.qkv_proj_smem_bytes, lp.paged_decode_flat_smem_bytes):
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     for fn in (lp.paged_decode_tiered_smem_bytes,
                lp.paged_decode_tiered_blocks_per_sm):
@@ -814,6 +873,11 @@ def tile_banner(dev: str = "cuda") -> dict:
         got = la.attn_stream_smem_bytes(hd)
         require(got == want, f"attn_stream smem at Dh {hd}: library {got}, "
                              f"mirror {want}")
+    for hd in AS.HEAD_DIMS:
+        got = la.attn_stream_tf32_smem_bytes(hd)
+        want = tiles["attn_stream"]["tf32x3_smem"].get(hd, 0)
+        require(got == want, f"attn_stream tf32x3 smem at Dh {hd}: library "
+                             f"{got}, mirror {want}")
     for wgs in (1, 2):
         got, want = lq.qkv_proj_smem_bytes(10 + wgs), QK.wgmma_smem_bytes(wgs)
         require(got == want, f"qkv_proj GEMM smem at {wgs} warpgroups: "
@@ -1023,6 +1087,32 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
             return "wgmma"
         return "tf32x3" if M >= QK.TF32X3_MIN_M else "fma"
 
+    def attn_form(dt, Dh):
+        """The attn_stream form expected for ``dt`` at head dim Dh."""
+        if dt == "bfloat16":
+            return "wgmma"
+        return "tf32x3" if Dh in AS.TF32X3_HEAD_DIMS else "fma"
+
+    def attn_case(label, dt, q, k, v, got=None, causal=True, main=None):
+        """One attn_stream case, q (B, H, S, D) and k / v (B, Hkv, L, D):
+        the kernel's output (``got``, else a call on these views) against
+        the plain twin, the form that ran asserted; a tf32x3 case also
+        records the bound of its 3xTF32 split and is held to it."""
+        if got is None:
+            got = AS.attn_stream(q, k, v, causal=causal)
+        err = max_err(got, AS.attn_stream_plain(q, k, v, causal))
+        form = attn_form(dt, q.shape[3])
+        require(dev.type != "cuda" or AS.attn_stream.variant == form,
+                f"attn_stream {label} {dt}: ran the "
+                f"{AS.attn_stream.variant} form, expected {form}")
+        extra = None
+        if form == "tf32x3":
+            extra = {"split_bound": tf32x3_attn_bound(q, k, v, causal)}
+            require(err <= extra["split_bound"],
+                    f"attn_stream {label}: {err} past its 3xTF32 bound "
+                    f"{extra['split_bound']}")
+        record("attn_stream", f"{label} ({form})", dt, err, main, extra)
+
     def chain_of(x, wu, wg, wd, kind="silu_gated"):
         def call():
             return (FF.activation(x @ wu, kind) * (x @ wg)) @ wd
@@ -1140,17 +1230,12 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         for (arch, H_, Hk_, Dh, S_) in (("stablelm", 32, 8, 160, 256),
                                         ("starcoder2", 36, 4, 128, 256),
                                         ("paligemma", 8, 1, 256, 320)):
-            require(AS.kernel_variant(tdt, Dh) == ("wgmma" if bf else "fma"),
-                    f"attn_stream Dh {Dh} {dt}: form")
-            form = "wgmma" if bf else "fma"
             for (S, L) in ((S_, S_), (64, 320), (77, 200)):
                 q = randn(1, H_, S, Dh, dtype=tdt)
                 k = randn(1, Hk_, L, Dh, dtype=tdt)
                 v = randn(1, Hk_, L, Dh, dtype=tdt, std=0.4)
-                record("attn_stream", f"{arch} H={H_} Hkv={Hk_} Dh={Dh} "
-                                      f"S={S} L={L} ({form})", dt,
-                       max_err(AS.attn_stream(q, k, v, causal=True),
-                               AS.attn_stream_plain(q, k, v, True)))
+                attn_case(f"{arch} H={H_} Hkv={Hk_} Dh={Dh} S={S} L={L}",
+                          dt, q, k, v)
                 if bf and S == L:
                     pairs = S * (S + 1) // 2
                     extra_row(
@@ -1340,17 +1425,12 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         # ---- attn_stream: Dh 64, G 1, H 32: the prefill (S = L = 256)
         # and the chunked parity's extend chunks (128 at q_offset 128; the
         # ragged last 44 of a 300-token prompt)
-        require(AS.kernel_variant(tdt, Dh) == ("wgmma" if bf else "fma"),
-                f"attn_stream Dh {Dh} {dt}: form")
-        form = "wgmma" if bf else "fma"
         for (S, L) in ((256, 256), (128, 256), (44, 300)):
             q = randn(1, H_, S, Dh, dtype=tdt)
             k = randn(1, H_, L, Dh, dtype=tdt)
             v = randn(1, H_, L, Dh, dtype=tdt, std=0.4)
-            record("attn_stream", f"zamba2 H={H_} Hkv={H_} Dh={Dh} S={S} "
-                                  f"L={L} ({form})", dt,
-                   max_err(AS.attn_stream(q, k, v, causal=True),
-                           AS.attn_stream_plain(q, k, v, True)))
+            attn_case(f"zamba2 H={H_} Hkv={H_} Dh={Dh} S={S} L={L}", dt, q,
+                      k, v)
             if bf and S == L:
                 extra_row("attn_stream", f"zamba2 q (1, {H_}, {S}, {Dh}), "
                                          f"kv heads {H_}, causal, split "
@@ -1483,13 +1563,8 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                 q = randn(1, hl, 256, Dh, dtype=tdt)
                 k = randn(1, hkl, 256, Dh, dtype=tdt)
                 v = randn(1, hkl, 256, Dh, dtype=tdt, std=0.4)
-                form = "wgmma" if bf else "fma"
-                require(AS.kernel_variant(tdt, Dh) == form,
-                        f"attn_stream {tag} {dt}: form")
-                record("attn_stream", f"{tag} H={hl} Hkv={hkl} Dh={Dh} "
-                       f"S=L=256 ({form})", dt,
-                       max_err(AS.attn_stream(q, k, v, causal=True),
-                               AS.attn_stream_plain(q, k, v, True)))
+                attn_case(f"{tag} H={hl} Hkv={hkl} Dh={Dh} S=L=256", dt, q,
+                          k, v)
                 if bf:
                     extra_row(
                         "attn_stream", f"{tag} shard q (1, {hl}, 256, {Dh}),"
@@ -1568,17 +1643,12 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         # ---- attn_stream: llama4's prefill (S = L = 256), an extend chunk
         # (S 64 at q_offset 256) and a ragged one: H 40, Hkv 8, Dh 128
         H_, Hk_, Dh = LLAMA_H, LLAMA_HKV, 128
-        form = "wgmma" if bf else "fma"
-        require(AS.kernel_variant(tdt, Dh) == form,
-                f"attn_stream Dh {Dh} {dt}: form")
         for (S, L) in ((256, 256), (64, 320), (77, 200)):
             q = randn(1, H_, S, Dh, dtype=tdt)
             k = randn(1, Hk_, L, Dh, dtype=tdt)
             v = randn(1, Hk_, L, Dh, dtype=tdt, std=0.4)
-            record("attn_stream", f"llama4 H={H_} Hkv={Hk_} Dh={Dh} S={S} "
-                                  f"L={L} ({form})", dt,
-                   max_err(AS.attn_stream(q, k, v, causal=True),
-                           AS.attn_stream_plain(q, k, v, True)))
+            attn_case(f"llama4 H={H_} Hkv={Hk_} Dh={Dh} S={S} L={L}", dt, q,
+                      k, v)
             if bf and S == L:
                 extra_row("attn_stream", f"llama4 q (1, {H_}, {S}, {Dh}), "
                                          f"kv heads {Hk_} (G 5), causal, "
@@ -1707,7 +1777,6 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         k = randn(1, KV_HEADS, L, HEAD_DIM, dtype=tdt)
         v = randn(1, KV_HEADS, L, HEAD_DIM, dtype=tdt, std=0.4)
         out = AS.attn_stream(q, k, v, causal=True)
-        err = max_err(out, AS.attn_stream_plain(q, k, v, True))
         main = None
         if dt == "bfloat16":
             ms = time_ms(lambda: AS.attn_stream(q, k, v, causal=True))
@@ -1723,7 +1792,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
                     "plain_ms": plain, "library_ms": lib,
                     "library_device_ms": lib_dev, "bound_ms": b_ms,
                     "bound_by": b_by}
-        record("attn_stream", "causal S=L=320", dt, err, main)
+        attn_case("causal S=L=320", dt, q, k, v, got=out, main=main)
         # an extend chunk: 64 queries at pos 256 over the first 320 rows of
         # the (1, 512, Hkv, Dh) workspace, sliced as core/fusion.py passes
         # it (strided K/V views, model-layout q and output)
@@ -1731,26 +1800,61 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         v_ws = randn(1, 512, KV_HEADS, HEAD_DIM, dtype=tdt, std=0.4)
         qx = randn(1, 64, HEADS, HEAD_DIM, dtype=tdt)
         kx, vx = k_ws[:, :320], v_ws[:, :320]
-        record("attn_stream", "extend S=64 L=320 workspace slice", dt,
-               max_err(ops.attn_stream(qx, kx, vx, causal=True),
-                       AS.attn_stream_plain(
-                           qx.transpose(1, 2), kx.transpose(1, 2),
-                           vx.transpose(1, 2), True).transpose(1, 2)))
+        attn_case("extend S=64 L=320 workspace slice", dt,
+                  qx.transpose(1, 2), kx.transpose(1, 2), vx.transpose(1, 2),
+                  got=ops.attn_stream(qx, kx, vx, causal=True).transpose(
+                      1, 2))
         del k_ws, v_ws
         # ragged S = L = 200 (not a multiple of the 64-row tiles)
         q = randn(1, HEADS, 200, HEAD_DIM, dtype=tdt)
         k = randn(1, KV_HEADS, 200, HEAD_DIM, dtype=tdt)
         v = randn(1, KV_HEADS, 200, HEAD_DIM, dtype=tdt, std=0.4)
-        record("attn_stream", "ragged causal S=L=200", dt,
-               max_err(AS.attn_stream(q, k, v, causal=True),
-                       AS.attn_stream_plain(q, k, v, True)))
+        attn_case("ragged causal S=L=200", dt, q, k, v)
         # fastvlm-0.6b's heads: H 14, Hkv 2, Dh 64
         q = randn(1, 14, 320, 64, dtype=tdt)
         k = randn(1, 2, 320, 64, dtype=tdt)
         v = randn(1, 2, 320, 64, dtype=tdt, std=0.4)
-        record("attn_stream", "H=14 Hkv=2 Dh=64 causal S=L=320", dt,
-               max_err(AS.attn_stream(q, k, v, causal=True),
-                       AS.attn_stream_plain(q, k, v, True)))
+        attn_case("H=14 Hkv=2 Dh=64 causal S=L=320", dt, q, k, v)
+        if dt == "float32":
+            # the training shape (8 x 256 rows, fastvlm-1.7b's heads: the
+            # tf32x3 form, timed in the train phase), and short calls at
+            # Dh 128 and 64: extends of 1 and 16 rows over 300 keys and a
+            # 16-row prefill
+            q = randn(TRAIN_B, HEADS, TRAIN_S, HEAD_DIM, dtype=tdt)
+            k = randn(TRAIN_B, KV_HEADS, TRAIN_S, HEAD_DIM, dtype=tdt)
+            v = randn(TRAIN_B, KV_HEADS, TRAIN_S, HEAD_DIM, dtype=tdt)
+            attn_case(f"training q ({TRAIN_B}, {HEADS}, {TRAIN_S}, "
+                      f"{HEAD_DIM}) G {HEADS // KV_HEADS}", dt, q, k, v)
+            for Dh in (HEAD_DIM, 64):
+                for S, L in ((1, 300), (16, 300), (16, 16)):
+                    q = randn(1, HEADS, S, Dh, dtype=tdt)
+                    k = randn(1, KV_HEADS, L, Dh, dtype=tdt)
+                    v = randn(1, KV_HEADS, L, Dh, dtype=tdt, std=0.4)
+                    attn_case(f"short S={S} L={L} Dh={Dh}", dt, q, k, v)
+            # a NaN in one feature of one q row, then of one k row: the
+            # kernel's output is NaN exactly where the twin's is (that q
+            # row of that head; every row of the group's heads that sees
+            # that key), and the finite rest within the f32 gate
+            for which, at in (("q", (0, 3, 10, 7)), ("k", (0, 1, 20, 5))):
+                q = randn(1, HEADS, 64, HEAD_DIM, dtype=tdt)
+                k = randn(1, KV_HEADS, 64, HEAD_DIM, dtype=tdt)
+                v = randn(1, KV_HEADS, 64, HEAD_DIM, dtype=tdt, std=0.4)
+                (q if which == "q" else k)[at] = float("nan")
+                got = AS.attn_stream(q, k, v, causal=True)
+                want = AS.attn_stream_plain(q, k, v, True)
+                require(AS.attn_stream.variant == "tf32x3",
+                        f"attn_stream NaN in {which}: ran "
+                        f"{AS.attn_stream.variant}")
+                nan = want.isnan()
+                require(bool(nan.any()) and torch.equal(got.isnan(), nan),
+                        f"attn_stream NaN in {which}: {int(nan.sum())} NaN "
+                        f"outputs in the twin, {int(got.isnan().sum())} in "
+                        f"the kernel, {int((got.isnan() != nan).sum())} "
+                        f"placed differently")
+                record("attn_stream", f"NaN in {which}{list(at)} (tf32x3: "
+                       f"{int(nan.sum())} NaN as the twin)", dt,
+                       max_err(got[~nan], want[~nan]))
+        del q, k, v
         # ---- paged_decode_tiered: hot window 128, max_len 512, 128-token
         # pages; cold int8 with scales in 0.002-0.008
         B, W, ML, G = 4, 128, 512, HEADS // KV_HEADS
@@ -2110,9 +2214,7 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
         q = randn(1, H3, 256, HEAD_DIM, dtype=tdt)
         k = randn(1, H3, 256, HEAD_DIM, dtype=tdt)
         v = randn(1, H3, 256, HEAD_DIM, dtype=tdt, std=0.4)
-        record("attn_stream", "Hkv=20 G=1 causal S=L=256", dt,
-               max_err(AS.attn_stream(q, k, v, causal=True),
-                       AS.attn_stream_plain(q, k, v, True)))
+        attn_case("Hkv=20 G=1 causal S=L=256", dt, q, k, v)
         del q, k, v
         dense_widths(dt)
         ssm_widths(dt)
@@ -2135,9 +2237,8 @@ def kernel_phase(pk: dict, dev: str = "cuda", timer=time_ms,
             q = randn(2, 6, S, Dh, dtype=getattr(torch, dt))
             k = randn(2, 3, L, Dh, dtype=getattr(torch, dt))
             v = randn(2, 3, L, Dh, dtype=getattr(torch, dt), std=0.4)
-            record("attn_stream", f"S={S} L={L} causal={causal} D={Dh}",
-                   dt, max_err(AS.attn_stream(q, k, v, causal=causal),
-                               AS.attn_stream_plain(q, k, v, causal)))
+            attn_case(f"S={S} L={L} causal={causal} D={Dh}", dt, q, k, v,
+                      causal=causal)
     # the FFN forms on ragged shapes, f32 and bf16: M 1, 3, 5 (the stream
     # form), 63, 65, 257 (wgmma in bf16, the FMA tiles in f32); D 320 (a
     # ragged last 64-deep tile); F 1000 with weights in the model's type
@@ -3469,16 +3570,24 @@ def llama4_phase(pk: dict, dev: str = "cuda") -> dict:
 # card-vs-host gradient check and the resume check at a 2-layer cut
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CUT = 8, 256, 6, 2
 # device µs a call of the f32 fma forms at these shapes, measured before
-# the tf32x3 forms (PERF.md §6 rows 3 and 5; NVIDIA H100 80GB HBM3,
+# the tf32x3 forms (PERF.md §6 rows 2, 3 and 5; NVIDIA H100 80GB HBM3,
 # 700.00 W): the times the tf32x3 forms are printed beside
-FMA_US_BEFORE = {"ffn_act": 19_646.0, "qkv_proj": 631.1}
-# the port's kernels by device name: a profiled step's forward kernels
-OWN_KERNELS = ("fused_norm_kernel", "qkv_fma_kernel", "qkv_gemv_kernel",
-               "qkv_wgmma_kernel", "qkv_tf32_kernel", "attn_fma_kernel",
-               "attn_wgmma_kernel", "ffn_up_kernel", "ffn_act_kernel",
-               "ffn_down_kernel", "ffn_reduce_kernel", "ffn_stream_mma_kernel",
-               "ffn_up_tf32_kernel", "ffn_down_tf32_kernel",
-               "tf32_split_kernel")
+FMA_US_BEFORE = {"ffn_act": 19_646.0, "qkv_proj": 631.1,
+                 "attn_stream": 252.1}
+# the port's kernels by device name, by wrapper: a profiled step's forward
+# kernels (the split of ffn_act's and qkv_proj's tf32x3 forms is one
+# kernel, tf32_split_kernel, for both)
+OWN_BY_WRAPPER = {
+    "fused_norm": ("fused_norm_kernel",),
+    "qkv_proj": ("qkv_fma_kernel", "qkv_gemv_kernel", "qkv_wgmma_kernel",
+                 "qkv_tf32_kernel"),
+    "attn_stream": ("attn_fma_kernel", "attn_wgmma_kernel",
+                    "attn_tf32_kernel", "attn_pair_split_kernel"),
+    "ffn_act": ("ffn_up_kernel", "ffn_act_kernel", "ffn_down_kernel",
+                "ffn_reduce_kernel", "ffn_stream_mma_kernel",
+                "ffn_up_tf32_kernel", "ffn_down_tf32_kernel"),
+    "tf32 split (ffn_act, qkv_proj)": ("tf32_split_kernel",)}
+OWN_KERNELS = tuple(n for ns in OWN_BY_WRAPPER.values() for n in ns)
 
 
 def _train_model(dev: str, layers: int | None = None):
@@ -3524,15 +3633,17 @@ def train_kernel_grads(pk: dict, dev: str = "cuda") -> dict:
     `KernelGrad` node. On the card each kernel's forward is timed
     beside its plain twin, one library call computing the same function
     and its bound at the f32 peak, with the Function's forward and
-    backward together; `qkv_proj` and `ffn_act` (the tf32x3 form) also
-    with their profiler device time, the 3xTF32 bound (three TF32
-    products at the TF32 peak) and their fma form's earlier time."""
+    backward together; `qkv_proj`, `attn_stream` and `ffn_act` (the
+    tf32x3 forms) also with their profiler device time, the 3xTF32 bound
+    (three TF32 products at the TF32 peak), the library call's device
+    time and their fma form's earlier time."""
     import functools
 
     import torch
     import torch.nn.functional as F
 
     from repro_torch import kernels
+    from repro_torch.kernels import attn_stream as AS
     from repro_torch.kernels import ffn_act as FF
     from repro_torch.kernels import fused_norm as FN
     from repro_torch.kernels import ops
@@ -3637,8 +3748,8 @@ def train_kernel_grads(pk: dict, dev: str = "cuda") -> dict:
                   f"{times['library_ms']:.3f}, bound {b_ms:.3f} ({b_by}); "
                   f"the Function's forward + backward "
                   f"{times['fwd_bwd_ms']:.3f} ms")
-            wrapper = {"ffn_act": FF.ffn_act, "qkv_proj": QK.qkv_proj}.get(
-                name)
+            wrapper = {"ffn_act": FF.ffn_act, "qkv_proj": QK.qkv_proj,
+                       "attn_stream": AS.attn_stream}.get(name)
             if wrapper is not None:
                 with torch.no_grad():
                     call = functools.partial(fn, *inputs)
@@ -3824,10 +3935,14 @@ def train_run(pk: dict, dev: str = "cuda") -> dict:
         rows = device_rows(ka)
         busy = sum(r[2] for r in rows)
         own = sum(r[2] for r in rows if any(n in r[0] for n in OWN_KERNELS))
+        by_wrapper = {w: sum(r[2] for r in rows if any(n in r[0]
+                                                       for n in names))
+                      for w, names in OWN_BY_WRAPPER.items()}
         prof_res = {
             "wall_ms": 1e3 * wall[-1], "busy_ms": busy,
             "idle_share": 1 - busy / (1e3 * wall[-1]),
             "forward_kernels_ms": own, "other_ms": busy - own,
+            "forward_kernels_ms_by_wrapper": by_wrapper,
             "device_launches": sum(r[1] for r in rows),
             "launch_check": profile_launch_check(
                 "train", "step", rows, counts[-1]),
@@ -3853,8 +3968,10 @@ def train_run(pk: dict, dev: str = "cuda") -> dict:
               f"{prof_res['busy_ms']:.1f} ms in "
               f"{prof_res['device_launches']} launches (idle share "
               f"{prof_res['idle_share']:.3f}); the forward kernels "
-              f"{prof_res['forward_kernels_ms']:.1f} ms, everything else "
-              f"{prof_res['other_ms']:.1f} ms")
+              f"{prof_res['forward_kernels_ms']:.1f} ms ("
+              + ", ".join(f"{w} {v:.3f}" for w, v in
+                          prof_res["forward_kernels_ms_by_wrapper"].items())
+              + f"), everything else {prof_res['other_ms']:.1f} ms")
         for r in prof_res["top"]:
             print(f"[profile]   {r['ms']:8.3f} ms {r['launches']:5d} "
                   f"launches  {r['kernel']}")
@@ -4600,7 +4717,8 @@ HEAD_KERNELS = {
     ("fused_norm",): ("fused_norm_kernel",),
     ("qkv_proj",): ("qkv_gemv_kernel", "qkv_wgmma_kernel", "qkv_fma_kernel",
                     "qkv_tf32_kernel"),
-    ("attn_stream",): ("attn_wgmma_kernel", "attn_fma_kernel"),
+    ("attn_stream",): ("attn_wgmma_kernel", "attn_fma_kernel",
+                       "attn_tf32_kernel"),
     ("ffn_act", "ffn_act_int8"): ("ffn_stream_mma_kernel", "ffn_up_kernel",
                                   "ffn_act_kernel", "ffn_up_tf32_kernel"),
     ("paged_decode_tiered",): ("paged_decode_tiered_kernel",),

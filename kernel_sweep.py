@@ -50,17 +50,29 @@ pre-dequantized) weights -- a chain of kernels, not one call. The host
 section also breaks down the host time of an `ffn_act` / `ffn_act_int8`
 call at decode (x (4, D), a narrow F so the card keeps up).
 
-The tf32 section times the f32 forms of `ffn_act` and `qkv_proj` at
-fastvlm-1.7b's widths (D 1536, F 8960; N 1536 / 256 / 256 with bias) over
-M from 16 to the training path's 2048 rows: the CUDA-core "fma" form and
-the 3xTF32 tensor-core "tf32x3" form at every M (each forced by swapping
-the module's TF32X3_MIN_M, the form that ran asserted), each checked
+The tf32 section times the f32 forms of `attn_stream`, then those of
+`ffn_act` and `qkv_proj`. `attn_stream`: "fma" against "tf32x3" (each
+forced by swapping `attn_stream.TF32X3_HEAD_DIMS`, the form that ran
+asserted, each within 1e-4 of the largest element of the plain twin)
+over S from 1 to 512 query rows at Dh 128 (H 12, Hkv 2), Dh 64 (H 14,
+Hkv 2) and Dh 160 (stablelm-12b: H 32, Hkv 8), causal, as a prefill (L
+= S) and as an extend over 256 cached keys (L = S + 256); for each, the
+calls where fma was the faster and by how much (the f32 dispatch takes
+tf32x3 at every S of these head dims); and at the training shape (8, 12, 256, 128), 2 kv heads, both forms' device and
+CUDA-event µs and the µs of each kernel of a call (the split, the
+attention), beside SDPA in f32 (TF32 off) and the bounds at the f32
+CUDA-core and 3xTF32 rates. `ffn_act` and `qkv_proj` at fastvlm-1.7b's
+widths (D 1536, F 8960; N 1536 / 256 / 256 with bias) over M from 16 to
+the training path's 2048 rows: the CUDA-core "fma" form and the 3xTF32
+tensor-core "tf32x3" form at every M (each forced by swapping the
+module's TF32X3_MIN_M, the form that ran asserted), each checked
 against its plain twin (f32, TF32 off, 1e-4 of the largest element),
 beside the cuBLAS chain / torch.addmm x 3; the crossing sets
 `TF32X3_MIN_M`; at M 2048 the device µs of each kernel of a call (the
 split, the GEMMs). Then every phase-2 F split of the FFN's tf32x3 form
 (`ffn_act.tf32x3_plan`) at M 2048 and 320, and ptxas's registers,
-spills and injected waits (C7517) for the new kernel functions.
+spills and injected waits (C7517) for the tf32 kernel functions of all
+three libraries.
 
 It prints the card's name and power limit first and writes
 chiprun_out/kernel_sweep.json (kernel_sweep_host.json for ``--only
@@ -272,6 +284,86 @@ def kernel_us(fn, reps: int = 10) -> dict:
             and "spin_kernel" not in e.key}
 
 
+def attn_tf32_section(out: dict, CS, save) -> None:
+    """attn_stream's f32 forms (see the module docstring), into
+    out["attn_tf32"]: fma against tf32x3 over S at Dh 128, 64 and 160,
+    where fma wins, and the training shape."""
+    import torch
+
+    from repro_torch.kernels import attn_stream as AS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    res = out.setdefault("attn_tf32", {"rows": [], "fma_wins": {}})
+    forms = {"fma": (), "tf32x3": AS.TF32X3_HEAD_DIMS}
+    for Dh, H, Hkv in ((128, 12, 2), (64, 14, 2), (160, 32, 8)):
+        for mode, extra in (("prefill", 0), ("extend", 256)):
+            times = {}
+            for S in (1, 8, 16, 32, 48, 63, 64, 96, 128, 192, 256, 320,
+                      512):
+                L = S + extra
+                q, k = rn(1, H, S, Dh), rn(1, Hkv, L, Dh)
+                v = rn(1, Hkv, L, Dh, std=0.4)
+                ref = AS.attn_stream_plain(q, k, v, True)
+                row = {"Dh": Dh, "H": H, "Hkv": Hkv, "S": S, "L": L}
+                for form, lim in forms.items():
+                    with swapped(AS, "TF32X3_HEAD_DIMS", lim):
+                        err = rel(AS.attn_stream(q, k, v, causal=True), ref)
+                        CS.require(AS.attn_stream.variant == form,
+                                   f"attn_stream S {S}: ran "
+                                   f"{AS.attn_stream.variant}")
+                        CS.require(err <= 1e-4, f"attn_stream {form} Dh "
+                                   f"{Dh} S {S} L {L} off its twin: {err}")
+                        row[f"{form}_err"] = err
+                        row[f"{form}_us"] = 1e3 * CS.device_ms(
+                            lambda: AS.attn_stream(q, k, v, causal=True))
+                times[S] = (row["fma_us"], row["tf32x3_us"])
+                res["rows"].append(row)
+                save()
+                print(f"[sweep] attn tf32 {row}", flush=True)
+            # the calls fma ran faster, with its lead in µs
+            res["fma_wins"][f"Dh{Dh} {mode}"] = {
+                S: t - f for S, (f, t) in times.items() if f < t}
+    print(f"[sweep] attn tf32 calls where fma wins (S: µs ahead): "
+          f"{res['fma_wins']}", flush=True)
+    # the training shape: both forms, SDPA in f32 (TF32 off), the bound
+    B, H, Hkv, S, Dh = 8, 12, 2, 256, 128
+    q, k, v = rn(B, H, S, Dh), rn(B, Hkv, S, Dh), rn(B, Hkv, S, Dh)
+    ref = AS.attn_stream_plain(q, k, v, True)
+    pk = CS.peaks(CS.card_line())
+    nbytes = 2 * B * (H + Hkv) * S * Dh * 4
+    flops = 4 * B * H * Dh * S * (S + 1) // 2
+    row = {"shape": f"q ({B}, {H}, {S}, {Dh}), kv heads {Hkv}, causal",
+           "bound_us_cuda_cores": 1e3 * CS.bound(pk, nbytes, flops,
+                                                 "float32")[0],
+           "bound_us_tf32x3": 1e3 * CS.bound(pk, nbytes, flops,
+                                             "tf32x3")[0]}
+    sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    row["sdpa_us"] = 1e3 * CS.device_ms(sdpa)
+    row["sdpa_event_us"] = 1e3 * CS.event_ms(sdpa)
+    for form, lim in forms.items():
+        with swapped(AS, "TF32X3_HEAD_DIMS", lim):
+            def call():
+                return AS.attn_stream(q, k, v, causal=True)
+            row[f"{form}_err"] = rel(call(), ref)
+            CS.require(AS.attn_stream.variant == form
+                       and row[f"{form}_err"] <= 1e-4,
+                       f"attn_stream training shape {form}: {row}")
+            row[f"{form}_us"] = 1e3 * CS.device_ms(call)
+            row[f"{form}_event_us"] = 1e3 * CS.event_ms(call)
+            row[f"{form}_kernels_us"] = kernel_us(call)
+    res["training"] = row
+    save()
+    print(f"[sweep] attn tf32 training shape {row}", flush=True)
+
+
 def tf32_section(out: dict, CS, build, save) -> None:
     """The f32 forms' crossing and the tf32x3 form's phase-2 split (see
     the module docstring), into out["tf32"]."""
@@ -351,7 +443,7 @@ def tf32_section(out: dict, CS, build, save) -> None:
         rows.append(row)
         save()
         print(f"[sweep] tf32 ffn phase-2 split {row}", flush=True)
-    for name in ("ffn_act", "qkv_proj"):
+    for name in ("attn_stream", "ffn_act", "qkv_proj"):
         lines = build.build_logs.get(name, "").splitlines()
         for i, line in enumerate(lines):
             if "tf32" in line and "Compiling entry" in line:
@@ -393,11 +485,14 @@ def main(argv=None) -> int:
                                                                indent=1))
         return 0
     if only == {"tf32"}:
-        build.build_all(("ffn_act", "qkv_proj"))
+        build.build_all(("attn_stream", "ffn_act", "qkv_proj"))
         res = {"card": CS.card_line()}
-        tf32_section(res, CS, build, lambda: (
-            dst / "kernel_sweep_tf32.json").write_text(json.dumps(res,
-                                                                  indent=1)))
+
+        def save_tf32():
+            (dst / "kernel_sweep_tf32.json").write_text(json.dumps(
+                res, indent=1))
+        attn_tf32_section(res, CS, save_tf32)
+        tf32_section(res, CS, build, save_tf32)
         return 0
     from repro_torch.core import kv_tiers as KT
     from repro_torch.kernels import attn_stream as AS
@@ -722,6 +817,7 @@ def main(argv=None) -> int:
         host_section(out, build)
         save()
     if "tf32" in only:
+        attn_tf32_section(out, CS, save)
         tf32_section(out, CS, build, save)
     return 0
 

@@ -67,6 +67,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.tf32x3 import tf32x3_pair_ld
 
 ACTS = {"silu_gated": 0, "gelu": 1, "gelu_gated": 1, "relu2": 2}
 SMEM_LIMIT = 232_448     # shared memory one block may use on Hopper
@@ -86,7 +87,6 @@ WGMMA_BK, WGMMA_MAX_STAGES, WGMMA_BN = 64, 6, 128
 # the tensor cores' sums are added into the f32 accumulator every
 # TF32_FLUSH tiles
 TF32_BM, TF32_BN, TF32_BK, TF32_MAX_STAGES = 128, 128, 32, 8
-TF32_PAIR = 16           # a pair block: 16 hi values, then their 16 lo
 TF32_FLUSH = 2
 TF32X3_MIN_M = 48        # f32 rows from which the tf32x3 form runs:
                          # kernel_sweep.py's tf32 section (fma 484 µs
@@ -245,13 +245,6 @@ def tf32x3_plan(M: int, D: int, F_: int, n_sms: int
              key=lambda k: (-(-tiles * k // n_sms) / k, k))
     k_chunk = -(-steps // ks) * TF32_BK
     return -(-F_ // k_chunk), k_chunk, 0
-
-
-def tf32x3_pair_ld(K: int) -> int:
-    """f32 elements a row of K columns takes in a tf32x3 pair plane:
-    blocks of TF32_PAIR hi values, each followed by its TF32_PAIR lo
-    values."""
-    return -(-K // TF32_PAIR) * 2 * TF32_PAIR
 
 
 def tf32x3_scratch(M: int, D: int, F_: int, gated: bool) -> int:

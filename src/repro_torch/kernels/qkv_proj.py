@@ -40,6 +40,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.tf32x3 import tf32x3_pair_ld
 
 
 def qkv_proj_plain(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
@@ -71,7 +72,6 @@ SMEM_LIMIT = 232_448     # shared memory one block may use on Hopper
 # 128 tiles, 32-deep f32 tiles of two pair blocks (16 hi, then 16 lo
 # values) a row)
 TF32_BM, TF32_BN, TF32_BK, TF32_MAX_STAGES = 128, 128, 32, 8
-TF32_PAIR = 16           # a pair block: 16 hi values, then their 16 lo
 TF32X3_MIN_M = 16        # f32 rows from which the tf32x3 form runs:
                          # kernel_sweep.py's tf32 section (at M 16
                          # tf32x3 133 µs, fma 174; fewer rows untimed)
@@ -134,11 +134,9 @@ def tf32x3_smem_bytes() -> int:
 
 
 def tf32x3_scratch(M: int, D: int, ns: tuple) -> int:
-    """f32 elements of the tf32x3 workspace: the pair planes (a row of D:
-    blocks of TF32_PAIR hi values, each followed by its TF32_PAIR lo
-    values) of x (M rows) and of the three weights transposed and stacked
-    (sum ns rows)."""
-    return (M + sum(ns)) * -(-D // TF32_PAIR) * 2 * TF32_PAIR
+    """f32 elements of the tf32x3 workspace: the pair planes of x (M rows
+    of D) and of the three weights transposed and stacked (sum ns rows)."""
+    return (M + sum(ns)) * tf32x3_pair_ld(D)
 
 
 @functools.lru_cache(maxsize=256)

@@ -1136,8 +1136,12 @@ def test_attn_stream_kv_split_partitions_key_tiles(B, H, S, L, causal):
 
 @pytest.mark.parametrize("head_dim", AS.HEAD_DIMS)
 def test_attn_stream_variant_by_dtype(head_dim):
+    """bf16 runs the wgmma kernel; f32 the 3xTF32 tensor-core kernel at
+    the head dims its tiles fit (64, 128, 160), the CUDA-core kernel at
+    16, 32 and 256."""
     assert AS.kernel_variant(torch.bfloat16, head_dim) == "wgmma"
-    assert AS.kernel_variant(torch.float32, head_dim) == "fma"
+    assert AS.kernel_variant(torch.float32, head_dim) == (
+        "tf32x3" if head_dim in (64, 128, 160) else "fma")
 
 
 @pytest.mark.parametrize("dtype,head_dim,exc", [

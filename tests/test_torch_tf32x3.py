@@ -24,6 +24,7 @@ import torch
 from repro.kernels import ref as RREF
 from repro_torch.kernels import ffn_act as FF
 from repro_torch.kernels import qkv_proj as QK
+from repro_torch.kernels import tf32x3 as TF
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -185,11 +186,11 @@ def test_ffn_tf32x3_smem_fits_hopper(gated):
 def test_qkv_tf32x3_smem_fits_hopper():
     b = QK.tf32x3_smem_bytes()
     assert b == FF.tf32x3_smem_bytes() and b <= QK.SMEM_LIMIT
-    assert (QK.TF32_BM, QK.TF32_BN, QK.TF32_BK, QK.TF32_PAIR) == (
-        FF.TF32_BM, FF.TF32_BN, FF.TF32_BK, FF.TF32_PAIR)
+    assert (QK.TF32_BM, QK.TF32_BN, QK.TF32_BK) == (
+        FF.TF32_BM, FF.TF32_BN, FF.TF32_BK)
     # a pair block (16 hi, 16 lo f32) is one 128-byte swizzled line; a
     # k-tile holds whole blocks of whole 8-deep k-steps
-    assert 8 * QK.TF32_PAIR == 128 and QK.TF32_BK % QK.TF32_PAIR == 0
+    assert 8 * TF.TF32_PAIR == 128 and QK.TF32_BK % TF.TF32_PAIR == 0
 
 
 @pytest.mark.parametrize("D", F32_DS)
@@ -217,7 +218,7 @@ def test_ffn_tf32x3_plan_covers_every_f32_shape(D, F_):
             # pair planes: a row of K is ceil(K / 16) blocks of 16 hi and
             # 16 lo values; x, W_up^T [, W_gate^T] of D, W_down^T, h of F
             ldd, ldf = -(-D // 16) * 32, -(-F_ // 16) * 32
-            assert FF.tf32x3_pair_ld(D) == ldd
+            assert TF.tf32x3_pair_ld(D) == ldd
             assert FF.tf32x3_scratch(M, D, F_, gated) == (
                 (M + (2 if gated else 1) * F_) * ldd + (D + M) * ldf)
 
