@@ -43,6 +43,7 @@ from repro_torch.core import kv_tiers as KT
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.runtime import trace
 
 FFN_KINDS = ("gelu", "silu_gated", "gelu_gated", "relu2")
 
@@ -80,6 +81,7 @@ def apply_norm(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return ops.fused_norm(x, p["scale"], p["bias"], kind="layer")
 
 
+@trace.traced("ffn")
 def apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor,
               mlp_type: str | None = None,
               dropless: bool = True, tp=None, dp=None) -> torch.Tensor:
@@ -151,6 +153,7 @@ def apply_attention_seq(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return A.attn_out(p, cfg, o, tp), cache
 
 
+@trace.traced("attn.extend")
 def apply_attention_extend(p: dict, cfg: ModelConfig, x: torch.Tensor,
                            positions: torch.Tensor, cache: dict, pos: int,
                            length, commit: bool, tp=None
@@ -168,31 +171,38 @@ def apply_attention_extend(p: dict, cfg: ModelConfig, x: torch.Tensor,
     workspace holds every kv head (the chunk's rows gathered to it) and
     the local queries attend their own."""
     pos = int(pos)
-    q, k, v = A.qkv_proj(p, cfg, x, positions)
-    if tp is not None:
-        k, v = tp.kv_full(k), tp.kv_full(v)
+    with trace.span("attn.qkv"):
+        q, k, v = A.qkv_proj(p, cfg, x, positions)
+        if tp is not None:
+            k, v = tp.kv_full(k), tp.kv_full(v)
     C = x.shape[1]
-    kf = cache["k_ws"].clone()
-    vf = cache["v_ws"].clone()
-    kf[:, pos:pos + C] = k.to(kf.dtype)
-    vf[:, pos:pos + C] = v.to(vf.dtype)
+    with trace.span("attn.workspace"):
+        kf = cache["k_ws"].clone()
+        vf = cache["v_ws"].clone()
+        kf[:, pos:pos + C] = k.to(kf.dtype)
+        vf[:, pos:pos + C] = v.to(vf.dtype)
+        trace.count_bytes("kv.copy_bytes.workspace", (kf, vf))
     kr, vr = kf[:, :pos + C], vf[:, :pos + C]
     if tp is not None:
         kr, vr = tp.kv_read(kr, 2), tp.kv_read(vr, 2)
-    o = ops.attn_stream(q, kr, vr, causal=True)
-    out = A.attn_out(p, cfg, o, tp)
+    with trace.span("attn.kernel"):
+        o = ops.attn_stream(q, kr, vr, causal=True)
+    with trace.span("attn.out"):
+        out = A.attn_out(p, cfg, o, tp)
     if commit:
         ln = pos + (C if length is None else int(length))
         max_len = kf.shape[1]
-        return out, {
-            "k": KT.store_from_full(kf, cfg.kv_policy, cfg.kv_hot_window,
-                                    ln, max_len),
-            "v": KT.store_from_full(vf, cfg.kv_policy, cfg.kv_hot_window,
-                                    ln, max_len),
-        }
+        with trace.span("attn.commit"):
+            return out, {
+                "k": KT.store_from_full(kf, cfg.kv_policy,
+                                        cfg.kv_hot_window, ln, max_len),
+                "v": KT.store_from_full(vf, cfg.kv_policy,
+                                        cfg.kv_hot_window, ln, max_len),
+            }
     return out, {"k_ws": kf, "v_ws": vf}
 
 
+@trace.traced("attn.decode")
 def apply_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
                            cache: dict, pos, tp=None
                            ) -> tuple[torch.Tensor, dict]:
@@ -201,29 +211,35 @@ def apply_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     Under ``tp`` the new rows of every kv head are appended to the
     full-headed stores and the kernels read the local queries' heads."""
     B = x.shape[0]
-    positions = KT.pos_rows(pos, B, x.device)[:, None]
-    q, k_new, v_new = A.qkv_proj(p, cfg, x, positions)
-    if tp is not None:
-        k_new, v_new = tp.kv_full(k_new), tp.kv_full(v_new)
-    ck = KT.store_append(cache["k"], k_new, pos)
-    cv = KT.store_append(cache["v"], v_new, pos)
+    with trace.span("attn.qkv"):
+        positions = KT.pos_rows(pos, B, x.device)[:, None]
+        q, k_new, v_new = A.qkv_proj(p, cfg, x, positions)
+        if tp is not None:
+            k_new, v_new = tp.kv_full(k_new), tp.kv_full(v_new)
+    with trace.span("attn.append"):
+        ck = KT.store_append(cache["k"], k_new, pos)
+        cv = KT.store_append(cache["v"], v_new, pos)
     rk, rv = (ck, cv) if tp is None else (tp.store_read(ck),
                                           tp.store_read(cv))
     fused = _use_fused_decode(cfg)
-    if "hot" in ck:
-        o = ops.paged_decode_tiered(
-            q, rk, rv, pos, tau=_sparse_read_tau(cfg) if fused else 0.0)
-    elif fused:
-        o = ops.paged_decode_flat(q, rk, rv, pos)
-    else:
-        cd = L.torch_dtype(cfg.compute_dtype)
-        kv, valid = KT.store_read(rk, pos, cd)
-        vv, _ = KT.store_read(rv, pos, cd)
-        mask = valid[None, None, None, :] if valid.dim() == 1 \
-            else valid[:, None, None, :]
-        o = A.gqa_scores_softmax_pv(
-            q, kv, vv, mask, scores_dtype=L.torch_dtype(cfg.attn_scores_dtype))
-    return A.attn_out(p, cfg, o, tp), {"k": ck, "v": cv}
+    with trace.span("attn.kernel"):
+        if "hot" in ck:
+            o = ops.paged_decode_tiered(
+                q, rk, rv, pos, tau=_sparse_read_tau(cfg) if fused else 0.0)
+        elif fused:
+            o = ops.paged_decode_flat(q, rk, rv, pos)
+        else:
+            cd = L.torch_dtype(cfg.compute_dtype)
+            kv, valid = KT.store_read(rk, pos, cd)
+            vv, _ = KT.store_read(rv, pos, cd)
+            mask = valid[None, None, None, :] if valid.dim() == 1 \
+                else valid[:, None, None, :]
+            o = A.gqa_scores_softmax_pv(
+                q, kv, vv, mask,
+                scores_dtype=L.torch_dtype(cfg.attn_scores_dtype))
+    with trace.span("attn.out"):
+        out = A.attn_out(p, cfg, o, tp)
+    return out, {"k": ck, "v": cv}
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +295,7 @@ def apply_mla_extend(p: dict, cfg: ModelConfig, x: torch.Tensor,
     rf = cache["k_rope_ws"].clone()
     cf[:, pos:pos + C] = c_kv.to(cf.dtype)
     rf[:, pos:pos + C] = k_rope.to(rf.dtype)
+    trace.count_bytes("kv.copy_bytes.workspace", (cf, rf))
     mask = A.causal_mask(C, pos + C, offset=pos, device=x.device)
     out = _reduce(A.mla_attention(p, cfg, q_nope, q_rope, cf[:, :pos + C],
                                   rf[:, :pos + C], mask,

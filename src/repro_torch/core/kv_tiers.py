@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core.quant import (compress_spill_hot, decompress_spill_hot,
                                     dequantize_per_token, quantize_per_token)
+from repro_torch.runtime import trace
 
 ENDURANCE_BLOCK = 128  # tokens per endurance-accounting block
 
@@ -210,13 +211,18 @@ def store_from_full(full: torch.Tensor, policy: str, hot_window: int,
 
 
 def store_append(store: dict, new: torch.Tensor, pos) -> dict:
+    """A decode step's append: a new store (its tensors copies of the old,
+    counter ``kv.copy_bytes.append``) with ``new`` at ``pos``."""
     if "hot" in store:
-        return tiered_append(store, new, pos)
-    flat = store["flat"].clone()
-    B = flat.shape[0]
-    rows = torch.arange(B, device=flat.device)
-    flat[rows, pos_rows(pos, B, flat.device)] = new[:, 0].to(flat.dtype)
-    return {"flat": flat}
+        out = tiered_append(store, new, pos)
+    else:
+        flat = store["flat"].clone()
+        B = flat.shape[0]
+        rows = torch.arange(B, device=flat.device)
+        flat[rows, pos_rows(pos, B, flat.device)] = new[:, 0].to(flat.dtype)
+        out = {"flat": flat}
+    trace.count_bytes("kv.copy_bytes.append", out)
+    return out
 
 
 def store_read(store: dict, pos, dtype=torch.bfloat16

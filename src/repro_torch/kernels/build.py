@@ -21,6 +21,8 @@ import pathlib
 import shutil
 import subprocess
 
+from repro_torch.runtime import trace
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 LIBRARIES = ("fused_norm", "attn_stream", "ffn_act", "ffn_act_int8",
              "paged_decode", "qkv_proj")
@@ -83,6 +85,7 @@ def build_all(names=LIBRARIES) -> list[str]:
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    trace.count("kernels.built", len(todo))
     return todo
 
 
@@ -90,11 +93,13 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+        with trace.span("setup.kernel_load." + name):
+            build_all((name,))
+            lib = ctypes.CDLL(str(library_path(name)))
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
+        trace.count("kernels.loaded")
     return lib
 
 

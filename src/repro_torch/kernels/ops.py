@@ -36,6 +36,7 @@ from repro_torch.kernels import ffn_act as _ffn
 from repro_torch.kernels import fused_norm as _norm
 from repro_torch.kernels import paged_decode as _paged
 from repro_torch.kernels import qkv_proj as _qkv
+from repro_torch.runtime import trace
 
 PAGED_DECODE_BLOCK = 128  # cold-page tokens per table entry (= endurance blk)
 
@@ -55,18 +56,21 @@ class KernelGrad(torch.autograd.Function):
     """``kernel(*inputs)`` forward; backward through ``plain(*inputs)``,
     the same function in plain PyTorch, recomputed under autograd on the
     saved inputs. ``inputs`` are tensors or None; the outputs a tensor
-    or a tuple of tensors."""
+    or a tuple of tensors. ``name`` (the kernel wrapper's) names the
+    backward's span, "grad.<name>", which runs on the autograd engine's
+    thread."""
 
     @staticmethod
-    def forward(ctx, kernel, plain, *inputs):
+    def forward(ctx, name, kernel, plain, *inputs):
+        ctx.span = "grad." + name
         ctx.plain = plain
         ctx.save_for_backward(*inputs)
         return _call(kernel, *inputs)
 
     @staticmethod
     def backward(ctx, *grads):
-        need = ctx.needs_input_grad[2:]
-        with torch.enable_grad():
+        need = ctx.needs_input_grad[3:]
+        with trace.span(ctx.span), torch.enable_grad():
             xs = [t if t is None else t.detach().requires_grad_(n)
                   for t, n in zip(ctx.saved_tensors, need)]
             outs = (ctx.plain(*xs) if WALK is None
@@ -75,7 +79,8 @@ class KernelGrad(torch.autograd.Function):
             wrt = [x for x, n in zip(xs, need) if n]
             got = iter(torch.autograd.grad(outs, wrt, grads,
                                            allow_unused=True))
-        return (None, None, *(next(got) if n else None for n in need))
+        return (None, None, None,
+                *(next(got) if n else None for n in need))
 
 
 def _recording(*inputs) -> bool:
@@ -105,7 +110,8 @@ def attn_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     transposed views in place and writes straight into the model-layout
     output."""
     if _recording(q, k, v):
-        return KernelGrad.apply(functools.partial(_attn_call, causal=causal),
+        return KernelGrad.apply("attn_stream",
+                                functools.partial(_attn_call, causal=causal),
                                 functools.partial(_attn_plain, causal=causal),
                                 q, k, v)
     return _call(_attn_call, q, k, v, causal)
@@ -138,8 +144,9 @@ def paged_decode_tiered(q: torch.Tensor, k_store: dict, v_store: dict,
     a (B,) tensor of per-slot positions (the token just appended).
     Returns (B,1,H,D)."""
     B, _, H, D = q.shape
-    args, kw = paged_decode_tiered_operands(q, k_store, v_store, pos,
-                                            tau=tau, block_k=block_k)
+    with trace.span("paged_decode.operands"):
+        args, kw = paged_decode_tiered_operands(q, k_store, v_store, pos,
+                                                tau=tau, block_k=block_k)
     return _call(_paged.paged_decode_tiered, *args, **kw).reshape(
         B, H, D)[:, None]
 
@@ -168,8 +175,9 @@ def paged_decode_flat(q: torch.Tensor, k_store: dict, v_store: dict, pos, *,
     read in place. q (B,1,H,D); ``pos`` an int or a (B,) tensor of
     per-slot positions. Returns (B,1,H,D)."""
     B, _, H, D = q.shape
-    args, kw = paged_decode_flat_operands(q, k_store, v_store, pos,
-                                          block_k=block_k)
+    with trace.span("paged_decode.operands"):
+        args, kw = paged_decode_flat_operands(q, k_store, v_store, pos,
+                                              block_k=block_k)
     return _call(_paged.paged_decode_flat, *args, **kw).reshape(
         B, H, D)[:, None]
 
@@ -191,7 +199,7 @@ def qkv_proj(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     views), never concatenated."""
     if _recording(x, wq, wk, wv, bq, bk, bv):
         return KernelGrad.apply(
-            functools.partial(_qkv_call, _qkv.qkv_proj),
+            "qkv_proj", functools.partial(_qkv_call, _qkv.qkv_proj),
             functools.partial(_qkv_call, _qkv.qkv_proj_plain),
             x, wq, wk, wv, bq, bk, bv)
     return _call(_qkv_call, _qkv.qkv_proj, x, wq, wk, wv, bq, bk, bv)
@@ -218,7 +226,7 @@ def ffn_act(x: torch.Tensor, w_up: torch.Tensor, w_gate, w_down: torch.Tensor,
             kind: str) -> torch.Tensor:
     if _recording(x, w_up, w_gate, w_down):
         return KernelGrad.apply(
-            functools.partial(_rows, _ffn.ffn_act, kind=kind),
+            "ffn_act", functools.partial(_rows, _ffn.ffn_act, kind=kind),
             functools.partial(_rows, _ffn.ffn_act_plain, kind=kind),
             x, w_up, w_gate, w_down)
     return _call(_rows, _ffn.ffn_act, x, w_up, w_gate, w_down, kind=kind)
@@ -228,6 +236,7 @@ def fused_norm(x: torch.Tensor, scale: torch.Tensor, bias, kind: str = "rms"
                ) -> torch.Tensor:
     if _recording(x, scale, bias):
         return KernelGrad.apply(
+            "fused_norm",
             functools.partial(_rows, _norm.fused_norm, kind=kind),
             functools.partial(_rows, _norm.fused_norm_plain, kind=kind),
             x, scale, bias)

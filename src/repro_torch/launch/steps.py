@@ -21,6 +21,7 @@ from repro_torch.launch.cells import batch_logical
 from repro_torch.models import Model
 from repro_torch.models.layers import torch_dtype
 from repro_torch.optim import AdamWConfig, TrainState, adamw_update
+from repro_torch.runtime import trace
 from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map
 
 
@@ -35,9 +36,11 @@ def _value_and_grad(model: Model, params: dict, batch: dict,
             for p in leaves:
                 if p.is_floating_point():
                     p.requires_grad_(True)
-        loss = (model.loss(params, batch) if model.placement is None
-                else model.loss(params, batch, batch_axes))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with trace.span("train.forward"):
+            loss = (model.loss(params, batch) if model.placement is None
+                    else model.loss(params, batch, batch_axes))
+        with trace.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     # a leaf the loss does not reach gets zeros, as from `jax.grad`
     it = iter(torch.zeros_like(p) if g is None else g
               for p, g in zip(leaves, grads))

@@ -54,6 +54,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models import vision as V
 from repro_torch.models.counting import streamed_unit_indices
+from repro_torch.runtime import trace
 from repro_torch.sharding import scope, tree_shardings
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -379,6 +380,7 @@ class Model:
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
+    @trace.traced("embed")
     def _embed(self, params: dict, batch: dict, pos, ramp: bool = False
                ) -> tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
@@ -580,7 +582,15 @@ class Model:
             aux_t = aux_t + aux
         if ucache is None:
             return x, None, aux_t
-        return x, tree_map(lambda *a: torch.stack(a), *ncs), aux_t
+        with trace.span("restack"):
+            new = tree_map(lambda *a: torch.stack(a), *ncs)
+        if trace.enabled():
+            # a decode restacks the committed stores; a prefill chunk
+            # its workspace (or, committing, the stores built from it)
+            ws = any(str(k).endswith("_ws") for k in ucache)
+            trace.count_bytes("kv.copy_bytes." + ("workspace" if ws
+                                                  else "restack"), new)
+        return x, new, aux_t
 
     def _forward(self, params: dict, batch: dict, mode: str,
                  cache: dict | None, pos, plen=None, commit: bool = False,
@@ -590,7 +600,6 @@ class Model:
         (whole prompt from position 0) or "extend" (rows at pos..); the
         last two return the last valid row's logits. The third result
         sums the MoE layers' load-balancing terms (full mode only)."""
-        cfg = self.cfg
         x, positions = self._embed(params, batch, pos,
                                    ramp=(mode == "extend"))
         new_cache = None if cache is None else {}
@@ -605,6 +614,14 @@ class Model:
             aux_total = aux_total + aux
             if cache is not None:
                 new_cache[f"u{ui}"] = nc
+        return self._head(params, x, mode, plen), new_cache, aux_total
+
+    @trace.traced("head")
+    def _head(self, params: dict, x: torch.Tensor, mode: str, plen
+              ) -> torch.Tensor:
+        """The final norm and the logits: every row's in the full
+        forward, else the last valid row's."""
+        cfg = self.cfg
         x = fusion.apply_norm(params["final_norm"], cfg, x)
         if mode != "full":
             x = (x[:, -1:] if plen is None
@@ -623,7 +640,7 @@ class Model:
         else:
             logits = torch.einsum("bsd,dv->bsv", x,
                                   params["lm_head"].to(x.dtype))
-        return logits, new_cache, aux_total
+        return logits
 
     # ------------------------------------------------------------------
     # public entry points

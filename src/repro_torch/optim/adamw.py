@@ -23,6 +23,7 @@ from typing import Any
 import torch
 
 from repro_torch.models.layers import torch_dtype
+from repro_torch.runtime import trace
 from repro_torch.tree import sorted_leaves, tree_leaves, tree_map
 
 
@@ -108,6 +109,7 @@ def clip_by_global_norm(grads, max_norm: float, shardings=None, mesh=None):
 
 
 @torch.no_grad()
+@trace.traced("train.optimizer")
 def adamw_update(state: TrainState, grads, cfg: AdamWConfig,
                  shardings=None, mesh=None) -> tuple[TrainState, dict]:
     """One AdamW step of ``grads`` (a tree shaped like the params) in
@@ -117,8 +119,9 @@ def adamw_update(state: TrainState, grads, cfg: AdamWConfig,
     only the clipping norm is global. Raises `PartialUpdateError` (from
     the cause) where a leaf's update fails: the leaves before it are
     written already."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, shardings,
-                                       mesh)
+    with trace.span("train.clip"):
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, shardings,
+                                           mesh)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

@@ -66,6 +66,7 @@ from repro_torch.models import Model
 from repro_torch.models.counting import (streamed_unit_indices,
                                          weight_stream_split)
 from repro_torch.models.model import SSM_MIXERS
+from repro_torch.runtime import trace
 from repro_torch.serving.kv_pool import (KVPoolState, TieredKVPool,
                                          batch_axes, map_spill_stores,
                                          slot_insert, slot_kv_bytes,
@@ -180,6 +181,7 @@ class InferenceBackend(Protocol):
 class LocalBackend:
     """Single-device executor: every slot decodes in one batched call."""
 
+    @trace.traced("setup.backend")
     def __init__(self, model: Model, params: dict, num_slots: int,
                  max_len: int, *, device=None,
                  n_spill: int | None = None,
@@ -309,6 +311,7 @@ class LocalBackend:
         return self.model.cfg, self.spill_compress
 
     # ---- pool --------------------------------------------------------
+    @trace.traced("setup.init_pool")
     def init_pool(self) -> KVPoolState:
         cache = self.model.init_cache(self.num_slots, self.max_len,
                                       self.device)
@@ -341,6 +344,7 @@ class LocalBackend:
                                      int(slot)))
 
     # ---- step programs -----------------------------------------------
+    @trace.traced("backend.extend")
     def extend_step(self, batch: dict, state: KVPoolState, ext: dict,
                     slot, pos, length, commit: bool):
         pos, length = int(pos), int(length)
@@ -354,18 +358,23 @@ class LocalBackend:
         cache = slot_insert(state.cache, committed, state.axes, int(slot))
         return tok, None, dataclasses.replace(state, cache=cache)
 
+    @trace.traced("backend.decode")
     def decode_step(self, toks, state: KVPoolState, pos, active
                     ) -> tuple[np.ndarray, KVPoolState]:
         """One greedy token per slot: ``toks`` (num_slots, 1), ``pos`` and
         ``active`` (num_slots,). Returns host tokens and the new state."""
         dev = self.device
-        toks = torch.as_tensor(np.asarray(toks), device=dev).long()
-        pos = torch.as_tensor(np.asarray(pos), device=dev).long()
-        active = torch.as_tensor(np.asarray(active), device=dev).bool()
-        logits, new = self.model.decode_step(self.params, toks, state.cache,
-                                             pos)
-        ntoks = logits[:, -1].argmax(-1).to(torch.int32).cpu().numpy()
-        cache = slot_select(new, state.cache, state.axes, active)
+        with trace.span("decode.inputs"):
+            toks = torch.as_tensor(np.asarray(toks), device=dev).long()
+            pos = torch.as_tensor(np.asarray(pos), device=dev).long()
+            active = torch.as_tensor(np.asarray(active), device=dev).bool()
+        with trace.span("decode.model"):
+            logits, new = self.model.decode_step(self.params, toks,
+                                                 state.cache, pos)
+        with trace.span("decode.sample"):
+            ntoks = logits[:, -1].argmax(-1).to(torch.int32).cpu().numpy()
+        with trace.span("decode.select"):
+            cache = slot_select(new, state.cache, state.axes, active)
         return ntoks, dataclasses.replace(state, cache=cache)
 
     # ---- spill lanes ---------------------------------------------------

@@ -53,13 +53,14 @@ import warnings
 
 import numpy as np
 
+from repro_torch.runtime import trace
 from repro_torch.serving.backend import InferenceBackend
 from repro_torch.serving.block_pool import (BlockPool, PrefixHit,
                                       request_prefix_keys)
 from repro_torch.serving.request import FINISHED, PREEMPTED, RUNNING, Request
 from repro_torch.serving.scheduler import (CapacityBudget, FCFSScheduler,
                                      PrefillChunk)
-from repro_torch.serving.telemetry import NullTelemetry
+from repro_torch.serving.telemetry import PHASES, NullTelemetry
 from repro_torch.simulator.hardware import CHIME
 
 
@@ -119,6 +120,29 @@ class _Inflight:
     pos: int
     ext: dict
     prefix: PrefixHit | None = None
+
+
+class _Phase:
+    """One engine phase (a name of `telemetry.PHASES`), opened and closed
+    by one bracket: the program's span (`runtime.trace`) and the
+    telemetry hub's phase. ``args`` land in the hub's span (``count=0``
+    elides it there)."""
+
+    __slots__ = ("tel", "name", "args", "span")
+
+    def __init__(self, tel, name: str, args: dict):
+        assert name in PHASES, name
+        self.tel, self.name, self.args = tel, name, args
+
+    def __enter__(self):
+        self.span = trace.span(self.name)
+        self.span.__enter__()
+        self.tel.phase_begin(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        self.tel.phase_end(**self.args)
+        return self.span.__exit__(*exc)
 
 
 @dataclasses.dataclass
@@ -612,28 +636,27 @@ class Engine:
         req, slot = fl.req, fl.slot
         self._inflight = None
         tel = self.telemetry
-        tel.phase_begin("commit")
-        req.first_token_s = self.clock()
-        req.status = RUNNING
-        req.emit(tok)
-        req.token_times.append(self.clock())
-        tel.request_first_token(req)
-        # the slot's cache now holds this request's stores either way;
-        # record its occupancy so the endurance audit stays truthful
-        self._slot_prefill_len[slot] = req.prompt_len
-        self._slot_total_len[slot] = req.prompt_len
-        if req.finished_by(tok):
-            self._finish(req)            # 1-token request: retires at once
-            self.pool.free(slot)
-            tel.phase_end(rid=req.rid)
-            return [(req.rid, tok, True)]
-        req.slot = slot
-        req.resident_steps = 0           # fresh residency (offload clock)
-        self._slot_req[slot] = req
-        self._tok[slot, 0] = tok
-        self._pos[slot] = req.prompt_len
-        self._active[slot] = True
-        tel.phase_end(rid=req.rid)
+        with self._phase("commit", rid=req.rid):
+            req.first_token_s = self.clock()
+            req.status = RUNNING
+            req.emit(tok)
+            req.token_times.append(self.clock())
+            tel.request_first_token(req)
+            # the slot's cache now holds this request's stores either
+            # way; record its occupancy so the endurance audit stays
+            # truthful
+            self._slot_prefill_len[slot] = req.prompt_len
+            self._slot_total_len[slot] = req.prompt_len
+            if req.finished_by(tok):
+                self._finish(req)        # 1-token request: retires at once
+                self.pool.free(slot)
+                return [(req.rid, tok, True)]
+            req.slot = slot
+            req.resident_steps = 0       # fresh residency (offload clock)
+            self._slot_req[slot] = req
+            self._tok[slot, 0] = tok
+            self._pos[slot] = req.prompt_len
+            self._active[slot] = True
         return [(req.rid, tok, False)]
 
     # ------------------------------------------------------------------
@@ -711,6 +734,10 @@ class Engine:
         self.stats["restores"] += 1
         self.telemetry.request_restored(req, rec.lane, slot, rec.pos)
 
+    def _phase(self, name: str, **args) -> _Phase:
+        return _Phase(self.telemetry, name, args)
+
+    @trace.traced("step")
     def step(self) -> list[tuple[int, int, bool]]:
         """Execute one StepPlan: spill evictions, restores, prefill
         chunks, then one decode token on every active slot. Returns
@@ -729,68 +756,65 @@ class Engine:
             # from LRU eviction without taking refcounts
             self.block_pool.begin_epoch()
             self._probed.clear()
-        tel.phase_begin("plan")
-        kwargs = {}
-        if self._plan_preemptive:
-            kwargs = dict(
-                running=tuple(r for r in self._slot_req
-                              if r is not None),
-                free_lanes=self.pool.free_lanes)
-        plan = self.scheduler.plan(
-            active_slots=self.pool.active_slots,
-            decode_slots=int(self._active.sum()),
-            free_slots=self.pool.free_slots,
-            inflight=None if fl is None else (fl.req, fl.pos),
-            chunk_unit=self.backend.chunk_unit, **kwargs)
-        evictions = tuple(getattr(plan, "evictions", ()))
-        offloads = tuple(getattr(plan, "offloads", ()))
-        restores = tuple(getattr(plan, "restores", ()))
-        tel.phase_end(chunks=len(plan.chunks))
-        tel.phase_begin("evict")
-        for req in evictions:
-            self._evict(req)
-        tel.phase_end(count=len(evictions))
-        tel.phase_begin("idle-offload")
-        for req in offloads:
-            self._evict(req, offload=True)
-        tel.phase_end(count=len(offloads))
-        tel.phase_begin("restore")
-        for req in restores:
-            self._restore(req)
-        tel.phase_end(count=len(restores))
-        tel.phase_begin("chunk-prefill")
-        for ch in plan.chunks:
-            events.extend(self._run_chunk(ch))
-        tel.phase_end(count=len(plan.chunks))
+        with self._phase("plan") as ph:
+            kwargs = {}
+            if self._plan_preemptive:
+                kwargs = dict(
+                    running=tuple(r for r in self._slot_req
+                                  if r is not None),
+                    free_lanes=self.pool.free_lanes)
+            plan = self.scheduler.plan(
+                active_slots=self.pool.active_slots,
+                decode_slots=int(self._active.sum()),
+                free_slots=self.pool.free_slots,
+                inflight=None if fl is None else (fl.req, fl.pos),
+                chunk_unit=self.backend.chunk_unit, **kwargs)
+            evictions = tuple(getattr(plan, "evictions", ()))
+            offloads = tuple(getattr(plan, "offloads", ()))
+            restores = tuple(getattr(plan, "restores", ()))
+            ph.args["chunks"] = len(plan.chunks)
+        with self._phase("evict", count=len(evictions)):
+            for req in evictions:
+                self._evict(req)
+        with self._phase("idle-offload", count=len(offloads)):
+            for req in offloads:
+                self._evict(req, offload=True)
+        with self._phase("restore", count=len(restores)):
+            for req in restores:
+                self._restore(req)
+        with self._phase("chunk-prefill", count=len(plan.chunks)):
+            for ch in plan.chunks:
+                events.extend(self._run_chunk(ch))
         self.stats["steps"] += 1
         # plan.decode is the planner's say (a custom planner may dedicate
         # a step to prefill); _active is the physical guard
         if not plan.decode or not self._active.any():
             tel.step_end(self._gauges() if tel.enabled else None)
             return events
-        tel.phase_begin("decode")
-        ntoks, self.pool.state = self.backend.decode_step(
-            self._tok, self.pool.state, self._pos, self._active)
-        ntoks = np.asarray(ntoks)
-        self.stats["decode_steps"] += 1
-        n_emitted = 0
-        for slot in np.nonzero(self._active)[0]:
-            req = self._slot_req[slot]
-            tok = int(ntoks[slot])
-            req.emit(tok)
-            req.token_times.append(self.clock())
-            tel.token(req)
-            req.resident_steps += 1
-            self._pos[slot] += 1
-            self._slot_total_len[slot] += 1
-            self._tok[slot, 0] = tok
-            self.stats["decode_tokens"] += 1
-            n_emitted += 1
-            done = req.finished_by(tok)
-            events.append((req.rid, tok, done))
-            if done:
-                self._retire(int(slot))
-        tel.phase_end(count=n_emitted)
+        with self._phase("decode") as ph:
+            trace.count("decode.phases")
+            ntoks, self.pool.state = self.backend.decode_step(
+                self._tok, self.pool.state, self._pos, self._active)
+            ntoks = np.asarray(ntoks)
+            self.stats["decode_steps"] += 1
+            n_emitted = 0
+            for slot in np.nonzero(self._active)[0]:
+                req = self._slot_req[slot]
+                tok = int(ntoks[slot])
+                req.emit(tok)
+                req.token_times.append(self.clock())
+                tel.token(req)
+                req.resident_steps += 1
+                self._pos[slot] += 1
+                self._slot_total_len[slot] += 1
+                self._tok[slot, 0] = tok
+                self.stats["decode_tokens"] += 1
+                n_emitted += 1
+                done = req.finished_by(tok)
+                events.append((req.rid, tok, done))
+                if done:
+                    self._retire(int(slot))
+            ph.args["count"] = n_emitted
         tel.step_end(self._gauges() if tel.enabled else None)
         return events
 

@@ -23,6 +23,7 @@ import torch
 from repro_torch.core import kv_tiers as KT
 from repro_torch.models.counting import (kv_elems_per_token,
                                          kv_scale_elems_per_token)
+from repro_torch.runtime import trace
 from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map
 
 
@@ -80,22 +81,28 @@ def batch_axes(model, cache: dict) -> dict:
 
 
 def slot_insert(pool: dict, req: dict, axes: dict, slot: int) -> dict:
-    """Functional scatter of a batch-1 cache into slot ``slot``."""
+    """Functional scatter of a batch-1 cache into slot ``slot`` (a copy
+    of the whole pool: counter ``kv.copy_bytes.insert``)."""
     def leaf(p, r, a):
         out = p.clone()
         out.narrow(a, slot, 1).copy_(r.to(p.dtype))
         return out
-    return tree_map(leaf, pool, req, axes)
+    out = tree_map(leaf, pool, req, axes)
+    trace.count_bytes("kv.copy_bytes.insert", out)
+    return out
 
 
 def slot_select(new: dict, old: dict, axes: dict,
                 active: torch.Tensor) -> dict:
-    """Leafwise ``new`` where the slot is active, else ``old``."""
+    """Leafwise ``new`` where the slot is active, else ``old`` (a copy of
+    the whole pool: counter ``kv.copy_bytes.select``)."""
     def leaf(n, o, a):
         shape = [1] * n.dim()
         shape[a] = n.shape[a]
         return torch.where(active.view(shape), n, o)
-    return tree_map(leaf, new, old, axes)
+    out = tree_map(leaf, new, old, axes)
+    trace.count_bytes("kv.copy_bytes.select", out)
+    return out
 
 
 def map_spill_stores(tree, fn):

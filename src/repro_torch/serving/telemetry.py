@@ -54,6 +54,12 @@ from repro_torch.simulator.chime_sim import (cost_layers, decode_token_terms,
 from repro_torch.simulator.chime_sim import closing_terms as _closing_terms
 from repro_torch.simulator.hardware import CHIME
 
+# the engine's step phases, in step order (`Engine.step` opens each as a
+# program span of `runtime.trace` and, with a hub attached, as the hub's
+# phase; "commit" nests in "chunk-prefill")
+PHASES = ("plan", "evict", "idle-offload", "restore", "chunk-prefill",
+          "commit", "decode")
+
 # trace process ids: one Perfetto process group per facet
 PID_ENGINE = 1      # engine step phases (+ counter tracks)
 PID_SLOTS = 2       # KV slots: occupancy segments per slot
